@@ -1,0 +1,109 @@
+"""AutoDist: the user entry point (counterpart of ``autodist_tpu/autodist.py``)::
+
+    ad = AutoDist(resource_spec=spec, strategy_builder=AllReduce())
+    sess = ad.distribute(loss_fn, params, optim.adamw(3e-4))
+    for batch in data:
+        metrics = sess.run(batch)
+
+``loss_fn(params, batch[, generator]) -> loss`` is single-device code over
+a dict of tensors.  The chief builds the strategy and serialises it; a
+worker (``AUTODIST_WORKER`` set) loads it by ``AUTODIST_STRATEGY_ID``.
+Runs on the spec's first GPU (``cuda``) unless ``device="cpu"``; without a
+GPU and without that request it raises.  ``launch``, ``serve``, ``aot_compile`` and the async PS
+runtime are later slices of the port.
+"""
+from typing import Any, Callable, Optional, Sequence
+
+from autodist_tpu_torch import const
+from autodist_tpu_torch.const import ENV
+from autodist_tpu_torch.kernel.device.resolver import resolve_device, torch_device
+from autodist_tpu_torch.model_item import ModelItem
+from autodist_tpu_torch.resource_spec import ResourceSpec
+from autodist_tpu_torch.strategy.base import Strategy, StrategyCompiler
+from autodist_tpu_torch.utils import logging
+
+_DEFAULT_AUTODIST = {}
+
+# distribute() options of the JAX engine that later slices realise, with
+# the value that means "off"
+_LATER_OPTIONS = {
+    "mutable_state": None, "eval_fn": None, "remat": False, "data_axes": None,
+    "batch_spec": None, "accum_steps": 1, "clip_global_norm": None,
+    "param_specs": None, "batch_mask": False, "sync_schedule": None,
+    "verify": False,
+}
+
+
+def set_default_autodist(o):
+    """One AutoDist per process, unless ``AUTODIST_IS_TESTING``."""
+    if _DEFAULT_AUTODIST and ENV.AUTODIST_IS_TESTING.val is False:
+        raise NotImplementedError("Only one AutoDist instance is supported per process")
+    _DEFAULT_AUTODIST["instance"] = o
+
+
+class AutoDist:
+    def __init__(self, resource_spec_file=None, strategy_builder=None, *,
+                 resource_spec: Optional[ResourceSpec] = None, device=None):
+        if device is not None:
+            device = resolve_device(device)
+        set_default_autodist(self)
+        self._resource_spec = resource_spec or ResourceSpec(
+            resource_spec_file, device=None if device is None else device.type)
+        if device is None and self._resource_spec.gpu_devices:
+            device = torch_device(self._resource_spec.gpu_devices[0][0])
+        self._device = resolve_device(device)
+        if strategy_builder is None:
+            from autodist_tpu_torch.strategy import PSLoadBalancing
+
+            strategy_builder = PSLoadBalancing()  # the JAX package's default
+        self._strategy_builder = strategy_builder
+
+    @property
+    def resource_spec(self):
+        return self._resource_spec
+
+    @property
+    def is_chief(self):
+        return const.IS_AUTODIST_CHIEF
+
+    def _build_or_load_strategy(self, model_item) -> Strategy:
+        if self.is_chief:
+            strategy = self._strategy_builder.build(model_item, self._resource_spec)
+            strategy.serialize()
+            logging.info("Chief built strategy %s", strategy.id)
+        else:
+            sid = ENV.AUTODIST_STRATEGY_ID.val
+            if not sid:
+                raise RuntimeError("Worker process missing AUTODIST_STRATEGY_ID")
+            strategy = Strategy.deserialize(sid)
+            logging.info("Worker loaded strategy %s", strategy.id)
+        return strategy
+
+    def build_strategy(self, model_item) -> Strategy:
+        """Build (or load) and compile the strategy for a captured model."""
+        raw = self._build_or_load_strategy(model_item)
+        return StrategyCompiler(model_item, self._resource_spec).compile(raw)
+
+    def distribute(self, loss_fn: Callable, params: Any, optimizer: Any, *,
+                   sparse_vars: Optional[Sequence[str]] = None, has_aux: bool = False,
+                   has_rng: bool = False, rng: Optional[int] = None, name: str = "",
+                   **options):
+        """Capture single-device code and return a :class:`DistributedSession`.
+
+        ``rng`` is the integer seed of the step generators (``has_rng``).
+        """
+        from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
+        from autodist_tpu_torch.runner import DistributedSession
+
+        unknown = set(options) - set(_LATER_OPTIONS)
+        if unknown:
+            raise TypeError(f"distribute() got unexpected options {sorted(unknown)}")
+        later = sorted(k for k, v in options.items() if v != _LATER_OPTIONS[k])
+        if later or sparse_vars:
+            raise NotImplementedError(
+                f"distribute options {later + (['sparse_vars'] if sparse_vars else [])} "
+                f"are later slices of the port (ROADMAP, Queue A)")
+        item = ModelItem(loss_fn, params, optimizer, sparse_vars=sparse_vars,
+                         has_aux=has_aux, has_rng=has_rng, name=name)
+        strategy = self.build_strategy(item)
+        return DistributedSession(GraphTransformer(strategy, item, self._device), rng=rng)

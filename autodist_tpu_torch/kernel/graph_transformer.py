@@ -1,0 +1,91 @@
+"""GraphTransformer: the compiled strategy -> state and the training step.
+
+Counterpart of ``autodist_tpu/kernel/graph_transformer.py``
+(``init_state`` and the train step of ``_spmd_step``) for the plan this
+slice realises: every variable REPLICATED and synchronised by the bucketed
+all-reduce.  One step is
+
+1. materialise: the stored parameters are what the loss sees;
+2. value and gradient: ``loss_fn(params, batch[, generator])``, then
+   ``torch.autograd.grad``; with ``has_rng`` the generator is folded from
+   (seed, step) (:func:`autodist_tpu_torch.utils.rng.step_generator`);
+3. bucket sync: pack -> reduce -> mean -> unpack (:func:`sync_bucketed`);
+4. optimizer update, which writes the new values back into the stored
+   tensors in place.
+
+It returns the metrics ``{"loss", "step"}``.  More than one replica,
+gradient accumulation, clipping, batch masks and mutable state are later
+slices (ROADMAP, Queue A items 2 and 5) and raise.
+"""
+from collections import OrderedDict
+
+import torch
+
+from autodist_tpu_torch.kernel import partitioner as part
+from autodist_tpu_torch.kernel.synchronization import all_reduce as ar_sync
+from autodist_tpu_torch.utils.rng import step_generator
+
+
+class GraphTransformer:
+    """Builds the session state and the training step."""
+
+    def __init__(self, strategy, model_item, device):
+        self.strategy = strategy
+        self.model_item = model_item
+        self.device = torch.device(device)
+        self.num_replicas = max(1, len(strategy.graph_config.replicas))
+        if self.num_replicas > 1:
+            raise NotImplementedError(
+                f"{self.num_replicas} replicas: data parallelism over more than one "
+                f"GPU is the multi-GPU slice of the port (ROADMAP, Queue A item 2)")
+        if model_item.optimizer is None:
+            raise ValueError("ModelItem has no optimizer")
+        if model_item.has_aux:
+            raise NotImplementedError("has_aux is a later slice of the port")
+        self.names = model_item.var_names
+        self.plans = part.build_var_plans(strategy, model_item, self.num_replicas)
+        for name in self.names:
+            if name not in self.plans:
+                raise ValueError(f"No plan for variable {name}")
+        infos = {v.name: v for v in model_item.var_infos}
+        self.buckets = ar_sync.plan_buckets(
+            self.plans, {n: infos[n].shape for n in self.names},
+            {n: infos[n].dtype for n in self.names})
+
+    def init_state(self, seed=0):
+        """The session state: stored parameters (fresh copies on the device,
+        never aliasing the caller's tensors), the optimizer, codec state,
+        the step counter and the rng seed."""
+        params = self.model_item.params
+        storage = OrderedDict(
+            (n, params[n].detach().to(self.device, copy=True).requires_grad_(True))
+            for n in self.names)
+        return {
+            "params": storage,
+            "opt_state": self.model_item.optimizer.create(storage.values()),
+            "comp": ar_sync.init_compressor_states(self.buckets),
+            "step": 0,
+            "rng": int(seed),
+        }
+
+    def step(self, state, batch):
+        """One training step on a batch already on the device; returns
+        (state, metrics)."""
+        item = self.model_item
+        storage = state["params"]
+        args = (storage, batch)
+        if item.has_rng:
+            args += (step_generator(state["rng"], state["step"], self.device),)
+        loss = item.loss_fn(*args)
+        grads = torch.autograd.grad(loss, list(storage.values()))
+        synced, state["comp"] = ar_sync.sync_bucketed(
+            dict(zip(self.names, grads)), self.buckets, state["comp"],
+            self.num_replicas)
+        with torch.no_grad():
+            for name, p in storage.items():
+                p.grad = synced[name]
+            state["opt_state"].step()
+            for p in storage.values():
+                p.grad = None
+        state["step"] += 1
+        return state, {"loss": loss.detach(), "step": state["step"]}

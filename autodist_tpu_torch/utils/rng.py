@@ -1,0 +1,36 @@
+"""Seeded random generators (counterpart of ``autodist_tpu/utils/rng.py``).
+
+``torch.Generator``s take the place of ``jax.random`` keys.  They give other
+numbers than JAX from the same seed, so tests make shared inputs with numpy.
+
+- :func:`host_generator` -- the root generator of a seed;
+- :func:`step_generator` -- a generator for one training step, folded from
+  (seed, step) so that two steps never reuse a stream (the JAX engine's
+  ``fold_in(rng, step)``).
+"""
+import torch
+
+_MASK64 = (1 << 64) - 1
+
+
+def _mix(x):
+    """splitmix64 finaliser: a bijective 64-bit mix."""
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def fold_in(seed, data):
+    """A new 63-bit seed from ``seed`` and an integer ``data``."""
+    return _mix(_mix(int(seed) & _MASK64) ^ (int(data) & _MASK64)) >> 1
+
+
+def host_generator(seed=0, device="cpu"):
+    """The root generator of ``seed`` on ``device``."""
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def step_generator(seed, step, device="cpu"):
+    """The generator of training step ``step`` under root ``seed``."""
+    return torch.Generator(device=device).manual_seed(fold_in(seed, step))

@@ -1,0 +1,116 @@
+"""The port's flash attention against the JAX package's Pallas kernel.
+
+The same numpy inputs go through ``autodist_tpu.ops.pallas.flash_attention``
+(Pallas interpret mode on the CPU, as its own tests run it) and through
+``autodist_tpu_torch.ops.flash_attention`` on CPU tensors, where the
+wrappers run the kernels' plain versions.  Forward output, logsumexp and
+dq/dk/dv (``jax.grad`` vs ``torch.autograd``) are compared in f32:
+out and lse to atol 1e-5, gradients to atol 1e-4 (f32 sums taken in
+another order).  The CUDA kernels themselves run only on the card
+(``chip_smoke.py`` and ``tests/test_torch_cuda_kernels.py``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from autodist_tpu.ops.pallas import flash_attention as jfa
+from autodist_tpu_torch.ops import flash_attention as tfa
+
+OUT_ATOL, GRAD_ATOL = 1e-5, 1e-4
+
+# (B, Sq, Sk, H, H_kv, D, causal, masked)
+CASES = {
+    "full": (2, 32, 32, 2, 2, 16, False, False),
+    "causal": (2, 48, 48, 4, 4, 16, True, False),
+    "kv_mask_fully_masked_example": (2, 32, 32, 2, 2, 16, False, True),
+    "gqa_g2_causal": (2, 32, 32, 4, 2, 16, True, False),
+    "rectangular_sq_ne_sk": (2, 32, 48, 2, 2, 16, False, False),
+}
+
+
+def _inputs(b, sq, sk, h, hkv, d, masked, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, hkv, d)).astype(np.float32)
+    do = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    mask = None
+    if masked:
+        mask = np.ones((b, sk), bool)
+        mask[0, sk // 2:] = False   # ragged padding
+        mask[1, :] = False          # a fully padded example
+    return q, k, v, do, mask
+
+
+def _jax_out_and_grads(q, k, v, do, mask, causal):
+    kv_mask = None if mask is None else jnp.asarray(mask)
+
+    def f(q_, k_, v_):
+        out = jfa.flash_attention(q_, k_, v_, causal=causal, kv_mask=kv_mask,
+                                  interpret=True)
+        return jnp.sum(out * do), out
+
+    (_, out), grads = jax.jit(jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+def _torch_out_and_grads(q, k, v, do, mask, causal):
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    kv_mask = None if mask is None else torch.from_numpy(mask)
+    out = tfa.flash_attention(tq, tk, tv, causal=causal, kv_mask=kv_mask)
+    (out * torch.from_numpy(do)).sum().backward()
+    return out.detach().numpy(), [t.grad.numpy() for t in (tq, tk, tv)]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_forward_and_grads_match_pallas(case):
+    b, sq, sk, h, hkv, d, causal, masked = CASES[case]
+    q, k, v, do, mask = _inputs(b, sq, sk, h, hkv, d, masked)
+    j_out, j_grads = _jax_out_and_grads(q, k, v, do, mask, causal)
+    t_out, t_grads = _torch_out_and_grads(q, k, v, do, mask, causal)
+    np.testing.assert_allclose(t_out, j_out, atol=OUT_ATOL, rtol=0)
+    for name, tg, jg in zip("qkv", t_grads, j_grads):
+        np.testing.assert_allclose(tg, jg, atol=GRAD_ATOL, rtol=0,
+                                   err_msg=f"d{name}")
+    if masked:   # the fully padded example is exact zeros, fwd and bwd
+        assert not t_out[1].any() and not t_grads[0][1].any()
+
+
+@pytest.mark.parametrize("causal,group", [(True, 1), (False, 2)])
+def test_forward_lse_matches_pallas_fwd(causal, group):
+    """The folded forward's logsumexp rows against ``_flash_fwd``."""
+    b, s, h, d = 2, 32, 4, 16
+    rng = np.random.default_rng(1)
+    q = rng.standard_normal((b * h, s, d)).astype(np.float32)
+    k = rng.standard_normal((b * h // group, s, d)).astype(np.float32)
+    v = rng.standard_normal((b * h // group, s, d)).astype(np.float32)
+    bias = np.zeros((b, s), np.float32)
+    bias[0, 20:] = -1e30
+    scale = d ** -0.5
+    j_out, j_lse = jfa._flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  jnp.asarray(bias), h, scale, causal, s, s, True,
+                                  group=group)
+    t_out, t_lse = tfa.flash_fwd(*(torch.from_numpy(x) for x in (q, k, v, bias)),
+                                 h, scale, causal, group)
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), atol=OUT_ATOL, rtol=0)
+    np.testing.assert_allclose(t_lse.numpy(), np.asarray(j_lse), atol=OUT_ATOL, rtol=0)
+
+
+def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
+    tfa.reset_launches()
+    q = torch.randn(4, 8, 16)
+    k = torch.randn(2, 8, 16)
+    bias = torch.zeros(1, 8)
+    out, lse = tfa.flash_fwd(q, k, k, bias, 4, 0.25, True, group=2)
+    p_out, p_lse = tfa.flash_fwd_plain(q, k, k, bias, 4, 0.25, True, group=2)
+    assert torch.equal(out, p_out) and torch.equal(lse, p_lse)
+    delta = torch.zeros(4, 8)
+    dk, dv = tfa.flash_dkdv(q, k, k, bias, q, lse, delta, 4, 0.25, True, group=2)
+    assert dk.shape == (4, 8, 16) and dk.dtype == torch.float32  # per-q-head partials
+    assert all(n == 0 for n in tfa.LAUNCHES.values())
+    with pytest.raises(RuntimeError, match="cuda"):
+        tfa.flash_fwd(q.to("meta"), k.to("meta"), k.to("meta"), bias.to("meta"),
+                      4, 0.25, True, group=2)
