@@ -6,7 +6,9 @@
         metrics = sess.run(batch)
 
 ``loss_fn(params, batch[, generator]) -> loss`` is single-device code over
-a dict of tensors.  The chief builds the strategy and serialises it; a
+a dict of tensors; with ``mutable_state`` (e.g. a ResNet's batch
+statistics) it is ``loss_fn(params, state, batch[, generator]) -> (loss,
+new_state)``.  The chief builds the strategy and serialises it; a
 worker (``AUTODIST_WORKER`` set) loads it by ``AUTODIST_STRATEGY_ID``.
 Runs on the spec's first GPU (``cuda``) unless ``device="cpu"``; without a
 GPU and without that request it raises.  ``launch``, ``serve``, ``aot_compile`` and the async PS
@@ -27,7 +29,7 @@ _DEFAULT_AUTODIST = {}
 # distribute() options of the JAX engine that later slices realise, with
 # the value that means "off"
 _LATER_OPTIONS = {
-    "mutable_state": None, "eval_fn": None, "remat": False, "data_axes": None,
+    "eval_fn": None, "remat": False, "data_axes": None,
     "batch_spec": None, "accum_steps": 1, "clip_global_norm": None,
     "param_specs": None, "batch_mask": False, "sync_schedule": None,
     "verify": False,
@@ -87,7 +89,7 @@ class AutoDist:
     def distribute(self, loss_fn: Callable, params: Any, optimizer: Any, *,
                    sparse_vars: Optional[Sequence[str]] = None, has_aux: bool = False,
                    has_rng: bool = False, rng: Optional[int] = None, name: str = "",
-                   **options):
+                   mutable_state: Any = None, **options):
         """Capture single-device code and return a :class:`DistributedSession`.
 
         ``rng`` is the integer seed of the step generators (``has_rng``).
@@ -104,6 +106,7 @@ class AutoDist:
                 f"distribute options {later + (['sparse_vars'] if sparse_vars else [])} "
                 f"are later slices of the port (ROADMAP, Queue A)")
         item = ModelItem(loss_fn, params, optimizer, sparse_vars=sparse_vars,
-                         has_aux=has_aux, has_rng=has_rng, name=name)
+                         has_aux=has_aux, has_rng=has_rng, mutable_state=mutable_state,
+                         name=name)
         strategy = self.build_strategy(item)
         return DistributedSession(GraphTransformer(strategy, item, self._device), rng=rng)

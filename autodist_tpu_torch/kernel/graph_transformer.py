@@ -7,15 +7,19 @@ all-reduce.  One step is
 
 1. materialise: the stored parameters are what the loss sees;
 2. value and gradient: ``loss_fn(params, batch[, generator])``, then
-   ``torch.autograd.grad``; with ``has_rng`` the generator is folded from
-   (seed, step) (:func:`autodist_tpu_torch.utils.rng.step_generator`);
+   ``torch.autograd.grad`` with respect to the parameters; with ``has_rng``
+   the generator is folded from (seed, step)
+   (:func:`autodist_tpu_torch.utils.rng.step_generator`).  With mutable
+   state the call is ``loss_fn(params, mutable, batch[, generator]) ->
+   (loss, new_mutable)``; the new state is stored detached, after the
+   cross-replica mean of its float leaves (:func:`replica_mean_state`);
 3. bucket sync: pack -> reduce -> mean -> unpack (:func:`sync_bucketed`);
 4. optimizer update, which writes the new values back into the stored
    tensors in place.
 
 It returns the metrics ``{"loss", "step"}``.  More than one replica,
-gradient accumulation, clipping, batch masks and mutable state are later
-slices (ROADMAP, Queue A items 2 and 5) and raise.
+gradient accumulation, clipping and batch masks are later slices (ROADMAP,
+Queue A items 2 and 5) and raise.
 """
 from collections import OrderedDict
 
@@ -24,6 +28,15 @@ import torch
 from autodist_tpu_torch.kernel import partitioner as part
 from autodist_tpu_torch.kernel.synchronization import all_reduce as ar_sync
 from autodist_tpu_torch.utils.rng import step_generator
+
+
+def replica_mean_state(new_state, num_replicas):
+    """The stored new mutable state: every leaf detached, float leaves (batch
+    statistics) averaged over the replicas as the JAX step's ``pmean``
+    (``kernel/graph_transformer.py:1226-1231``); integer leaves as they are."""
+    return OrderedDict(
+        (n, ar_sync.reduce_mean(t.detach(), num_replicas) if t.is_floating_point()
+         else t.detach()) for n, t in new_state.items())
 
 
 class GraphTransformer:
@@ -66,6 +79,9 @@ class GraphTransformer:
             "comp": ar_sync.init_compressor_states(self.buckets),
             "step": 0,
             "rng": int(seed),
+            "mutable": None if self.model_item.mutable_state is None else OrderedDict(
+                (n, t.detach().to(self.device, copy=True))
+                for n, t in self.model_item.mutable_state.items()),
         }
 
     def step(self, state, batch):
@@ -73,10 +89,14 @@ class GraphTransformer:
         (state, metrics)."""
         item = self.model_item
         storage = state["params"]
-        args = (storage, batch)
+        mutable = state["mutable"]
+        args = (storage, batch) if mutable is None else (storage, mutable, batch)
         if item.has_rng:
             args += (step_generator(state["rng"], state["step"], self.device),)
         loss = item.loss_fn(*args)
+        if mutable is not None:
+            loss, new_mutable = loss
+            state["mutable"] = replica_mean_state(new_mutable, self.num_replicas)
         grads = torch.autograd.grad(loss, list(storage.values()))
         synced, state["comp"] = ar_sync.sync_bucketed(
             dict(zip(self.names, grads)), self.buckets, state["comp"],

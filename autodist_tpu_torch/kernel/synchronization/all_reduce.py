@@ -80,7 +80,7 @@ def _bucket_buf(grads_by_name, b):
     return torch.cat(flats) if len(flats) > 1 else flats[0]
 
 
-def _reduce_mean(buf, num_replicas):
+def reduce_mean(buf, num_replicas):
     """Reduce, then mean over the replicas."""
     if num_replicas == 1:
         return buf
@@ -101,6 +101,6 @@ def sync_bucketed(grads_by_name, buckets, comp_states, num_replicas=1):
     (synced grads by name, new compressor states)."""
     synced = {}
     for b in buckets:
-        reduced = _reduce_mean(_bucket_buf(grads_by_name, b), num_replicas)
+        reduced = reduce_mean(_bucket_buf(grads_by_name, b), num_replicas)
         _unpack_bucket(b, reduced, grads_by_name, synced)
     return synced, dict(comp_states)

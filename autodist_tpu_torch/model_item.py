@@ -8,6 +8,12 @@ flattens a dict pytree: keys sorted at every level.  So the names and their
 order -- and with them the AllReduce builder's groups and buckets -- are
 the JAX package's (GPT: ``h_0/...``, ``h_1/...``, ``h_10/...``, ...,
 ``ln_f/...``, ``wpe``, ``wte``).
+
+With ``mutable_state`` (non-trainable state such as a ResNet's
+``batch_stats``) the model is ``loss_fn(params, state, batch[, generator])
+-> (loss, new_state)``.  The state is flattened by the same names; its
+leaves are no variables of the strategy (they stand in no ``var_infos``), and
+the engine takes the cross-replica mean of its float leaves every step.
 """
 import dataclasses
 import fnmatch
@@ -67,9 +73,14 @@ class ModelItem:
 
     def __init__(self, loss_fn: Callable, params: Any, optimizer: Any = None, *,
                  sparse_vars: Optional[Sequence[str]] = None, has_aux: bool = False,
-                 has_rng: bool = False, name: str = ""):
+                 has_rng: bool = False, mutable_state: Any = None, name: str = ""):
         self.loss_fn = loss_fn
         self.params = flatten_params(params)
+        self.mutable_state = None if mutable_state is None else flatten_params(mutable_state)
+        for n, leaf in (self.mutable_state or {}).items():
+            if not isinstance(leaf, torch.Tensor):
+                raise TypeError(f"mutable state leaf {n!r} is a {type(leaf).__name__}, "
+                                f"not a torch.Tensor")
         self.optimizer = optimizer
         self.has_aux = has_aux
         self.has_rng = has_rng

@@ -4,8 +4,9 @@
 ``run(batch)`` moves a host batch (a dict of numpy arrays or tensors) to
 the device, runs one training step and returns its metrics; the loss stays
 a 0-d device tensor, so the host waits for the device only when the caller
-reads it.  Telemetry, preemption, ``fit`` and checkpoints are later slices
-of the port (ROADMAP, Queue A items 7 and 10).
+reads it.  ``params()`` and ``mutable_state()`` copy the current values to
+the host.  ``evaluate``, telemetry, preemption, ``fit`` and checkpoints are
+later slices of the port (ROADMAP, Queue A items 7 and 10).
 """
 from collections import OrderedDict
 
@@ -38,6 +39,14 @@ class DistributedSession:
         """The current parameters by '/'-joined name, copied to the host."""
         return OrderedDict((n, t.detach().cpu().clone())
                            for n, t in self.state["params"].items())
+
+    def mutable_state(self):
+        """The current mutable state (e.g. batch statistics) by '/'-joined
+        name, copied to the host; None for a model without one."""
+        mutable = self.state["mutable"]
+        if mutable is None:
+            return None
+        return OrderedDict((n, t.cpu().clone()) for n, t in mutable.items())
 
     @property
     def step(self):

@@ -8,26 +8,55 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc::
 Phases (each failure exits non-zero before the last line):
 
 1. prints the card (``nvidia-smi`` name and power limit);
-2. builds the flash-attention kernels from ``autodist_tpu_torch/csrc``;
-3. holds each kernel (forward, dq, dkdv) against its plain PyTorch version
-   on the same bf16 inputs, the plain version computing in f32, at the
-   GPT-2-small attention shape, a GQA case, a key-padding case with fully
-   masked rows and a ragged S = 1000; then times kernel, plain version,
-   ``scaled_dot_product_attention`` (the library yardstick, used nowhere in
-   the port) and computes each kernel's bound at the GPT-2-small shape;
-4. trains GPT-2 small at full width (GPTConfig(): 12 layers, hidden 768, 12
+2. builds the kernels from ``autodist_tpu_torch/csrc`` (flash attention and
+   fused norm, one ``nvcc`` each, started together) and prints the time;
+3. holds each flash kernel (forward, dq, dkdv) against its plain PyTorch
+   version on the same bf16 inputs, the plain version computing in f32, at
+   the GPT-2-small attention shape, a GQA case, a key-padding case with
+   fully masked rows and a ragged S = 1000; then times kernel, plain
+   version, ``scaled_dot_product_attention`` (the library yardstick, used
+   nowhere in the port) and computes each kernel's bound at the
+   GPT-2-small shape;
+4. holds the fused-norm kernels (``bn_fwd``, ``gn_fwd``) against their plain
+   versions run in f32 on the same inputs: batch norm in bf16 at the
+   ResNet-50 stem site (256, 112, 112, 64) (run twice: the two runs must be
+   bitwise equal) and at a stage-4 site (256, 7, 7, 2048), in f32 and bf16
+   at rows = 1000, C = 100 with residual and relu; group norm (G = 32) in
+   bf16 at the gn path's own sites at B=256, the stem (256, 112, 112, 64)
+   and stage 1 (256, 56, 56, 256) (each run twice: bitwise equal) and
+   stage 4 (256, 7, 7, 2048), at B=64 (64, 56, 56, 256) and (64, 56, 56,
+   64), in f32 at an odd (3, 37, 30), G = 10, with residual and relu.
+   Then times kernel, plain version, ``F.batch_norm(training=True)`` /
+   ``F.group_norm`` on the same channels-last tensor (the library
+   yardsticks) and the bound at the two batch-norm shapes above and at
+   (256, 56, 56, 256) and (64, 56, 56, 256) for group norm;
+5. trains GPT-2 small at full width (GPTConfig(): 12 layers, hidden 768, 12
    heads, vocab 50257) through ``AutoDist(..., AllReduce()).distribute``
    for 10 steps at B=8, S=1024 on one seeded token batch, checks the
-   losses and that every step launched each kernel once per layer, and
-   holds step 1's loss against the kernel-free plain attention path;
-5. prints the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   losses and that every step launched each flash kernel once per layer
+   (and no norm kernel), and holds step 1's loss against the kernel-free
+   plain attention path;
+6. trains ResNet-50 at full width (224x224, 1000 classes, ``norm="bn_fused"``)
+   through ``classifier_capture`` and ``distribute(..., mutable_state=...)``
+   for 10 ``sgd_momentum(0.1)`` steps at B=256 on one seeded batch put on
+   the card once (images bf16, labels int64); checks finite losses, the
+   mean of the last three below the first, step 1's loss against the same
+   model with its norms set to ``impl="reference"`` (the plain versions), 53
+   ``bn_fwd`` launches per step (and no other kernel), and batch
+   statistics that are finite and moved; prints step ms, images/s, peak
+   memory and the profile;
+7. the same with ``norm="gn"`` for 5 steps: 53 ``gn_fwd`` launches per step;
+8. prints the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
-Tolerances, kernel vs plain version on the same inputs.  bf16 inputs (the
-tensor-core kernels; plain version in f32): out max-abs <= 1e-2 *
-max(1, max|out|) (bf16 rounding of the output), lse max-abs <= 1e-3, dq,
+Tolerances, kernel vs plain version on the same inputs.  Flash, bf16
+inputs (the tensor-core kernels; plain version in f32): out max-abs <= 1e-2
+* max(1, max|out|) (bf16 rounding of the output), lse max-abs <= 1e-3, dq,
 dk, dv relative Frobenius error <= 1e-2.  f32 inputs (the FMA kernels):
-1e-4 in place of each 1e-2 and 1e-3 (f32 sums in another order).  Step 1
-loss, kernels vs plain attention: relative <= 1e-3.
+1e-4 in place of each 1e-2 and 1e-3 (f32 sums in another order).  Fused
+norm: y max-abs <= 1e-2 * max(1, max|y|) in bf16 (output rounding) and
+1e-4 in f32; mean and var max-abs <= 1e-4 of their largest magnitude (f32
+partial sums in another order).  Step 1 loss, kernels vs plain versions:
+relative <= 1e-3 (GPT-2 and both ResNets).
 """
 import json
 import math
@@ -38,17 +67,25 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-SOURCE = "autodist_tpu_torch/csrc/flash_attention.cu"
-REPLACES = {
-    "flash_fwd": "autodist_tpu/ops/pallas/flash_attention.py:198",
-    "flash_dq": "autodist_tpu/ops/pallas/flash_attention.py:328",
-    "flash_dkdv": "autodist_tpu/ops/pallas/flash_attention.py:367",
+SOURCES = {"flash_attention": "autodist_tpu_torch/csrc/flash_attention.cu",
+           "fused_norm": "autodist_tpu_torch/csrc/fused_norm.cu"}
+KERNELS = {   # kernel -> (source, the TPU kernel's pallas_call)
+    "flash_fwd": ("flash_attention", "autodist_tpu/ops/pallas/flash_attention.py:198"),
+    "flash_dq": ("flash_attention", "autodist_tpu/ops/pallas/flash_attention.py:328"),
+    "flash_dkdv": ("flash_attention", "autodist_tpu/ops/pallas/flash_attention.py:367"),
+    "bn_fwd": ("fused_norm", "autodist_tpu/ops/pallas/fused_norm.py:112"),
+    "gn_fwd": ("fused_norm", "autodist_tpu/ops/pallas/fused_norm.py:262"),
 }
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 TOLERANCES = {"bfloat16": (1e-2, 1e-3, 1e-2), "float32": (1e-4, 1e-4, 1e-4)}
+NORM_Y_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+NORM_STAT_TOL = 1e-4
 LOSS_REL_TOL = 1e-3
 STEPS, BATCH, SEQ = 10, 8, 1024
+RESNET_BATCH, RESNET_STEPS, GN_STEPS, NORM_SITES = 256, 10, 5, 53
+TPU_MAX_FUSED_ROWS = 16384   # autodist_tpu/ops/pallas/fused_norm.py:42, a VMEM bound
 SLEEP_CYCLES = 200_000_000   # ~0.1 s of the SM clock: time to queue the timed runs
 
 
@@ -227,18 +264,162 @@ def measure_kernels(torch, fa):
     return results
 
 
-def train_gpt2_small(torch, fa):
-    """The port's main path: GPT-2 small, AllReduce, 10 adamw steps."""
+def make_norm_case(torch, shape, seed, dtype):
+    """x with per-channel offsets (the E[x^2] - mean^2 cancellation), f32
+    scale and bias, a residual like x."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(*shape, device="cuda", generator=g) * 2
+         + torch.rand(c, device="cuda", generator=g) - 0.5).to(getattr(torch, dtype))
+    scale = torch.rand(c, device="cuda", generator=g) + 0.5
+    bias = torch.randn(c, device="cuda", generator=g) * 0.1
+    res = torch.randn(*shape, device="cuda", generator=g).to(x.dtype)
+    return x, scale, bias, res
+
+
+NORM_CASES = {   # label -> (shape, groups (None: batch norm), act, residual, dtype, repeat)
+    "bn stem bf16 (256, 112, 112, 64)":
+        ((256, 112, 112, 64), None, None, False, "bfloat16", True),
+    "bn stage-4 bf16 (256, 7, 7, 2048)":
+        ((256, 7, 7, 2048), None, None, False, "bfloat16", False),
+    "bn f32 rows 1000 C 100 relu residual": ((1000, 100), None, "relu", True, "float32", False),
+    "bn bf16 rows 1000 C 100 relu residual":
+        ((1000, 100), None, "relu", True, "bfloat16", False),
+    # the gn path's own sites at its batch, B=256: the stem and a stage-1 output
+    "gn G32 bf16 stem (256, 112, 112, 64)": ((256, 112, 112, 64), 32, None, False, "bfloat16",
+                                             True),
+    "gn G32 bf16 stage-1 (256, 56, 56, 256)": ((256, 56, 56, 256), 32, None, False,
+                                               "bfloat16", True),
+    "gn G32 bf16 stage-4 (256, 7, 7, 2048)": ((256, 7, 7, 2048), 32, None, False, "bfloat16",
+                                              False),
+    "gn G32 bf16 (64, 56, 56, 256)": ((64, 56, 56, 256), 32, None, False, "bfloat16", False),
+    "gn G32 bf16 (64, 56, 56, 64)": ((64, 56, 56, 64), 32, None, False, "bfloat16", False),
+    "gn G10 f32 (3, 37, 30) relu residual": ((3, 37, 30), 10, "relu", True, "float32", False),
+}
+
+
+def check_norm_kernels(torch, fn):
+    """Each norm kernel against its plain version in f32; returns the worst
+    y max-abs error of the bf16 cases (the main path's type)."""
+    worst = {"bn_fwd": 0.0, "gn_fwd": 0.0}
+    for i, (label, (shape, groups, act, has_res, dtype, repeat)) in enumerate(
+            NORM_CASES.items()):
+        x, scale, bias, res = make_norm_case(torch, shape, 100 + i, dtype)
+        res = res if has_res else None
+        fres = None if res is None else res.float()
+        if groups is None:
+            y, mean, var = fn.bn_fwd(x, scale, bias, act=act, residual=res)
+            ref_y, ref_mean, ref_var = fn.batch_norm_plain(x.float(), scale, bias, act=act,
+                                                           residual=fres)
+            stats = [("mean", mean, ref_mean), ("var", var, ref_var)]
+        else:
+            y = fn.gn_fwd(x, scale, bias, groups, act=act, residual=res)
+            ref_y = fn.group_norm_plain(x.float(), scale, bias, groups, act=act,
+                                        residual=fres)
+            stats = []
+        torch.cuda.synchronize()
+        err = float((y.float() - ref_y).abs().max())
+        bound = NORM_Y_TOL[dtype] * max(1.0, float(ref_y.abs().max()))
+        line = f"norm check [{label}]: y max-abs {err:.3e} (limit {bound:.3e})"
+        for name, got, want in stats:
+            rel = float((got - want).abs().max()) / float(want.abs().max())
+            line += f", {name} max-abs/max {rel:.3e}"
+            check(rel <= NORM_STAT_TOL, f"{label}: {name} error {rel} > {NORM_STAT_TOL}")
+        print(line)
+        check(y.dtype == x.dtype and bool(torch.isfinite(y).all()),
+              f"{label}: y not finite or not in x's type")
+        check(err <= bound, f"{label}: y max-abs {err} > {bound}")
+        if repeat:   # no atomics: a second run gives the same bits
+            if groups is None:
+                again = fn.bn_fwd(x, scale, bias, act=act, residual=res)
+                same = all(torch.equal(a, b) for a, b in zip((y, mean, var), again))
+            else:
+                same = torch.equal(y, fn.gn_fwd(x, scale, bias, groups, act=act,
+                                                residual=res))
+            check(same, f"{label}: two runs differ")
+            print(f"norm check [{label}]: a second run is bitwise equal")
+        if dtype == "bfloat16":
+            name = "bn_fwd" if groups is None else "gn_fwd"
+            worst[name] = max(worst[name], err)
+        del x, res, y, ref_y
+    torch.cuda.empty_cache()
+    return worst
+
+
+def measure_norm_kernels(torch, fn):
+    """Kernel, plain and library times and the bound at two batch-norm and
+    two group-norm shapes, each a ResNet-50 norm site; the first shape of
+    each kernel (a site of its path at B=256) is the one reported in the
+    kernels line."""
+    import torch.nn.functional as F
+
+    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")   # > the 50 MB L2
+    shapes = [("bn_fwd", (256, 112, 112, 64), None), ("bn_fwd", (256, 7, 7, 2048), None),
+              ("gn_fwd", (256, 56, 56, 256), 32), ("gn_fwd", (64, 56, 56, 256), 32)]
+    results = {}
+    for name, shape, groups in shapes:
+        x, scale, bias, _ = make_norm_case(torch, shape, 7, "bfloat16")
+        xn = x.permute(0, 3, 1, 2)   # the NCHW view of the channels-last memory
+        with torch.no_grad():
+            if groups is None:
+                fns = (lambda: fn.bn_fwd(x, scale, bias),
+                       lambda: fn.batch_norm_plain(x, scale, bias),
+                       lambda: F.batch_norm(xn, None, None, scale, bias, training=True,
+                                            eps=1e-5))
+            else:
+                scale_x, bias_x = scale.to(x.dtype), bias.to(x.dtype)
+                fns = (lambda: fn.gn_fwd(x, scale, bias, groups),
+                       lambda: fn.group_norm_plain(x, scale, bias, groups),
+                       lambda: F.group_norm(xn, groups, scale_x, bias_x, eps=1e-5))
+            n = x.numel()
+            c = shape[-1]
+            # one read of x, one write of y, scale/bias read, mean/var written;
+            # sum, square-add, subtract, multiply, add per element
+            nbytes = 2 * n * x.element_size() + 4 * c * 4
+            flops = 6 * n
+            t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            r = {"ms": time_ms(fns[0], torch, flush),
+                 "plain_ms": time_ms(fns[1], torch, flush, reps=10),
+                 "library_ms": time_ms(fns[2], torch, flush),
+                 "bound_ms": max(t_ops, t_bytes),
+                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                 "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+        print(f"timing {name} {shape}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}: {r['gflop']:.3f} GFLOP, {r['mbytes']:.2f} MB)")
+        results.setdefault(name, r)
+        del x, xn, fns
+        torch.cuda.empty_cache()
+    return results
+
+
+def timed_steps(torch, sess, batch, steps, kernel_modules):
+    """``steps`` steps of the main path, each ended by reading the loss,
+    with every launch count set to 0 just before and read just after;
+    returns (losses, step ms, launches, peak GB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for m in kernel_modules:
+        m.reset_launches()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        metrics = sess.run(batch)
+        losses.append(metrics["loss"].item())   # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {n: c for m in kernel_modules for n, c in m.LAUNCHES.items()}
+    return losses, step_ms, launches, torch.cuda.max_memory_allocated() / 1e9
+
+
+def train_gpt2_small(torch, ad, kernel_modules):
+    """The GPT path: GPT-2 small, AllReduce, 10 adamw steps."""
     import dataclasses
 
     import numpy as np
 
     from autodist_tpu_torch import optim
-    from autodist_tpu_torch.autodist import AutoDist
     from autodist_tpu_torch.models.gpt import GPTConfig
     from autodist_tpu_torch.models.train_lib import gpt_capture
-    from autodist_tpu_torch.resource_spec import ResourceSpec
-    from autodist_tpu_torch.strategy import AllReduce
 
     config = GPTConfig()
     loss_fn, params, sparse = gpt_capture(config, SEQ, seed=0)
@@ -254,22 +435,10 @@ def train_gpt2_small(torch, fa):
     del plain_loss_fn, dev_batch
     torch.cuda.empty_cache()
 
-    spec = ResourceSpec(resource_info={"nodes": [
-        {"address": "localhost", "gpus": [0], "chief": True}]})
-    sess = AutoDist(resource_spec=spec, strategy_builder=AllReduce()).distribute(
-        loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse, has_rng=True)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
-    losses, step_ms = [], []
-    for _ in range(STEPS):
-        t0 = time.perf_counter()
-        metrics = sess.run(batch)
-        losses.append(metrics["loss"].item())   # waits for the step
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(fa.LAUNCHES)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
+    sess = ad.distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
+                         has_rng=True)
+    losses, step_ms, launches, peak_gb = timed_steps(torch, sess, batch, STEPS,
+                                                     kernel_modules)
     steady = statistics.median(step_ms[1:])
     print("train losses: " + ", ".join(f"{x:.5f}" for x in losses))
     print("train step ms: " + ", ".join(f"{x:.2f}" for x in step_ms))
@@ -285,18 +454,129 @@ def train_gpt2_small(torch, fa):
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     check(rel <= LOSS_REL_TOL, f"step 1 loss differs from the plain path by {rel}")
     per_step = config.num_layers * STEPS
-    check(launches == {"flash_fwd": per_step, "flash_dq": per_step, "flash_dkdv": per_step},
-          f"expected {per_step} launches of each kernel, got {launches}")
+    want = {"flash_fwd": per_step, "flash_dq": per_step, "flash_dkdv": per_step,
+            "bn_fwd": 0, "gn_fwd": 0}
+    check(launches == want, f"expected launches {want}, got {launches}")
     check(all(bool(torch.isfinite(t).all()) for t in sess.state["params"].values()),
           "non-finite parameters after training")
     profile_steps(torch, sess, batch)
-    return launches
+    return {n: launches[n] for n in ("flash_fwd", "flash_dq", "flash_dkdv")}
+
+
+def norm_site_shapes(torch):
+    """The (1, H, W, C) input of each of ResNet-50's norm sites at 224x224,
+    traced on the meta device (shapes only)."""
+    from autodist_tpu_torch.models import norm
+    from autodist_tpu_torch.models.resnet import ResNet50
+
+    model = ResNet50(num_classes=1000, norm="bn", dtype=torch.float32, device="meta")
+    shapes = []
+    for m in model.modules():
+        if isinstance(m, norm.BatchNorm):
+            m.register_forward_pre_hook(lambda mod, args: shapes.append(tuple(args[0].shape)))
+    model(torch.empty(1, 224, 224, 3, device="meta"), train=True, new_state={})
+    return shapes
+
+
+def report_norm_sites(torch):
+    """Norm sites per step, their elements, the TPU kernel's reach under its
+    VMEM row limit, and the per-step bound of the 53 bf16 launches."""
+    shapes = norm_site_shapes(torch)
+    per_image = sum(math.prod(sh) for sh in shapes)
+    elements = per_image * RESNET_BATCH
+    on_tpu_kernel = sum(RESNET_BATCH * sh[1] * sh[2] <= TPU_MAX_FUSED_ROWS for sh in shapes)
+    print(f"resnet50 norm sites: {len(shapes)}, {per_image} elements per image, "
+          f"{elements} per B={RESNET_BATCH} step; {on_tpu_kernel} of them within the TPU "
+          f"kernel's {TPU_MAX_FUSED_ROWS}-row limit at that batch; one bf16 read of x and "
+          f"write of y per site: {4 * elements / 1e9:.2f} GB, bound "
+          f"{4 * elements / PEAK_BYTES * 1e3:.3f} ms per step")
+    check(len(shapes) == NORM_SITES, f"expected {NORM_SITES} norm sites, got {len(shapes)}")
+
+
+def train_resnet50(torch, ad, kernel_modules, norm, steps):
+    """The ResNet path: ResNet-50 at full width, B=256, sgd_momentum(0.1),
+    the batch statistics as mutable state."""
+    import numpy as np
+
+    from autodist_tpu_torch.models import train_lib
+    from autodist_tpu_torch.models.norm import FusedBatchNorm, FusedGroupNorm
+    from autodist_tpu_torch.models.resnet import ResNet50
+
+    model = ResNet50(num_classes=1000, norm=norm, device="meta")
+    loss_fn, params, state = train_lib.classifier_capture(model, (224, 224, 3), seed=0)
+    rng = np.random.default_rng(0)
+    batch = {   # put on the card once, as bench.py does
+        "image": torch.from_numpy(rng.standard_normal(
+            (RESNET_BATCH, 224, 224, 3), dtype=np.float32)).cuda().to(torch.bfloat16),
+        "label": torch.from_numpy(rng.integers(0, 1000, RESNET_BATCH)).cuda()}
+
+    # step 1's loss through the norms' plain versions, same model and weights
+    fused = [m for m in model.modules() if isinstance(m, (FusedBatchNorm, FusedGroupNorm))]
+    check(len(fused) == NORM_SITES, f"expected {NORM_SITES} fused norms, got {len(fused)}")
+    for m in fused:
+        m.impl = "reference"
+    with torch.no_grad():
+        out = loss_fn(params, state, batch) if state else loss_fn(params, batch)
+        plain_loss = (out[0] if state else out).item()
+    for m in fused:
+        m.impl = "kernel"
+    del out
+    torch.cuda.empty_cache()
+
+    initial = None if state is None else {n: t.clone() for n, t in state.items()}
+    sess = ad.distribute(loss_fn, params, train_lib.sgd_momentum(0.1), mutable_state=state)
+    losses, step_ms, launches, peak_gb = timed_steps(torch, sess, batch, steps,
+                                                     kernel_modules)
+    steady = statistics.median(step_ms[1:])
+    tag = f"resnet50 {norm}"
+    print(f"{tag} losses: " + ", ".join(f"{x:.5f}" for x in losses))
+    print(f"{tag} step ms: " + ", ".join(f"{x:.2f}" for x in step_ms))
+    print(f"{tag}: median step {steady:.2f} ms (steps 2-{steps}), "
+          f"{RESNET_BATCH / steady * 1e3:.1f} images/s, peak memory {peak_gb:.2f} GB, "
+          f"launches {launches}")
+    rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    print(f"{tag} step 1 loss: kernels {losses[0]:.6f}, plain norms {plain_loss:.6f}, "
+          f"relative difference {rel:.3e}")
+    check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss in {losses}")
+    check(statistics.mean(losses[-3:]) < losses[0],
+          f"{tag}: the last three losses do not average below the first: {losses}")
+    check(rel <= LOSS_REL_TOL, f"{tag}: step 1 loss differs from the plain path by {rel}")
+    kernel = "bn_fwd" if norm == "bn_fused" else "gn_fwd"
+    want = {"flash_fwd": 0, "flash_dq": 0, "flash_dkdv": 0, "bn_fwd": 0, "gn_fwd": 0,
+            kernel: NORM_SITES * steps}
+    check(launches == want, f"{tag}: expected launches {want}, got {launches}")
+    check(all(bool(torch.isfinite(t).all()) for t in sess.state["params"].values()),
+          f"{tag}: non-finite parameters after training")
+    if initial is not None:
+        final = sess.mutable_state()
+        check(list(final) == list(initial) and len(final) == 2 * NORM_SITES,
+              f"{tag}: mutable state names changed")
+        check(all(bool(torch.isfinite(t).all()) for t in final.values()),
+              f"{tag}: non-finite batch statistics")
+        moved = sum(not torch.equal(final[n], initial[n].cpu()) for n in final)
+        print(f"{tag}: {moved} of {len(final)} batch-statistics leaves moved")
+        check(moved == len(final), f"{tag}: batch statistics did not all move")
+    profile_steps(torch, sess, batch)
+    return {kernel: launches[kernel]}
+
+
+KERNEL_CATEGORIES = (   # (category, substrings of a kernel name), first match wins
+    ("fused-norm kernels (bn_fwd / gn_fwd)", ("norm_partial_kernel", "norm_stats_kernel",
+                                             "norm_apply_kernel")),
+    ("flash kernels", ("mma_fwd_kernel", "mma_dq_kernel", "mma_dkdv_kernel",
+                       "fma_fwd_kernel", "fma_dq_kernel", "fma_dkdv_kernel")),
+    ("convolutions and matmuls (cuDNN, cuBLAS)", ("conv", "cudnn", "xmma", "gemm", "nvjet",
+                                                 "cutlass", "implicit", "dgrad", "wgrad")),
+    ("reductions (sums, means)", ("reduce_kernel",)),
+    ("copies and dtype casts", ("copy",)),
+    ("other elementwise", ("",)),
+)
 
 
 def profile_steps(torch, sess, batch, steps=2):
     """Where a step's device time goes: ``torch.profiler`` over two more
-    steps (after the timed ones); prints the device-busy share and the
-    kernels with the most device time."""
+    steps (after the timed ones); prints the device-busy share, the time by
+    kernel category and the kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -320,6 +600,13 @@ def profile_steps(torch, sess, batch, steps=2):
         return
     print(f"profile: {wall_ms / steps:.2f} ms per step on the host clock, device busy "
           f"{busy:.2f} ms ({100 * busy / (wall_ms / steps):.1f} %)")
+    by_category = dict.fromkeys((name for name, _ in KERNEL_CATEGORIES), 0.0)
+    for ms, name in rows:
+        low = name.lower()
+        by_category[next(c for c, keys in KERNEL_CATEGORIES
+                         if any(k.lower() in low for k in keys))] += ms
+    for category, ms in by_category.items():
+        print(f"profile category: {ms:8.3f} ms/step {100 * ms / busy:5.1f} %  {category}")
     for ms, name in sorted(rows, reverse=True)[:15]:
         print(f"profile: {ms:8.3f} ms/step {100 * ms / busy:5.1f} %  {name[:90]}")
 
@@ -335,8 +622,12 @@ def main():
         return 1
     sys.path.insert(0, REPO)
     try:
+        from autodist_tpu_torch.autodist import AutoDist
         from autodist_tpu_torch.ops import build
         from autodist_tpu_torch.ops import flash_attention as fa
+        from autodist_tpu_torch.ops import fused_norm as fn
+        from autodist_tpu_torch.resource_spec import ResourceSpec
+        from autodist_tpu_torch.strategy import AllReduce
     except ImportError as e:
         print(f"FAIL: run from a checkout of the repo ({e})", file=sys.stderr)
         return 1
@@ -350,24 +641,35 @@ def main():
     print(card[0] if card else "nvidia-smi: no output")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    kernel_modules = (fa, fn)
     try:
         t0 = time.perf_counter()
-        build.build(["flash_attention"])
+        build.build(list(SOURCES))
         print(f"kernel build: {time.perf_counter() - t0:.1f} s")
         errors = check_kernels(torch, fa)
+        errors.update(check_norm_kernels(torch, fn))
         timing = measure_kernels(torch, fa)
+        timing.update(measure_norm_kernels(torch, fn))
         torch.cuda.empty_cache()
-        launches = train_gpt2_small(torch, fa)
+        spec = ResourceSpec(resource_info={"nodes": [
+            {"address": "localhost", "gpus": [0], "chief": True}]})
+        ad = AutoDist(resource_spec=spec, strategy_builder=AllReduce())
+        launches = train_gpt2_small(torch, ad, kernel_modules)
+        torch.cuda.empty_cache()
+        report_norm_sites(torch)
+        launches.update(train_resnet50(torch, ad, kernel_modules, "bn_fused", RESNET_STEPS))
+        torch.cuda.empty_cache()
+        launches.update(train_resnet50(torch, ad, kernel_modules, "gn", GN_STEPS))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     kernels = [{
-        "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+        "name": name, "route": "cuda", "source": SOURCES[src], "replaces": replaces,
         "launches": launches[name], "max_abs_err": errors[name],
         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
         "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
         "library_ms": timing[name]["library_ms"],
-    } for name in ("flash_fwd", "flash_dq", "flash_dkdv")]
+    } for name, (src, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""The port's CUDA flash-attention kernels against their plain versions.
+"""The port's CUDA kernels (flash attention, fused batch and group norm)
+against their plain versions.
 
 Needs an NVIDIA GPU and nvcc; every test is marked ``cuda`` and skips
 without a GPU.  The file imports no JAX, so it also runs on a machine
@@ -11,11 +12,19 @@ Each case runs ``flash_attention`` forward and backward (the three
 kernels) and ``attention_plain`` in f32 on the same inputs.  Tolerance:
 relative Frobenius error <= 1e-2 for bf16 inputs (bf16 output and
 operand rounding) and <= 1e-5 for f32 inputs (f32 sums in another order).
+
+Each norm case runs ``fused_batch_norm`` / ``fused_group_norm`` forward (the
+kernel) and backward, and the plain version in f32 on the same inputs.
+Tolerance: y max-abs <= 1e-2 * max(1, max|y|) in bf16 (output rounding)
+and 1e-4 in f32; mean and var max-abs <= 1e-4 of their largest magnitude;
+the gradients (plain closed form on both sides) relative Frobenius error
+<= 1e-2 in bf16 and 1e-4 in f32.  A second run gives the same bits.
 """
 import pytest
 import torch
 
 from autodist_tpu_torch.ops import flash_attention as tfa
+from autodist_tpu_torch.ops import fused_norm as tfn
 
 # (B, S, H, H_kv, D, causal, masked, dtype)
 CASES = {
@@ -61,3 +70,66 @@ def test_kernels_match_plain_versions(case):
         assert rel <= REL_TOL[dtype], (name, rel)
     if masked:
         assert not out[1].any() and not inputs[0].grad[1].any()
+
+
+# (shape, num_groups (None: batch norm), act, residual, dtype)
+NORM_CASES = {
+    "bn_bf16_stem_like": ((8, 56, 56, 64), None, None, False, "bfloat16"),
+    "bn_bf16_ragged_c100_scalar": ((1000, 100), None, "relu", True, "bfloat16"),
+    "bn_f32_odd_relu_residual": ((1000, 100), None, "relu", True, "float32"),
+    "bn_f32_c30_scalar": ((7, 9, 30), None, None, False, "float32"),
+    "gn_bf16_32_groups": ((4, 28, 28, 256), 32, None, False, "bfloat16"),
+    "gn_bf16_2_per_group": ((4, 28, 28, 64), 32, None, False, "bfloat16"),
+    "gn_f32_odd_relu_residual": ((3, 37, 30), 10, "relu", True, "float32"),
+}
+NORM_Y_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+NORM_GRAD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+
+
+def _norm_run(x, scale, bias, res, groups, act):
+    if groups is None:
+        return tfn.fused_batch_norm(x, scale, bias, act=act, residual=res)
+    return (tfn.fused_group_norm(x, scale, bias, groups, act=act, residual=res),)
+
+
+def _norm_plain(x, scale, bias, res, groups, act):
+    if groups is None:
+        return tfn.batch_norm_plain(x, scale, bias, act=act, residual=res)
+    return (tfn.group_norm_plain(x, scale, bias, groups, act=act, residual=res),)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(NORM_CASES))
+def test_norm_kernels_match_plain_versions(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    shape, groups, act, has_res, dtype = NORM_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    c = shape[-1]
+    x = (torch.randn(*shape, device="cuda", generator=g) * 2
+         + torch.rand(c, device="cuda", generator=g)).to(getattr(torch, dtype))
+    res = torch.randn(*shape, device="cuda", generator=g).to(x.dtype) if has_res else None
+    scale = torch.rand(c, device="cuda", generator=g) + 0.5
+    bias = torch.randn(c, device="cuda", generator=g) * 0.1
+    dy = torch.randn(*shape, device="cuda", generator=g).to(x.dtype)
+    inputs = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
+    tfn.reset_launches()
+    outs = _norm_run(*inputs, res, groups, act)
+    outs[0].backward(dy)
+    again = _norm_run(x, scale, bias, res, groups, act)
+    torch.cuda.synchronize()
+    assert tfn.LAUNCHES == {"bn_fwd": 2 * (groups is None), "gn_fwd": 2 * (groups is not None)}
+    for a, b in zip(outs, again):
+        assert torch.equal(a.detach(), b), "two runs differ"
+    ref = [t.detach().float().requires_grad_(True) for t in (x, scale, bias)]
+    ref_outs = _norm_plain(*ref, None if res is None else res.float(), groups, act)
+    ref_outs[0].backward(dy.float())
+    y, want = outs[0].detach(), ref_outs[0].detach()
+    assert y.dtype == x.dtype and bool(torch.isfinite(y).all())
+    err = float((y.float() - want).abs().max())
+    assert err <= NORM_Y_TOL[dtype] * max(1.0, float(want.abs().max())), err
+    for got, w in zip(outs[1:], ref_outs[1:]):
+        assert float((got.detach() - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    for got, w in zip((t.grad for t in inputs), (t.grad for t in ref)):
+        rel = float((got.float() - w).norm() / w.norm().clamp_min(1e-30))
+        assert rel <= NORM_GRAD_TOL[dtype], rel

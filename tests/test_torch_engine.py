@@ -11,7 +11,8 @@
   ``tests/test_mixed_precision.py`` uses) and to atol 1e-5 for sgd.
 - ``optim.adamw``/``optim.sgd`` against optax on random leaves (atol 1e-6).
 - The package imports no JAX, flax, optax, protobuf or ``autodist_tpu``,
-  and its entry points raise without a GPU unless given ``device="cpu"``.
+  and its entry points (``gpt_capture`` and ``classifier_capture`` too)
+  raise without a GPU unless given ``device="cpu"``.
 """
 import ast
 import dataclasses
@@ -42,7 +43,8 @@ from autodist_tpu_torch.kernel.synchronization import all_reduce as tar
 from autodist_tpu_torch.model_item import ModelItem
 from autodist_tpu_torch.models import convert
 from autodist_tpu_torch.models import gpt as tgpt
-from autodist_tpu_torch.models.train_lib import gpt_capture
+from autodist_tpu_torch.models.resnet import ResNet18
+from autodist_tpu_torch.models.train_lib import classifier_capture, gpt_capture
 from autodist_tpu_torch.resource_spec import ResourceSpec, ResourceSpecError
 from autodist_tpu_torch.strategy import AllReduce, PSLoadBalancing
 from autodist_tpu_torch.strategy.base import Strategy
@@ -110,7 +112,7 @@ def test_three_steps_match_jax_autodist(opt):
 
     t_loss_fn, _, t_sparse = gpt_capture(tgpt.GPT_TINY, SEQ, device="cpu")
     t_params = {convert.torch_to_jax_name(n): t
-                for n, t in convert.gpt_params_from_jax(j_params).items()}
+                for n, t in convert.params_from_jax(j_params).items()}
     t_sess = AutoDist(resource_spec=ResourceSpec(resource_info=CPU_SPEC),
                       strategy_builder=AllReduce(), device="cpu").distribute(
         t_loss_fn, t_params, make_t(), sparse_vars=t_sparse, has_rng=True)
@@ -118,7 +120,7 @@ def test_three_steps_match_jax_autodist(opt):
 
     np.testing.assert_allclose(t_losses, j_losses, rtol=1e-4)
     assert t_losses[-1] < t_losses[0] and t_sess.step == STEPS
-    final = convert.gpt_params_to_jax(
+    final, _ = convert.params_to_jax(
         {convert.jax_to_torch_name(n): t for n, t in t_sess.params().items()})
     j_final = dict(jax.tree_util.tree_leaves_with_path(j_sess.params()))
     for path, leaf in jax.tree_util.tree_leaves_with_path(final):
@@ -194,7 +196,8 @@ def test_package_imports_no_jax_protobuf_or_reference_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     new = ast.literal_eval(out.stdout.strip())
-    assert "autodist_tpu_torch.models.gpt" in new
+    assert {"autodist_tpu_torch.models.gpt", "autodist_tpu_torch.models.resnet",
+            "autodist_tpu_torch.ops.fused_norm"} <= set(new)
     assert not [m for m in new if _banned(m)], new
 
 
@@ -210,6 +213,8 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for():
         ResourceSpec()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         gpt_capture(tgpt.GPT_TINY, SEQ)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        classifier_capture(ResNet18(num_classes=10, device="meta"), (32, 32, 3))
     assert ResourceSpec(device="cpu").cpu_devices[0][0] == "localhost:CPU:0"
     assert resolve_device("cpu") == torch.device("cpu")
 

@@ -1,7 +1,7 @@
 """The port's GPT against the JAX package's flax GPT on the same weights.
 
 ``GPT_TINY`` weights initialised by flax are carried into the PyTorch
-module with ``gpt_params_from_jax``; the same numpy tokens go through both.
+module with ``params_from_jax``; the same numpy tokens go through both.
 The JAX side runs attention through the Pallas flash kernel in interpret
 mode (``attention_impl="flash"``), the port through the flash wrappers'
 plain versions (CPU tensors).  In f32, logits and the loss agree to atol
@@ -46,7 +46,7 @@ def _flax_params():
 
 def _torch_model(ct, jparams):
     model = tgpt.GPT(ct, device="cpu")
-    model.load_state_dict(convert.gpt_params_from_jax(jparams))
+    model.load_state_dict(convert.params_from_jax(jparams))
     return model
 
 
@@ -69,7 +69,7 @@ def test_f32_logits_loss_and_every_gradient_match_flax():
     np.testing.assert_allclose(logits.detach().numpy(), np.asarray(j_logits),
                                atol=F32_ATOL, rtol=0)
     np.testing.assert_allclose(loss.item(), float(j_loss), atol=F32_ATOL, rtol=0)
-    grads = convert.gpt_params_to_jax(
+    grads, _ = convert.params_to_jax(
         {n: p.grad for n, p in model.named_parameters()})
     flat_t = jax.tree_util.tree_leaves_with_path(grads)
     flat_j = dict(jax.tree_util.tree_leaves_with_path(j_grads))
@@ -93,7 +93,7 @@ def test_bf16_forward_matches_flax():
 
 def test_params_roundtrip_is_identity():
     jparams = jax.tree.map(np.asarray, _flax_params())
-    back = convert.gpt_params_to_jax(convert.gpt_params_from_jax(jparams))
+    back, _ = convert.params_to_jax(convert.params_from_jax(jparams))
     assert jax.tree.structure(back) == jax.tree.structure(jparams)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jparams)):
         assert a.shape == b.shape and np.array_equal(a, b)
