@@ -8,11 +8,20 @@
 ``loss_fn(params, batch[, generator]) -> loss`` is single-device code over
 a dict of tensors; with ``mutable_state`` (e.g. a ResNet's batch
 statistics) it is ``loss_fn(params, state, batch[, generator]) -> (loss,
-new_state)``.  The chief builds the strategy and serialises it; a
-worker (``AUTODIST_WORKER`` set) loads it by ``AUTODIST_STRATEGY_ID``.
-Runs on the spec's first GPU (``cuda``) unless ``device="cpu"``; without a
-GPU and without that request it raises.  ``launch``, ``serve``, ``aot_compile`` and the async PS
-runtime are later slices of the port.
+new_state)``.
+
+One process runs each replica, as ``torchrun --nproc-per-node R script.py``
+launches them: every rank runs the same script, ``distribute`` joins the
+ranks in a process group (:func:`autodist_tpu_torch.parallel.mesh.replica_world`,
+NCCL on CUDA, gloo on the CPU) and a spec of R replicas needs exactly R
+ranks.  Rank 0 is the chief: it builds the strategy and serialises it (a
+worker with ``AUTODIST_WORKER`` set loads it by ``AUTODIST_STRATEGY_ID``
+instead), and every other rank runs the strategy rank 0 holds, whose JSON
+it receives by broadcast.  A rank runs on ``cuda:LOCAL_RANK``; a
+one-process run on the spec's first GPU; ``device="cpu"`` runs on the
+CPU.  Without a GPU and without that request it raises.  ``launch``,
+``serve``, ``aot_compile`` and the async PS runtime are later slices of
+the port.
 """
 from typing import Any, Callable, Optional, Sequence
 
@@ -20,6 +29,9 @@ from autodist_tpu_torch import const
 from autodist_tpu_torch.const import ENV
 from autodist_tpu_torch.kernel.device.resolver import resolve_device, torch_device
 from autodist_tpu_torch.model_item import ModelItem
+from autodist_tpu_torch.parallel.mesh import (broadcast_text, launched_world_size,
+                                              replica_world)
+from autodist_tpu_torch.proto import schema
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.strategy.base import Strategy, StrategyCompiler
 from autodist_tpu_torch.utils import logging
@@ -51,9 +63,12 @@ class AutoDist:
         set_default_autodist(self)
         self._resource_spec = resource_spec or ResourceSpec(
             resource_spec_file, device=None if device is None else device.type)
-        if device is None and self._resource_spec.gpu_devices:
+        if device is None and launched_world_size() > 1:
+            device = resolve_device(f"cuda:{ENV.LOCAL_RANK.val}")   # one GPU per rank
+        elif device is None and self._resource_spec.gpu_devices:
             device = torch_device(self._resource_spec.gpu_devices[0][0])
         self._device = resolve_device(device)
+        self._world = None
         if strategy_builder is None:
             from autodist_tpu_torch.strategy import PSLoadBalancing
 
@@ -65,11 +80,32 @@ class AutoDist:
         return self._resource_spec
 
     @property
+    def world(self):
+        """This process's :class:`ReplicaWorld`, joined at the first
+        ``distribute``."""
+        if self._world is None:
+            self._world = replica_world(self._device)
+        return self._world
+
+    @property
     def is_chief(self):
-        return const.IS_AUTODIST_CHIEF
+        return const.IS_AUTODIST_CHIEF and self.world.rank == 0
 
     def _build_or_load_strategy(self, model_item) -> Strategy:
-        if self.is_chief:
+        if self.world.rank == 0:
+            strategy = self._chief_or_worker_strategy(model_item)
+            text = schema.dumps(strategy.proto)
+        else:
+            text = None
+        text = broadcast_text(text, self.world)
+        if self.world.rank == 0:
+            return strategy
+        strategy = Strategy(schema.loads(schema.Strategy, text))
+        logging.info("Rank %d received strategy %s", self.world.rank, strategy.id)
+        return strategy
+
+    def _chief_or_worker_strategy(self, model_item) -> Strategy:
+        if const.IS_AUTODIST_CHIEF:
             strategy = self._strategy_builder.build(model_item, self._resource_spec)
             strategy.serialize()
             logging.info("Chief built strategy %s", strategy.id)
@@ -108,5 +144,7 @@ class AutoDist:
         item = ModelItem(loss_fn, params, optimizer, sparse_vars=sparse_vars,
                          has_aux=has_aux, has_rng=has_rng, mutable_state=mutable_state,
                          name=name)
-        strategy = self.build_strategy(item)
-        return DistributedSession(GraphTransformer(strategy, item, self._device), rng=rng)
+        raw = self._build_or_load_strategy(item)
+        strategy = StrategyCompiler(item, self._resource_spec).compile(raw)
+        return DistributedSession(GraphTransformer(strategy, item, self._device, self.world),
+                                  rng=rng, strategy_id=raw.id)

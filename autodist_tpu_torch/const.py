@@ -1,9 +1,11 @@
 """Constants and environment flags of the port.
 
-Own copy of the parts of ``autodist_tpu/const.py`` this slice uses: the
+Own copy of the parts of ``autodist_tpu/const.py`` the port uses: the
 working directories, the mesh axis names, the batch-mask key, the default
-bucket size and the ``ENV`` entries the chief/worker strategy hand-off
-reads.
+bucket size, the ``ENV`` entries the chief/worker strategy hand-off reads,
+and the launcher's rank environment (``torchrun``'s ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``, or an
+``AUTODIST_INIT_METHOD`` such as ``file:///path``).
 """
 import os
 from enum import Enum
@@ -34,6 +36,13 @@ class ENV(Enum):
     AUTODIST_STRATEGY_ID = (lambda v: v or "",)
     AUTODIST_MIN_LOG_LEVEL = (lambda v: v or "INFO",)
     AUTODIST_IS_TESTING = (lambda v: v == "True" or v == "1",)
+    # one process per replica, as torchrun launches them
+    RANK = (lambda v: int(v or 0),)
+    WORLD_SIZE = (lambda v: int(v or 1),)
+    LOCAL_RANK = (lambda v: int(v or 0),)
+    MASTER_ADDR = (lambda v: v or "",)
+    MASTER_PORT = (lambda v: v or "",)
+    AUTODIST_INIT_METHOD = (lambda v: v or "",)
 
     @property
     def val(self):

@@ -1,25 +1,30 @@
 """GraphTransformer: the compiled strategy -> state and the training step.
 
 Counterpart of ``autodist_tpu/kernel/graph_transformer.py``
-(``init_state`` and the train step of ``_spmd_step``) for the plan this
-slice realises: every variable REPLICATED and synchronised by the bucketed
-all-reduce.  One step is
+(``init_state`` and the train step of ``_spmd_step``) for the plan the
+port realises: every variable REPLICATED and synchronised by the bucketed
+all-reduce.  Each process runs one replica on its slice of the global
+batch; the replicas meet in the collectives of ``world.group``
+(:mod:`autodist_tpu_torch.parallel.mesh`).  One step is
 
 1. materialise: the stored parameters are what the loss sees;
-2. value and gradient: ``loss_fn(params, batch[, generator])``, then
-   ``torch.autograd.grad`` with respect to the parameters; with ``has_rng``
-   the generator is folded from (seed, step)
+2. value and gradient (:meth:`GraphTransformer.gradients`):
+   ``loss_fn(params, batch[, generator])``, then ``torch.autograd.grad``
+   with respect to the parameters; with ``has_rng`` the generator is
+   folded from (seed, step) and, over more than one replica, the rank
    (:func:`autodist_tpu_torch.utils.rng.step_generator`).  With mutable
    state the call is ``loss_fn(params, mutable, batch[, generator]) ->
    (loss, new_mutable)``; the new state is stored detached, after the
    cross-replica mean of its float leaves (:func:`replica_mean_state`);
-3. bucket sync: pack -> reduce -> mean -> unpack (:func:`sync_bucketed`);
+3. bucket sync through each bucket's codec, whose state rides in
+   ``state["comp"]`` (:meth:`GraphTransformer.sync`, :func:`sync_bucketed`);
 4. optimizer update, which writes the new values back into the stored
    tensors in place.
 
-It returns the metrics ``{"loss", "step"}``.  More than one replica,
-gradient accumulation, clipping and batch masks are later slices (ROADMAP,
-Queue A items 2 and 5) and raise.
+It returns the metrics ``{"loss", "step"}``, the loss the mean over the
+replicas (the JAX step's ``pmean(loss)``).  Gradient accumulation,
+clipping and batch masks are later slices (ROADMAP, Queue A item 2) and
+raise.
 """
 from collections import OrderedDict
 
@@ -27,30 +32,31 @@ import torch
 
 from autodist_tpu_torch.kernel import partitioner as part
 from autodist_tpu_torch.kernel.synchronization import all_reduce as ar_sync
+from autodist_tpu_torch.parallel import collectives as coll
+from autodist_tpu_torch.parallel.mesh import ReplicaWorld, check_replicas
 from autodist_tpu_torch.utils.rng import step_generator
 
 
-def replica_mean_state(new_state, num_replicas):
+def replica_mean_state(new_state, group=None):
     """The stored new mutable state: every leaf detached, float leaves (batch
     statistics) averaged over the replicas as the JAX step's ``pmean``
     (``kernel/graph_transformer.py:1226-1231``); integer leaves as they are."""
     return OrderedDict(
-        (n, ar_sync.reduce_mean(t.detach(), num_replicas) if t.is_floating_point()
+        (n, ar_sync.reduce_mean(t.detach(), group) if t.is_floating_point()
          else t.detach()) for n, t in new_state.items())
 
 
 class GraphTransformer:
-    """Builds the session state and the training step."""
+    """Builds the session state and the training step of one replica."""
 
-    def __init__(self, strategy, model_item, device):
+    def __init__(self, strategy, model_item, device, world=None):
         self.strategy = strategy
         self.model_item = model_item
         self.device = torch.device(device)
+        self.world = world or ReplicaWorld(rank=0, size=1)
         self.num_replicas = max(1, len(strategy.graph_config.replicas))
-        if self.num_replicas > 1:
-            raise NotImplementedError(
-                f"{self.num_replicas} replicas: data parallelism over more than one "
-                f"GPU is the multi-GPU slice of the port (ROADMAP, Queue A item 2)")
+        check_replicas(self.num_replicas, self.world)
+        self.group = self.world.group
         if model_item.optimizer is None:
             raise ValueError("ModelItem has no optimizer")
         if model_item.has_aux:
@@ -76,7 +82,7 @@ class GraphTransformer:
         return {
             "params": storage,
             "opt_state": self.model_item.optimizer.create(storage.values()),
-            "comp": ar_sync.init_compressor_states(self.buckets),
+            "comp": ar_sync.init_compressor_states(self.buckets, self.device),
             "step": 0,
             "rng": int(seed),
             "mutable": None if self.model_item.mutable_state is None else OrderedDict(
@@ -84,23 +90,37 @@ class GraphTransformer:
                 for n, t in self.model_item.mutable_state.items()),
         }
 
-    def step(self, state, batch):
-        """One training step on a batch already on the device; returns
-        (state, metrics)."""
+    def gradients(self, state, batch):
+        """This replica's loss, new mutable state (None without one) and
+        gradients by name at ``state``, on its batch slice; changes nothing."""
         item = self.model_item
         storage = state["params"]
         mutable = state["mutable"]
         args = (storage, batch) if mutable is None else (storage, mutable, batch)
         if item.has_rng:
-            args += (step_generator(state["rng"], state["step"], self.device),)
+            replica = self.world.rank if self.num_replicas > 1 else None
+            args += (step_generator(state["rng"], state["step"], self.device, replica),)
         loss = item.loss_fn(*args)
+        new_mutable = None
         if mutable is not None:
             loss, new_mutable = loss
-            state["mutable"] = replica_mean_state(new_mutable, self.num_replicas)
         grads = torch.autograd.grad(loss, list(storage.values()))
-        synced, state["comp"] = ar_sync.sync_bucketed(
-            dict(zip(self.names, grads)), self.buckets, state["comp"],
-            self.num_replicas)
+        return loss, new_mutable, dict(zip(self.names, grads))
+
+    def sync(self, grads, comp_states, impl=None):
+        """The synced gradients and the new codec states (:func:`sync_bucketed`
+        over this world's replicas)."""
+        return ar_sync.sync_bucketed(grads, self.buckets, comp_states, self.group,
+                                     impl=impl)
+
+    def step(self, state, batch):
+        """One training step on this replica's batch slice, already on the
+        device; returns (state, metrics)."""
+        storage = state["params"]
+        loss, new_mutable, grads = self.gradients(state, batch)
+        if new_mutable is not None:
+            state["mutable"] = replica_mean_state(new_mutable, self.group)
+        synced, state["comp"] = self.sync(grads, state["comp"])
         with torch.no_grad():
             for name, p in storage.items():
                 p.grad = synced[name]
@@ -108,4 +128,5 @@ class GraphTransformer:
             for p in storage.values():
                 p.grad = None
         state["step"] += 1
-        return state, {"loss": loss.detach(), "step": state["step"]}
+        return state, {"loss": coll.pmean(loss.detach(), self.group),
+                       "step": state["step"]}

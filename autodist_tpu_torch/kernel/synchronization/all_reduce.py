@@ -2,14 +2,17 @@
 
 Counterpart of ``autodist_tpu/kernel/synchronization/all_reduce.py``:
 gradients of the same (strategy group, dtype, compressor, hierarchy, ...)
-key are flattened into one buffer, reduced to the mean over the replicas,
-and split back (:func:`sync_bucketed`, the barrier schedule).  Bucket keys
-and sizes are the JAX package's, dtypes spelled as numpy spells them.
+key are flattened into one buffer, reduced to the mean over the replicas
+by the bucket's codec (:mod:`.compressor`), and split back
+(:func:`sync_bucketed`, the barrier schedule).  Bucket keys and sizes are
+the JAX package's, dtypes spelled as numpy spells them.
 
-In this slice the step runs on one GPU, where the mean over one replica is
-the buffer itself.  The collective for more replicas (NCCL), the codecs and
-the hierarchical, sharded and schedule-IR variants are later slices
-(ROADMAP, Queue A item 5) and raise ``NotImplementedError``.
+The JAX package runs a FLAT bucket through ``run_schedule``'s canonical
+program, whose only phase is the codec's ``all_reduce`` over the replica
+axis; here that is the one call.  The replicas are the processes of a
+``torch.distributed`` group (``group=None``: one replica).  The
+hierarchical, sharded, overlapped and schedule-IR variants are later
+slices (ROADMAP, Queue A item 5) and raise ``NotImplementedError``.
 """
 import dataclasses
 import math
@@ -17,7 +20,9 @@ from typing import Dict, List
 
 import torch
 
+from autodist_tpu_torch.kernel.synchronization.compressor import get_compressor
 from autodist_tpu_torch.model_item import dtype_name
+from autodist_tpu_torch.parallel import collectives as coll
 from autodist_tpu_torch.proto import schema
 
 _AR = schema.AllReduceSynchronizer
@@ -31,6 +36,10 @@ class Bucket:
     shapes: tuple
     compressor: int
     dtype: str
+
+    @property
+    def total(self):
+        return sum(self.sizes)
 
 
 def plan_buckets(plans, var_shapes, var_dtypes) -> List[Bucket]:
@@ -64,14 +73,14 @@ def plan_buckets(plans, var_shapes, var_dtypes) -> List[Bucket]:
     return buckets
 
 
-def init_compressor_states(buckets):
-    """Per-bucket codec state: empty for the stateless NoneCompressor."""
+def init_compressor_states(buckets, device="cpu"):
+    """Per-bucket codec state: the flat f32 residual (zeros, one per element
+    of the bucket) of an error-feedback codec, else an empty tuple."""
+    states = {}
     for b in buckets:
-        if b.compressor != _AR.NoneCompressor:
-            raise NotImplementedError(
-                f"bucket {b.key}: compressor {b.compressor} is a later slice of "
-                f"the port (ROADMAP, Queue A item 5)")
-    return {b.key: () for b in buckets}
+        comp = get_compressor(b.compressor)
+        states[b.key] = comp.init_state(b.total, device) if comp.stateful else ()
+    return states
 
 
 def _bucket_buf(grads_by_name, b):
@@ -80,13 +89,9 @@ def _bucket_buf(grads_by_name, b):
     return torch.cat(flats) if len(flats) > 1 else flats[0]
 
 
-def reduce_mean(buf, num_replicas):
-    """Reduce, then mean over the replicas."""
-    if num_replicas == 1:
-        return buf
-    raise NotImplementedError(
-        "the all-reduce over more than one replica (NCCL) is the multi-GPU "
-        "slice of the port (ROADMAP, Queue A item 2)")
+def reduce_mean(buf, group=None):
+    """Reduce, then mean over the replicas of ``group`` (JAX ``pmean``)."""
+    return coll.pmean(buf, group)
 
 
 def _unpack_bucket(b, reduced, grads_by_name, synced):
@@ -96,11 +101,15 @@ def _unpack_bucket(b, reduced, grads_by_name, synced):
         off += sz
 
 
-def sync_bucketed(grads_by_name, buckets, comp_states, num_replicas=1):
-    """All-reduce every bucket: pack -> reduce -> mean -> unpack.  Returns
-    (synced grads by name, new compressor states)."""
+def sync_bucketed(grads_by_name, buckets, comp_states, group=None, impl=None):
+    """All-reduce every bucket through its codec: pack -> reduce -> mean ->
+    unpack.  Returns (synced grads by name, new compressor states).
+    ``impl="plain"`` runs the codecs' kernels as their plain versions."""
     synced = {}
+    new_states = dict(comp_states)
     for b in buckets:
-        reduced = reduce_mean(_bucket_buf(grads_by_name, b), num_replicas)
+        comp = get_compressor(b.compressor, impl=impl)
+        reduced, new_states[b.key] = comp.all_reduce(
+            _bucket_buf(grads_by_name, b), comp_states[b.key], group)
         _unpack_bucket(b, reduced, grads_by_name, synced)
-    return synced, dict(comp_states)
+    return synced, new_states

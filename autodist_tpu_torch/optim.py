@@ -9,6 +9,8 @@ the parameters where JAX writes a new one each step).
   weight_decay=1e-4 applied to every leaf (torch's own default is 1e-2).
   ``torch.optim.AdamW`` decays before its Adam step, which equals optax's
   ``-lr * (adam + wd * p)`` on the pre-update parameter.
+- :func:`adam` -- ``optax.adam``: b1=0.9, b2=0.999, eps=1e-8, ``m_hat /
+  (sqrt(v_hat) + eps)``, as ``torch.optim.Adam`` computes it.
 - :func:`sgd` -- ``optax.sgd``: plain, momentum (optax's trace: t = g + m t)
   or Nesterov.
 
@@ -49,6 +51,15 @@ def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
         lambda ps: torch.optim.AdamW(ps, lr=lr, betas=(b1, b2), eps=eps,
                                      weight_decay=weight_decay),
         learning_rate=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+
+
+def adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0):
+    lr = _constant_lr(learning_rate)
+    if eps_root:
+        raise NotImplementedError("adam eps_root is a later slice of the port")
+    return Optimizer(
+        "adam", lambda ps: torch.optim.Adam(ps, lr=lr, betas=(b1, b2), eps=eps),
+        learning_rate=lr, b1=b1, b2=b2, eps=eps)
 
 
 def sgd(learning_rate, momentum=None, nesterov=False):

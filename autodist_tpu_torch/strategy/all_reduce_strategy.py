@@ -2,9 +2,12 @@
 
 Counterpart of ``autodist_tpu/strategy/all_reduce_strategy.py``: variable
 ``i`` (in ``ModelItem.var_infos`` order) joins bucket group
-``i // chunk_size``.  This slice realises the default knobs
-(NoneCompressor, barrier schedule, flat hierarchy, replicated update, f32);
-the others raise ``NotImplementedError`` at construction.
+``i // chunk_size``.  The port realises the compressor knob's six codecs
+(``NoneCompressor``, ``BF16Compressor``/``HorovodCompressor``,
+``BF16CompressorEF``/``HorovodCompressorEF``, ``Int8Compressor``,
+``Int8CompressorEF``, ``EquarxInt8Compressor``) and the other knobs'
+defaults (barrier schedule, flat hierarchy, replicated update, f32); the
+rest raise ``NotImplementedError`` at construction.
 """
 from autodist_tpu_torch.proto import schema
 from autodist_tpu_torch.strategy.base import (Strategy, StrategyBuilder,

@@ -5,8 +5,9 @@ Counterpart of ``autodist_tpu/strategy/base.py`` over the JSON schema of
 :class:`Strategy` by id, workers load it; :class:`StrategyCompiler` prunes
 node configs of non-trainable variables and resolves replica device
 strings to ``mesh:<index>``.  The ``resolve_*`` helpers map a builder's
-knobs to schema enums; in this slice only their default values are
-accepted, and the others raise.
+knobs to schema enums: the compressor knob takes the six codecs the port
+realises and the reference's aliases, the others only their default
+values; the rest raise, naming their ROADMAP item.
 """
 import copy
 import os
@@ -156,7 +157,9 @@ _PRECISION_ALIASES = {"f32": _AR.F32, "bf16_master": _AR.BF16_COMPUTE_F32_MASTER
 
 def resolve_compressor(name_or_value):
     return _resolve("compressor", name_or_value, _COMPRESSOR_ALIASES,
-                    (_AR.NoneCompressor,))
+                    (_AR.NoneCompressor, _AR.BF16Compressor, _AR.BF16CompressorEF,
+                     _AR.Int8Compressor, _AR.Int8CompressorEF,
+                     _AR.EquarxInt8Compressor))
 
 
 def resolve_schedule(name_or_value):

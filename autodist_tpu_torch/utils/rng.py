@@ -6,7 +6,9 @@ numbers than JAX from the same seed, so tests make shared inputs with numpy.
 - :func:`host_generator` -- the root generator of a seed;
 - :func:`step_generator` -- a generator for one training step, folded from
   (seed, step) so that two steps never reuse a stream (the JAX engine's
-  ``fold_in(rng, step)``).
+  ``fold_in(rng, step)``), and over more than one replica from the rank
+  too, so that replicas draw independent streams (its
+  ``fold_in(axis_index)``).
 """
 import torch
 
@@ -31,6 +33,10 @@ def host_generator(seed=0, device="cpu"):
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
-def step_generator(seed, step, device="cpu"):
-    """The generator of training step ``step`` under root ``seed``."""
-    return torch.Generator(device=device).manual_seed(fold_in(seed, step))
+def step_generator(seed, step, device="cpu", replica=None):
+    """The generator of training step ``step`` under root ``seed``; with
+    ``replica``, that replica's own stream of the step."""
+    folded = fold_in(seed, step)
+    if replica is not None:
+        folded = fold_in(folded, replica)
+    return torch.Generator(device=device).manual_seed(folded)

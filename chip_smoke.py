@@ -8,8 +8,9 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc::
 Phases (each failure exits non-zero before the last line):
 
 1. prints the card (``nvidia-smi`` name and power limit);
-2. builds the kernels from ``autodist_tpu_torch/csrc`` (flash attention and
-   fused norm, one ``nvcc`` each, started together) and prints the time;
+2. builds the kernels from ``autodist_tpu_torch/csrc`` (flash attention,
+   fused norm and quantize, one ``nvcc`` each, started together) and prints
+   the time;
 3. holds each flash kernel (forward, dq, dkdv) against its plain PyTorch
    version on the same bf16 inputs, the plain version computing in f32, at
    the GPT-2-small attention shape, a GQA case, a key-padding case with
@@ -46,7 +47,29 @@ Phases (each failure exits non-zero before the last line):
    statistics that are finite and moved; prints step ms, images/s, peak
    memory and the profile;
 7. the same with ``norm="gn"`` for 5 steps: 53 ``gn_fwd`` launches per step;
-8. prints the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+8. (after phase 4) holds the int8 quantization kernels (``quantize_int8``,
+   ``dequant_sum``, ``equarx_hop``) bitwise against their plain versions:
+   ``quantize_int8`` at GPT-2 small's two bucket sizes (286,110 and 199,983
+   blocks of 256) and at N = 1001 blocks with an all-zero block, a block of
+   half-step ties and a NaN block (its scale must be NaN in both);
+   ``dequant_sum`` and ``equarx_hop`` with D = 1, 2, 4, 8 peers at the
+   first bucket's size and D = 3 at N = 1001, and the EQuARX contract
+   (``equarx_hop(q, s, D)`` bitwise equal to ``quantize_int8(dequant_sum(q,
+   s) / D)``, kernels on both sides).  Then times kernel and plain version
+   at the first bucket's size (peer sums at D = 1 and 8) against the bound;
+9. trains GPT-2 small as in phase 5 under ``AllReduce(compressor=...)`` for
+   each of ``Int8Compressor``, ``Int8CompressorEF`` and
+   ``EquarxInt8Compressor``, 5 steps each, each in a process of its own
+   (``chip_smoke.py --codec NAME``: ``AutoDist`` is one instance per
+   process), one after another on the card: holds step 1's synced
+   gradients (and EF residuals) through the kernels bitwise against the
+   same codec's plain versions on the same CUDA gradients, times the sync,
+   checks finite losses whose last three average below the first, and the
+   launches per step (Int8: 4 ``quantize_int8`` + 2 ``dequant_sum``; EF: 6 +
+   2; EQuARX: 2 ``quantize_int8`` + 2 ``equarx_hop``; 12 of each flash
+   kernel); prints step ms, tokens/s, peak memory, and the Int8 profile;
+10. prints the ``{"kernels": [...]}`` line (eight kernels), then the
+   ``{"ok": true, ...}`` line.
 
 Tolerances, kernel vs plain version on the same inputs.  Flash, bf16
 inputs (the tensor-core kernels; plain version in f32): out max-abs <= 1e-2
@@ -56,7 +79,9 @@ dk, dv relative Frobenius error <= 1e-2.  f32 inputs (the FMA kernels):
 norm: y max-abs <= 1e-2 * max(1, max|y|) in bf16 (output rounding) and
 1e-4 in f32; mean and var max-abs <= 1e-4 of their largest magnitude (f32
 partial sums in another order).  Step 1 loss, kernels vs plain versions:
-relative <= 1e-3 (GPT-2 and both ResNets).
+relative <= 1e-3 (GPT-2 and both ResNets).  Quantization kernels and the
+synced gradients of the int8 codecs: bitwise (both sides divide with IEEE
+division, round half to even and sum the peers in order without FMA).
 """
 import json
 import math
@@ -68,13 +93,17 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {"flash_attention": "autodist_tpu_torch/csrc/flash_attention.cu",
-           "fused_norm": "autodist_tpu_torch/csrc/fused_norm.cu"}
+           "fused_norm": "autodist_tpu_torch/csrc/fused_norm.cu",
+           "quantize": "autodist_tpu_torch/csrc/quantize.cu"}
 KERNELS = {   # kernel -> (source, the TPU kernel's pallas_call)
     "flash_fwd": ("flash_attention", "autodist_tpu/ops/pallas/flash_attention.py:198"),
     "flash_dq": ("flash_attention", "autodist_tpu/ops/pallas/flash_attention.py:328"),
     "flash_dkdv": ("flash_attention", "autodist_tpu/ops/pallas/flash_attention.py:367"),
     "bn_fwd": ("fused_norm", "autodist_tpu/ops/pallas/fused_norm.py:112"),
     "gn_fwd": ("fused_norm", "autodist_tpu/ops/pallas/fused_norm.py:262"),
+    "quantize_int8": ("quantize", "autodist_tpu/ops/pallas/quantize.py:41"),
+    "dequant_sum": ("quantize", "autodist_tpu/ops/pallas/quantize.py:65"),
+    "equarx_hop": ("quantize", "autodist_tpu/ops/pallas/quantize.py:98"),
 }
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
@@ -87,6 +116,16 @@ STEPS, BATCH, SEQ = 10, 8, 1024
 RESNET_BATCH, RESNET_STEPS, GN_STEPS, NORM_SITES = 256, 10, 5, 53
 TPU_MAX_FUSED_ROWS = 16384   # autodist_tpu/ops/pallas/fused_norm.py:42, a VMEM bound
 SLEEP_CYCLES = 200_000_000   # ~0.1 s of the SM clock: time to queue the timed runs
+# GPT-2 small's two gradient buckets under an int8 codec (plan_buckets), in
+# 256-element blocks: 73,244,160 and 51,195,648 f32 elements
+GPT2_BUCKET_BLOCKS = (286_110, 199_983)
+PEER_COUNTS = (1, 2, 4, 8)
+CODECS = {   # codec -> its quantization launches per GPT-2 small step (2 buckets)
+    "Int8Compressor": {"quantize_int8": 4, "dequant_sum": 2, "equarx_hop": 0},
+    "Int8CompressorEF": {"quantize_int8": 6, "dequant_sum": 2, "equarx_hop": 0},
+    "EquarxInt8Compressor": {"quantize_int8": 2, "dequant_sum": 0, "equarx_hop": 2},
+}
+CODEC_STEPS = 5
 
 
 class SmokeFailure(Exception):
@@ -393,6 +432,128 @@ def measure_norm_kernels(torch, fn):
     return results
 
 
+def make_quant_blocks(torch, n, seed):
+    """(n, 256) f32 on the card, magnitudes spread over blocks as a
+    gradient's are."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(n, 256, device="cuda", generator=g) * torch.exp(
+        torch.rand(n, 1, device="cuda", generator=g) * 16 - 12)
+
+
+def bitwise_error(label, got, want):
+    """Max-abs difference of matching outputs, which must be bitwise equal."""
+    err = 0.0
+    for a, b in zip(got, want):
+        check(a.shape == b.shape and a.dtype == b.dtype, f"{label}: shape or type differs")
+        err = max(err, float((a.float() - b.float()).abs().max()))
+        check(a.equal(b), f"{label}: not bitwise equal (max-abs {err:.3e})")
+    return err
+
+
+def check_quantize_kernels(torch, tq):
+    """Each quantization kernel against its plain version, bitwise: at the
+    two GPT-2 small bucket sizes, at N = 1001 blocks with an all-zero block,
+    a block of half-step ties and a NaN block, with D in {1, 2, 4, 8} peers
+    (and D = 3 at N = 1001), and the EQuARX contract (the fused hop equals
+    the unfused kernels); returns each kernel's max-abs error (0 when
+    bitwise equal)."""
+    worst = {"quantize_int8": 0.0, "dequant_sum": 0.0, "equarx_hop": 0.0}
+    for i, n in enumerate(GPT2_BUCKET_BLOCKS + (1001,)):
+        x = make_quant_blocks(torch, n, 200 + i)
+        label = f"quantize_int8 N={n}"
+        if n == 1001:
+            x[1] = 0.0
+            x[2] = torch.arange(256, device="cuda", dtype=torch.float32) % 64 - 31.5
+            x[2, 0] = -127.0      # scale exactly 1: every other value on a tie
+            x[3, 9] = float("nan")
+            label += " (zero, tie and NaN blocks)"
+        q, s = tq.quantize_int8(x)
+        pq, ps = tq.quantize_int8(x, impl="plain")
+        torch.cuda.synchronize()
+        if n == 1001:
+            check(bool(torch.isnan(s[3]).all() and torch.isnan(ps[3]).all()),
+                  f"{label}: a NaN did not poison its block's scale")
+            check(not q[1].any() and float(s[1]) == 1.0, f"{label}: zero block")
+            check(torch.equal(q[2].cpu(), torch.round(x[2].cpu()).to(torch.int8)),
+                  f"{label}: ties do not round half to even")
+            keep = torch.ones(n, dtype=torch.bool, device="cuda")
+            keep[3] = False
+            q, s, pq, ps = q[keep], s[keep], pq[keep], ps[keep]
+        err = bitwise_error(label, (q, s), (pq, ps))
+        worst["quantize_int8"] = max(worst["quantize_int8"], err)
+        print(f"quantize check [{label}]: bitwise equal to the plain version")
+        del x, q, s, pq, ps
+    cases = [(d, GPT2_BUCKET_BLOCKS[0]) for d in PEER_COUNTS] + [(3, 1001)]
+    for d, n in cases:
+        q, s = tq.quantize_int8(make_quant_blocks(torch, d * n, 300 + d))
+        q, s = q.view(d, n, 256), s.view(d, n, 1)
+        total = tq.dequant_sum(q, s)
+        q2, s2 = tq.equarx_hop(q, s, d)
+        uq, us = tq.quantize_int8(tq.true_divide(total, d))
+        plain_total = tq.dequant_sum(q, s, impl="plain")
+        pq2, ps2 = tq.equarx_hop(q, s, d, impl="plain")
+        torch.cuda.synchronize()
+        label = f"D={d} N={n}"
+        worst["dequant_sum"] = max(worst["dequant_sum"], bitwise_error(
+            f"dequant_sum {label}", (total,), (plain_total,)))
+        worst["equarx_hop"] = max(worst["equarx_hop"], bitwise_error(
+            f"equarx_hop {label}", (q2, s2), (pq2, ps2)))
+        bitwise_error(f"EQuARX contract {label}", (q2, s2), (uq, us))
+        print(f"quantize check [{label}]: dequant_sum and equarx_hop bitwise equal to "
+              f"their plain versions; equarx_hop bitwise equal to quantize_int8("
+              f"dequant_sum / {d})")
+        del q, s, total, q2, s2, uq, us, plain_total, pq2, ps2
+    torch.cuda.empty_cache()
+    return worst
+
+
+def quantize_work(name, n, d=1):
+    """(operations, bytes) of one call over n blocks (each input read once,
+    each output written once)."""
+    elems, blocks = n * 256, n
+    if name == "quantize_int8":   # abs, max, divide, round per element
+        return 4 * elems, elems * 4 + elems + blocks * 4
+    if name == "dequant_sum":     # a multiply and an add per peer
+        return 2 * d * elems, d * (elems + blocks * 4) + elems * 4
+    return (2 * d + 5) * elems, d * (elems + blocks * 4) + elems + blocks * 4
+
+
+def measure_quantize_kernels(torch, tq):
+    """Kernel and plain times and the bound at GPT-2 small's first bucket
+    (286,110 blocks), the peer sums at D = 1 (the one-card path's shape;
+    reported in the kernels line) and D = 8.  No single PyTorch call
+    computes these functions, so there is no library time."""
+    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")   # > the 50 MB L2
+    n = GPT2_BUCKET_BLOCKS[0]
+    x = make_quant_blocks(torch, n, 7)
+    results = {}
+    shapes = [("quantize_int8", 1), ("dequant_sum", 1), ("equarx_hop", 1),
+              ("dequant_sum", 8), ("equarx_hop", 8)]
+    for name, d in shapes:
+        if name == "quantize_int8":
+            fns = (lambda: tq.quantize_int8(x), lambda: tq.quantize_int8(x, impl="plain"))
+        else:
+            q, s = tq.quantize_int8(make_quant_blocks(torch, d * n, 8 + d))
+            q, s = q.view(d, n, 256), s.view(d, n, 1)
+            fn = tq.dequant_sum if name == "dequant_sum" else (
+                lambda q_, s_, impl=None: tq.equarx_hop(q_, s_, d, impl=impl))
+            fns = (lambda: fn(q, s), lambda: fn(q, s, impl="plain"))
+        ops, nbytes = quantize_work(name, n, d)
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        r = {"ms": time_ms(fns[0], torch, flush), "plain_ms": time_ms(fns[1], torch, flush),
+             "library_ms": None, "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "mbytes": nbytes / 1e6}
+        print(f"timing {name} N={n} D={d}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library none (no single PyTorch call), bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {r['mbytes']:.2f} MB, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f} % of the memory rate)")
+        results.setdefault(name, r)
+    del x, flush
+    torch.cuda.empty_cache()
+    return results
+
+
 def timed_steps(torch, sess, batch, steps, kernel_modules):
     """``steps`` steps of the main path, each ended by reading the loss,
     with every launch count set to 0 just before and read just after;
@@ -455,7 +616,8 @@ def train_gpt2_small(torch, ad, kernel_modules):
     check(rel <= LOSS_REL_TOL, f"step 1 loss differs from the plain path by {rel}")
     per_step = config.num_layers * STEPS
     want = {"flash_fwd": per_step, "flash_dq": per_step, "flash_dkdv": per_step,
-            "bn_fwd": 0, "gn_fwd": 0}
+            "bn_fwd": 0, "gn_fwd": 0, "quantize_int8": 0, "dequant_sum": 0,
+            "equarx_hop": 0}
     check(launches == want, f"expected launches {want}, got {launches}")
     check(all(bool(torch.isfinite(t).all()) for t in sess.state["params"].values()),
           "non-finite parameters after training")
@@ -543,6 +705,7 @@ def train_resnet50(torch, ad, kernel_modules, norm, steps):
     check(rel <= LOSS_REL_TOL, f"{tag}: step 1 loss differs from the plain path by {rel}")
     kernel = "bn_fwd" if norm == "bn_fused" else "gn_fwd"
     want = {"flash_fwd": 0, "flash_dq": 0, "flash_dkdv": 0, "bn_fwd": 0, "gn_fwd": 0,
+            "quantize_int8": 0, "dequant_sum": 0, "equarx_hop": 0,
             kernel: NORM_SITES * steps}
     check(launches == want, f"{tag}: expected launches {want}, got {launches}")
     check(all(bool(torch.isfinite(t).all()) for t in sess.state["params"].values()),
@@ -561,6 +724,8 @@ def train_resnet50(torch, ad, kernel_modules, norm, steps):
 
 
 KERNEL_CATEGORIES = (   # (category, substrings of a kernel name), first match wins
+    ("quantization kernels (quantize_int8 / dequant_sum / equarx_hop)",
+     ("quantize_kernel", "dequant_sum_kernel", "equarx_hop_kernel")),
     ("fused-norm kernels (bn_fwd / gn_fwd)", ("norm_partial_kernel", "norm_stats_kernel",
                                              "norm_apply_kernel")),
     ("flash kernels", ("mma_fwd_kernel", "mma_dq_kernel", "mma_dkdv_kernel",
@@ -611,55 +776,198 @@ def profile_steps(torch, sess, batch, steps=2):
         print(f"profile: {ms:8.3f} ms/step {100 * ms / busy:5.1f} %  {name[:90]}")
 
 
+def train_gpt2_codec(torch, ad, codec, kernel_modules):
+    """The compressed AllReduce path: GPT-2 small, ``AllReduce(compressor=
+    codec)``, CODEC_STEPS adamw steps on phase 5's batch.  Before them,
+    step 1's synced gradients through the codec's kernels are held bitwise
+    against the same codec's plain versions on the same CUDA gradients, and
+    the sync's device time is taken (kernels, plain, and the same buckets
+    under NoneCompressor)."""
+    import dataclasses
+
+    import numpy as np
+
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.kernel.synchronization import all_reduce as ar_sync
+    from autodist_tpu_torch.models.gpt import GPTConfig
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+
+    config = GPTConfig()
+    loss_fn, params, sparse = gpt_capture(config, SEQ, seed=0)
+    toks = np.random.default_rng(0).integers(0, config.vocab_size, (BATCH, SEQ + 1))
+    batch = {"tokens": toks[:, :-1].astype(np.int32), "targets": toks[:, 1:].astype(np.int32)}
+    sess = ad.distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
+                         has_rng=True)
+    t = sess.transformer
+    blocks = tuple(sorted((-(-b.total // 256) for b in t.buckets), reverse=True))
+    check(blocks == GPT2_BUCKET_BLOCKS, f"{codec}: buckets of {blocks} blocks, expected "
+                                        f"{GPT2_BUCKET_BLOCKS}")
+
+    def fresh_states():
+        return {k: v.clone() if torch.is_tensor(v) else v
+                for k, v in sess.state["comp"].items()}
+
+    _, _, grads = t.gradients(sess.state, sess.shard_batch(batch))
+    synced, states = t.sync(grads, fresh_states())
+    plain_synced, plain_states = t.sync(grads, fresh_states(), impl="plain")
+    torch.cuda.synchronize()
+    stateful = [k for k, v in states.items() if torch.is_tensor(v)]
+    err = bitwise_error(f"{codec} step-1 synced gradients",
+                        [synced[n] for n in t.names] + [states[k] for k in stateful],
+                        [plain_synced[n] for n in t.names] + [plain_states[k] for k in stateful])
+    print(f"{codec}: step 1's synced gradients ({len(t.names)} tensors"
+          f"{', and the EF residuals' if stateful else ''}) through the kernels are bitwise "
+          f"equal to the codec's plain versions")
+    del synced, states, plain_synced, plain_states
+    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
+    none_buckets = [dataclasses.replace(b, compressor=0) for b in t.buckets]
+    sync = {
+        "kernels": time_ms(lambda: t.sync(grads, fresh_states()), torch, flush, reps=10),
+        "plain": time_ms(lambda: t.sync(grads, fresh_states(), impl="plain"), torch, flush,
+                         reps=5),
+        "NoneCompressor": time_ms(lambda: ar_sync.sync_bucketed(
+            grads, none_buckets, {b.key: () for b in none_buckets}), torch, flush, reps=10),
+    }
+    print(f"{codec}: gradient sync device time per step (both buckets): kernels "
+          f"{sync['kernels']:.4f} ms, plain versions {sync['plain']:.4f} ms, the same "
+          f"buckets under NoneCompressor {sync['NoneCompressor']:.4f} ms")
+    del grads, flush
+    torch.cuda.empty_cache()
+
+    losses, step_ms, launches, peak_gb = timed_steps(torch, sess, batch, CODEC_STEPS,
+                                                     kernel_modules)
+    steady = statistics.median(step_ms[1:])
+    print(f"{codec} losses: " + ", ".join(f"{x:.5f}" for x in losses))
+    print(f"{codec} step ms: " + ", ".join(f"{x:.2f}" for x in step_ms))
+    print(f"{codec}: median step {steady:.2f} ms (steps 2-{CODEC_STEPS}), "
+          f"{BATCH * SEQ / steady * 1e3:.0f} tokens/s, peak memory {peak_gb:.2f} GB, "
+          f"launches {launches}")
+    check(all(math.isfinite(x) for x in losses), f"{codec}: non-finite loss in {losses}")
+    check(statistics.mean(losses[-3:]) < losses[0],
+          f"{codec}: the last three losses do not average below the first: {losses}")
+    per_layer = config.num_layers * CODEC_STEPS
+    want = {"flash_fwd": per_layer, "flash_dq": per_layer, "flash_dkdv": per_layer,
+            "bn_fwd": 0, "gn_fwd": 0}
+    want.update({k: v * CODEC_STEPS for k, v in CODECS[codec].items()})
+    check(launches == want, f"{codec}: expected launches {want}, got {launches}")
+    check(all(bool(torch.isfinite(p).all()) for p in sess.state["params"].values()),
+          f"{codec}: non-finite parameters after training")
+    if codec == "Int8Compressor":
+        profile_steps(torch, sess, batch)
+    return {"codec": codec, "launches": {k: launches[k] for k in CODECS[codec]},
+            "sync_max_abs_err": err, "step_ms": steady, "losses": losses,
+            "peak_gb": peak_gb, "sync_ms": sync}
+
+
+def run_codec_phase():
+    """Each codec's training run in a process of its own (``AutoDist`` is
+    one instance per process), one after another on the one card; forwards
+    their output and sums their launches."""
+    launches = dict.fromkeys(("quantize_int8", "dequant_sum", "equarx_hop"), 0)
+    for codec in CODECS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--codec", codec],
+                              cwd=REPO, capture_output=True, text=True, timeout=900)
+        result = None
+        for line in proc.stdout.splitlines():
+            if line.startswith("CODEC_RESULT "):
+                result = json.loads(line[len("CODEC_RESULT "):])
+            else:
+                print(line)
+        print(f"{codec}: run took {time.perf_counter() - t0:.1f} s")
+        check(proc.returncode == 0 and result is not None,
+              f"{codec} run failed (exit {proc.returncode}):\n{proc.stderr[-3000:]}")
+        for k, v in result["launches"].items():
+            launches[k] += v
+    print(f"compressed AllReduce runs: launches {launches} "
+          f"({CODEC_STEPS} steps under each of {', '.join(CODECS)})")
+    return launches
+
+
+def setup(torch):
+    """The checks every process of the script makes first; returns the
+    port's modules, or None after printing why it cannot run."""
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device: this smoke test runs on a GPU", file=sys.stderr)
+        return None
+    sys.path.insert(0, REPO)
+    try:
+        import autodist_tpu_torch.autodist as autodist
+        from autodist_tpu_torch.ops import build
+        from autodist_tpu_torch.ops import flash_attention as fa
+        from autodist_tpu_torch.ops import fused_norm as fn
+        from autodist_tpu_torch.ops import quantize as tq
+        from autodist_tpu_torch.resource_spec import ResourceSpec
+        from autodist_tpu_torch.strategy import AllReduce
+    except ImportError as e:
+        print(f"FAIL: run from a checkout of the repo ({e})", file=sys.stderr)
+        return None
+    # full-f32 products: the GPT head is an f32 matmul, as in the JAX model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = ResourceSpec(resource_info={"nodes": [
+        {"address": "localhost", "gpus": [0], "chief": True}]})
+    return dict(AutoDist=autodist.AutoDist, build=build, fa=fa, fn=fn, tq=tq, spec=spec,
+                AllReduce=AllReduce)
+
+
+def codec_main(codec):
+    """``chip_smoke.py --codec NAME``: one compressed AllReduce run (phase 9)."""
+    import torch
+
+    m = setup(torch)
+    if m is None:
+        return 1
+    try:
+        check(codec in CODECS, f"unknown codec {codec!r}; expected one of {list(CODECS)}")
+        ad = m["AutoDist"](resource_spec=m["spec"],
+                           strategy_builder=m["AllReduce"](compressor=codec))
+        result = train_gpt2_codec(torch, ad, codec, (m["fa"], m["fn"], m["tq"]))
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    print("CODEC_RESULT " + json.dumps(result))
+    return 0
+
+
 def main():
     try:
         import torch
     except ImportError:
         print("FAIL: torch is not installed", file=sys.stderr)
         return 1
-    if not torch.cuda.is_available():
-        print("FAIL: no CUDA device: this smoke test runs on a GPU", file=sys.stderr)
+    m = setup(torch)
+    if m is None:
         return 1
-    sys.path.insert(0, REPO)
-    try:
-        from autodist_tpu_torch.autodist import AutoDist
-        from autodist_tpu_torch.ops import build
-        from autodist_tpu_torch.ops import flash_attention as fa
-        from autodist_tpu_torch.ops import fused_norm as fn
-        from autodist_tpu_torch.resource_spec import ResourceSpec
-        from autodist_tpu_torch.strategy import AllReduce
-    except ImportError as e:
-        print(f"FAIL: run from a checkout of the repo ({e})", file=sys.stderr)
-        return 1
-    # full-f32 products: the GPT head is an f32 matmul, as in the JAX model
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
+    fa, fn, tq = m["fa"], m["fn"], m["tq"]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()
     print(card[0] if card else "nvidia-smi: no output")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    kernel_modules = (fa, fn)
+    kernel_modules = (fa, fn, tq)
     try:
         t0 = time.perf_counter()
-        build.build(list(SOURCES))
+        m["build"].build(list(SOURCES))
         print(f"kernel build: {time.perf_counter() - t0:.1f} s")
         errors = check_kernels(torch, fa)
         errors.update(check_norm_kernels(torch, fn))
+        errors.update(check_quantize_kernels(torch, tq))
         timing = measure_kernels(torch, fa)
         timing.update(measure_norm_kernels(torch, fn))
+        timing.update(measure_quantize_kernels(torch, tq))
         torch.cuda.empty_cache()
-        spec = ResourceSpec(resource_info={"nodes": [
-            {"address": "localhost", "gpus": [0], "chief": True}]})
-        ad = AutoDist(resource_spec=spec, strategy_builder=AllReduce())
+        ad = m["AutoDist"](resource_spec=m["spec"], strategy_builder=m["AllReduce"]())
         launches = train_gpt2_small(torch, ad, kernel_modules)
         torch.cuda.empty_cache()
         report_norm_sites(torch)
         launches.update(train_resnet50(torch, ad, kernel_modules, "bn_fused", RESNET_STEPS))
         torch.cuda.empty_cache()
         launches.update(train_resnet50(torch, ad, kernel_modules, "gn", GN_STEPS))
+        del ad
+        torch.cuda.empty_cache()
+        launches.update(run_codec_phase())
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -678,4 +986,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--codec":
+        sys.exit(codec_main(sys.argv[2]))
     sys.exit(main())

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (flash attention, fused batch and group norm)
-against their plain versions.
+"""The port's CUDA kernels (flash attention, fused batch and group norm,
+int8 quantization) against their plain versions.
 
 Needs an NVIDIA GPU and nvcc; every test is marked ``cuda`` and skips
 without a GPU.  The file imports no JAX, so it also runs on a machine
@@ -19,12 +19,19 @@ Tolerance: y max-abs <= 1e-2 * max(1, max|y|) in bf16 (output rounding)
 and 1e-4 in f32; mean and var max-abs <= 1e-4 of their largest magnitude;
 the gradients (plain closed form on both sides) relative Frobenius error
 <= 1e-2 in bf16 and 1e-4 in f32.  A second run gives the same bits.
+
+The quantization kernels (``quantize_int8``, ``dequant_sum``,
+``equarx_hop``) are held bitwise against their plain versions (q, scales
+and f32 sums equal to the last bit), on blocks with spread magnitudes, an
+all-zero block, values on half-step ties and a NaN; ``equarx_hop`` also
+against the unfused kernels ``quantize_int8(dequant_sum(q, s) / n)``.
 """
 import pytest
 import torch
 
 from autodist_tpu_torch.ops import flash_attention as tfa
 from autodist_tpu_torch.ops import fused_norm as tfn
+from autodist_tpu_torch.ops import quantize as tq
 
 # (B, S, H, H_kv, D, causal, masked, dtype)
 CASES = {
@@ -133,3 +140,52 @@ def test_norm_kernels_match_plain_versions(case):
     for got, w in zip((t.grad for t in inputs), (t.grad for t in ref)):
         rel = float((got.float() - w).norm() / w.norm().clamp_min(1e-30))
         assert rel <= NORM_GRAD_TOL[dtype], rel
+
+
+def _quant_blocks(n, g):
+    """(n, 256) f32 on the card: spread magnitudes, a zero block (row 1) and
+    a block of half-step ties whose scale is exactly 1 (row 2)."""
+    x = torch.randn(n, tq.BLOCK, device="cuda", generator=g) * torch.exp(
+        torch.rand(n, 1, device="cuda", generator=g) * 16 - 8)
+    x[1] = 0.0
+    x[2] = torch.arange(tq.BLOCK, device="cuda", dtype=torch.float32) % 64 - 31.5
+    x[2, 0] = -127.0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 1001, 8192])
+def test_quantize_kernel_matches_plain_version(n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    x = _quant_blocks(n, torch.Generator(device="cuda").manual_seed(n))
+    x[0, 5] = float("nan")
+    tq.reset_launches()
+    q, s = tq.quantize_int8(x)
+    pq, ps = tq.quantize_int8(x, impl="plain")
+    torch.cuda.synchronize()
+    assert tq.LAUNCHES["quantize_int8"] == 1
+    assert torch.isnan(s[0]).all() and torch.isnan(ps[0]).all()   # NaN poisons its block
+    assert torch.equal(q[1:], pq[1:]) and torch.equal(s[1:], ps[1:])
+    assert not q[1].any() and float(s[1]) == 1.0 and float(s[2]) == 1.0
+    assert torch.equal(q[2].cpu(), torch.round(x[2].cpu()).to(torch.int8))   # half to even
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 3, 8])
+def test_dequant_sum_and_equarx_hop_kernels_match_plain_versions(d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(d)
+    q, s = tq.quantize_int8(_quant_blocks(d * 1001, g))
+    q, s = q.view(d, 1001, tq.BLOCK), s.view(d, 1001, 1)
+    tq.reset_launches()
+    total = tq.dequant_sum(q, s)
+    q2, s2 = tq.equarx_hop(q, s, d)
+    uq, us = tq.quantize_int8(tq.true_divide(total, d))
+    torch.cuda.synchronize()
+    assert tq.LAUNCHES == {"quantize_int8": 1, "dequant_sum": 1, "equarx_hop": 1}
+    assert torch.equal(total, tq.dequant_sum(q, s, impl="plain"))
+    pq, ps = tq.equarx_hop(q, s, d, impl="plain")
+    assert torch.equal(q2, pq) and torch.equal(s2, ps)
+    assert torch.equal(q2, uq) and torch.equal(s2, us)     # the EQuARX contract

@@ -13,6 +13,9 @@
 - The package imports no JAX, flax, optax, protobuf or ``autodist_tpu``,
   and its entry points (``gpt_capture`` and ``classifier_capture`` too)
   raise without a GPU unless given ``device="cpu"``.
+- The knobs of later slices raise (``PowerSGDCompressor`` among them), and
+  a spec of two replicas in a one-process world raises the world-size
+  error instead of running one replica.
 """
 import ast
 import dataclasses
@@ -228,7 +231,7 @@ def test_strategy_json_roundtrip_and_later_slices_raise(tmp_path):
     assert back.proto == s.proto and back.id == s.id
     assert back.graph_config.replicas == ["localhost:GPU:0", "localhost:GPU:1"]
     assert back.node_config[-1].WhichOneof("synchronizer") == "AllReduceSynchronizer"
-    for kwargs in ({"compressor": "BF16Compressor"}, {"schedule": "overlap"},
+    for kwargs in ({"compressor": "PowerSGDCompressor"}, {"schedule": "overlap"},
                    {"hierarchy": "two_level"}, {"sharded_update": "sharded"},
                    {"precision": "bf16_master"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -240,7 +243,7 @@ def test_strategy_json_roundtrip_and_later_slices_raise(tmp_path):
     ad = AutoDist(resource_spec=ResourceSpec(resource_info={
         "nodes": [{"address": "localhost", "gpus": [0, 1], "chief": True}]}),
         strategy_builder=AllReduce(), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="2 replicas but this launch has WORLD_SIZE=1"):
         ad.distribute(loss_fn, params, optim.sgd(0.1))
     with pytest.raises(NotImplementedError, match="accum_steps"):
         ad.distribute(loss_fn, params, optim.sgd(0.1), accum_steps=2)
