@@ -117,11 +117,6 @@ class AutoDist:
             logging.info("Worker loaded strategy %s", strategy.id)
         return strategy
 
-    def build_strategy(self, model_item) -> Strategy:
-        """Build (or load) and compile the strategy for a captured model."""
-        raw = self._build_or_load_strategy(model_item)
-        return StrategyCompiler(model_item, self._resource_spec).compile(raw)
-
     def distribute(self, loss_fn: Callable, params: Any, optimizer: Any, *,
                    sparse_vars: Optional[Sequence[str]] = None, has_aux: bool = False,
                    has_rng: bool = False, rng: Optional[int] = None, name: str = "",

@@ -42,7 +42,7 @@ def replica_mean_state(new_state, group=None):
     statistics) averaged over the replicas as the JAX step's ``pmean``
     (``kernel/graph_transformer.py:1226-1231``); integer leaves as they are."""
     return OrderedDict(
-        (n, ar_sync.reduce_mean(t.detach(), group) if t.is_floating_point()
+        (n, coll.pmean(t.detach(), group) if t.is_floating_point()
          else t.detach()) for n, t in new_state.items())
 
 

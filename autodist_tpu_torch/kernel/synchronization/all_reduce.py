@@ -22,7 +22,6 @@ import torch
 
 from autodist_tpu_torch.kernel.synchronization.compressor import get_compressor
 from autodist_tpu_torch.model_item import dtype_name
-from autodist_tpu_torch.parallel import collectives as coll
 from autodist_tpu_torch.proto import schema
 
 _AR = schema.AllReduceSynchronizer
@@ -87,11 +86,6 @@ def _bucket_buf(grads_by_name, b):
     """Pack: the bucket's gradients flattened into one buffer (native dtype)."""
     flats = [grads_by_name[n].reshape(-1) for n in b.var_names]
     return torch.cat(flats) if len(flats) > 1 else flats[0]
-
-
-def reduce_mean(buf, group=None):
-    """Reduce, then mean over the replicas of ``group`` (JAX ``pmean``)."""
-    return coll.pmean(buf, group)
 
 
 def _unpack_bucket(b, reduced, grads_by_name, synced):

@@ -163,8 +163,7 @@ class Int8CompressorEF(Int8Compressor):
     def all_reduce(self, buf, state, group=None):
         corrected = buf + state
         reduced, _ = super().all_reduce(corrected, (), group)
-        q, scale = qops.quantize_int8(qops.pad_to_blocks(corrected, block=self.BLOCK),
-                                      impl=self.impl)
+        q, scale = qops.quantize_int8(qops.pad_to_blocks(corrected), impl=self.impl)
         residual = corrected - _dequantize_int8(q, scale)[:corrected.shape[0]]
         return reduced, residual
 

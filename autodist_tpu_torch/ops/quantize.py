@@ -23,10 +23,10 @@ The kernels and the plain versions agree to the bit: both divide with
 IEEE division (:func:`true_divide`: PyTorch's CUDA ``tensor / python_float``
 multiplies by the reciprocal), round half to even, sum the peers in order
 d = 0..D-1 without fusing a multiply into the add, and let a NaN poison its
-block's scale as ``jnp.max`` does.  The JAX reference on the CPU differs
-in one place: XLA folds ``/ 127.0`` and ``/ n_dev`` into a multiply by the
-reciprocal, so a scale can differ from it by one ulp, and a q by one step
-where ``x / s`` lies on a rounding tie.
+block's scale as ``jnp.max`` does (the block's q is then 0).  The JAX
+reference on the CPU differs in one place: XLA folds ``/ 127.0`` and ``/
+n_dev`` into a multiply by the reciprocal, so a scale can differ from it
+by one ulp, and a q by one step where ``x / s`` lies on a rounding tie.
 
 ``ROWS = 128`` is the TPU kernels' row tile: they need N to be a multiple
 of it, and the JAX codec pads chunks to ``ROWS * BLOCK`` on TPU only.  The
@@ -59,16 +59,14 @@ def true_divide(x, d):
     return x / torch.full((), float(d), dtype=x.dtype, device=x.device)
 
 
-def pad_to_blocks(flat, rows_multiple=1, block=BLOCK):
-    """Zero-pad a flat vector and view it as ``(N, block)`` with ``N`` a
-    multiple of ``rows_multiple`` (the JAX function's default,
-    ``rows_multiple=ROWS``, is the TPU tile; the CUDA kernels need 1)."""
-    n = flat.shape[0]
-    per_chunk = rows_multiple * block
-    npad = -(-n // per_chunk) * per_chunk
-    if npad != n:
-        flat = torch.nn.functional.pad(flat, (0, npad - n))
-    return flat.reshape(-1, block)
+def pad_to_blocks(flat):
+    """Zero-pad a flat vector to whole blocks and view it as ``(N, BLOCK)``
+    (the JAX function also rounds N up to a multiple of ``ROWS``, the TPU
+    tile)."""
+    pad = -flat.shape[0] % BLOCK
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    return flat.reshape(-1, BLOCK)
 
 
 # ------------------------------------------------------------ plain versions --
@@ -78,8 +76,9 @@ def quantize_int8_plain(x_blocks):
     amax = x_blocks.abs().amax(dim=1, keepdim=True)   # propagates NaN
     s = true_divide(amax, 127.0)
     s = torch.where(s == 0, torch.ones_like(s), s)
-    q = torch.clamp(torch.round(x_blocks / s), -127, 127).to(torch.int8)
-    return q, s
+    # a NaN's q is 0, as the kernel and XLA's conversion give it
+    q = torch.nan_to_num(torch.clamp(torch.round(x_blocks / s), -127, 127), nan=0.0)
+    return q.to(torch.int8), s
 
 
 def dequant_sum_plain(q, s):

@@ -8,11 +8,11 @@ reads the launcher's environment through :class:`const.ENV`: ``RANK``,
 ``WORLD_SIZE``, and either ``AUTODIST_INIT_METHOD`` (for example
 ``file:///path/to/store``) or ``MASTER_ADDR``/``MASTER_PORT`` (then
 ``env://``, which also joins the store a ``torchrun`` agent hosts);
-``AutoDist`` puts each rank on ``cuda:LOCAL_RANK``.  It initialises the process group once, with NCCL for CUDA
-devices and gloo for the CPU; a group that the caller initialised already
-is taken as it is.  :func:`check_replicas` holds the world against the
-strategy: a spec of R replicas runs in a world of exactly R processes,
-never silently as R = 1.
+``AutoDist`` puts each rank on ``cuda:LOCAL_RANK``.  It initialises the
+process group once, with NCCL for CUDA devices and gloo for the CPU; a
+group that the caller initialised already is taken as it is.
+:func:`check_replicas` holds the world against the strategy: a spec of R
+replicas runs in a world of exactly R processes, never silently as R = 1.
 """
 import dataclasses
 from typing import Any, Optional

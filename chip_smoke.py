@@ -51,7 +51,7 @@ Phases (each failure exits non-zero before the last line):
    ``dequant_sum``, ``equarx_hop``) bitwise against their plain versions:
    ``quantize_int8`` at GPT-2 small's two bucket sizes (286,110 and 199,983
    blocks of 256) and at N = 1001 blocks with an all-zero block, a block of
-   half-step ties and a NaN block (its scale must be NaN in both);
+   half-step ties and a NaN block (its scale NaN and its q 0 in both);
    ``dequant_sum`` and ``equarx_hop`` with D = 1, 2, 4, 8 peers at the
    first bucket's size and D = 3 at N = 1001, and the EQuARX contract
    (``equarx_hop(q, s, D)`` bitwise equal to ``quantize_int8(dequant_sum(q,
@@ -137,14 +137,15 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def time_ms(fn, torch, flush, reps=15, warmup=3):
+def time_ms(fn, torch, flush, reps=15, warmup=3, group=None):
     """Median of ``reps`` CUDA-event timings of ``fn``, L2 flushed before each.
 
     The runs are queued behind a sleep kernel, so the device runs them back
     to back and the host's launch time (large for a library call's many
     launches on a busy host) stays out of the device times.  If the sleep
     ends before the host has queued every run, it is doubled and the runs
-    are timed again."""
+    are timed again; where ``fn`` holds collectives over ``group``, every
+    rank of it makes that choice together."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -162,6 +163,10 @@ def time_ms(fn, torch, flush, reps=15, warmup=3):
             end.record()
         queued_in_time = not slept.query()
         torch.cuda.synchronize()
+        if group is not None:
+            flag = torch.tensor([int(queued_in_time)], device="cuda")
+            torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MIN, group=group)
+            queued_in_time = bool(flag.item())
         if queued_in_time or cycles >= 8 * SLEEP_CYCLES:
             return statistics.median(start.elapsed_time(end) for start, end in events)
         cycles *= 2
@@ -473,12 +478,14 @@ def check_quantize_kernels(torch, tq):
         if n == 1001:
             check(bool(torch.isnan(s[3]).all() and torch.isnan(ps[3]).all()),
                   f"{label}: a NaN did not poison its block's scale")
+            bitwise_error(f"{label} NaN block q", (q[3],), (pq[3],))
+            check(not q[3].any(), f"{label}: a NaN block's q is not 0")
             check(not q[1].any() and float(s[1]) == 1.0, f"{label}: zero block")
             check(torch.equal(q[2].cpu(), torch.round(x[2].cpu()).to(torch.int8)),
                   f"{label}: ties do not round half to even")
             keep = torch.ones(n, dtype=torch.bool, device="cuda")
-            keep[3] = False
-            q, s, pq, ps = q[keep], s[keep], pq[keep], ps[keep]
+            keep[3] = False   # the NaN scales, compared above
+            s, ps = s[keep], ps[keep]
         err = bitwise_error(label, (q, s), (pq, ps))
         worst["quantize_int8"] = max(worst["quantize_int8"], err)
         print(f"quantize check [{label}]: bitwise equal to the plain version")
@@ -776,13 +783,25 @@ def profile_steps(torch, sess, batch, steps=2):
         print(f"profile: {ms:8.3f} ms/step {100 * ms / busy:5.1f} %  {name[:90]}")
 
 
+def same_on_every_rank(torch, tensors, group):
+    """True when every rank of ``group`` holds the same bits in ``tensors``."""
+    flat = torch.cat([t.detach().reshape(-1).view(torch.uint8) for t in tensors])
+    ref = flat.clone()
+    torch.distributed.broadcast(ref, src=0, group=group)
+    agree = torch.tensor([int(torch.equal(ref, flat))], device=flat.device)
+    torch.distributed.all_reduce(agree, op=torch.distributed.ReduceOp.MIN, group=group)
+    return bool(agree.item())
+
+
 def train_gpt2_codec(torch, ad, codec, kernel_modules):
     """The compressed AllReduce path: GPT-2 small, ``AllReduce(compressor=
-    codec)``, CODEC_STEPS adamw steps on phase 5's batch.  Before them,
-    step 1's synced gradients through the codec's kernels are held bitwise
-    against the same codec's plain versions on the same CUDA gradients, and
-    the sync's device time is taken (kernels, plain, and the same buckets
-    under NoneCompressor)."""
+    codec)``, CODEC_STEPS adamw steps on phase 5's batch (BATCH sequences
+    per replica when ``multi_gpu_check.py`` runs it over R GPUs).  Before
+    them, step 1's synced gradients through the codec's kernels are held
+    bitwise against the same codec's plain versions on the same CUDA
+    gradients, and the sync's device time is taken (kernels, plain, and the
+    same buckets under NoneCompressor).  Over R > 1 replicas every rank
+    must end with the same parameters."""
     import dataclasses
 
     import numpy as np
@@ -794,7 +813,8 @@ def train_gpt2_codec(torch, ad, codec, kernel_modules):
 
     config = GPTConfig()
     loss_fn, params, sparse = gpt_capture(config, SEQ, seed=0)
-    toks = np.random.default_rng(0).integers(0, config.vocab_size, (BATCH, SEQ + 1))
+    rows = BATCH * ad.world.size
+    toks = np.random.default_rng(0).integers(0, config.vocab_size, (rows, SEQ + 1))
     batch = {"tokens": toks[:, :-1].astype(np.int32), "targets": toks[:, 1:].astype(np.int32)}
     sess = ad.distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
                          has_rng=True)
@@ -822,11 +842,13 @@ def train_gpt2_codec(torch, ad, codec, kernel_modules):
     flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
     none_buckets = [dataclasses.replace(b, compressor=0) for b in t.buckets]
     sync = {
-        "kernels": time_ms(lambda: t.sync(grads, fresh_states()), torch, flush, reps=10),
+        "kernels": time_ms(lambda: t.sync(grads, fresh_states()), torch, flush, reps=10,
+                           group=t.group),
         "plain": time_ms(lambda: t.sync(grads, fresh_states(), impl="plain"), torch, flush,
-                         reps=5),
+                         reps=5, group=t.group),
         "NoneCompressor": time_ms(lambda: ar_sync.sync_bucketed(
-            grads, none_buckets, {b.key: () for b in none_buckets}), torch, flush, reps=10),
+            grads, none_buckets, {b.key: () for b in none_buckets}, t.group), torch, flush,
+            reps=10, group=t.group),
     }
     print(f"{codec}: gradient sync device time per step (both buckets): kernels "
           f"{sync['kernels']:.4f} ms, plain versions {sync['plain']:.4f} ms, the same "
@@ -840,8 +862,8 @@ def train_gpt2_codec(torch, ad, codec, kernel_modules):
     print(f"{codec} losses: " + ", ".join(f"{x:.5f}" for x in losses))
     print(f"{codec} step ms: " + ", ".join(f"{x:.2f}" for x in step_ms))
     print(f"{codec}: median step {steady:.2f} ms (steps 2-{CODEC_STEPS}), "
-          f"{BATCH * SEQ / steady * 1e3:.0f} tokens/s, peak memory {peak_gb:.2f} GB, "
-          f"launches {launches}")
+          f"{rows * SEQ / steady * 1e3:.0f} tokens/s over {rows} sequences, peak memory "
+          f"{peak_gb:.2f} GB, launches {launches}")
     check(all(math.isfinite(x) for x in losses), f"{codec}: non-finite loss in {losses}")
     check(statistics.mean(losses[-3:]) < losses[0],
           f"{codec}: the last three losses do not average below the first: {losses}")
@@ -852,10 +874,14 @@ def train_gpt2_codec(torch, ad, codec, kernel_modules):
     check(launches == want, f"{codec}: expected launches {want}, got {launches}")
     check(all(bool(torch.isfinite(p).all()) for p in sess.state["params"].values()),
           f"{codec}: non-finite parameters after training")
+    if t.group is not None:
+        check(same_on_every_rank(torch, list(sess.state["params"].values()), t.group),
+              f"{codec}: the ranks hold different parameters")
+        print(f"{codec}: all {t.world.size} ranks hold the same parameters")
     if codec == "Int8Compressor":
         profile_steps(torch, sess, batch)
     return {"codec": codec, "launches": {k: launches[k] for k in CODECS[codec]},
-            "sync_max_abs_err": err, "step_ms": steady, "losses": losses,
+            "sync_max_abs_err": err, "step_ms": steady, "losses": losses, "rows": rows,
             "peak_gb": peak_gb, "sync_ms": sync}
 
 

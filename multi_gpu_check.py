@@ -1,362 +1,60 @@
 #!/usr/bin/env python3
-"""The port's data-parallel step over R GPUs, one process per GPU (NCCL).
+"""``chip_smoke.py``'s compressed AllReduce phase over R GPUs of one host,
+one process per GPU (NCCL)::
 
-Run under ``torchrun`` on a machine with R GPUs, one launch per phase::
-
-    python3 -m torch.distributed.run --standalone --nproc-per-node 4 multi_gpu_check.py codecs
-    AUTODIST_IS_TESTING=1 python3 -m torch.distributed.run --standalone \\
-        --nproc-per-node 4 multi_gpu_check.py linear
     python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
-        multi_gpu_check.py gpt Int8Compressor
+        multi_gpu_check.py Int8Compressor
 
-``--cpu`` after the phase runs it on the CPU over gloo at a tiny size (the
-same control flow, to rehearse without GPUs).  ``gpt`` also runs under
-``--nproc-per-node 1``: the one-GPU step to hold R GPUs' step against on
-the same host.  Phases:
-
-- ``codecs``: every codec's ``all_reduce`` on a seeded per-rank bucket of
-  GPT-2 small's first bucket's size (73,244,160 f32).  The int8 codecs
-  through their kernels are bitwise equal to the same codecs through
-  their plain versions, and every rank ends with the same mean.  Each
-  mean is held against the exact f32 mean (an f32 all-reduce): the int8
-  family within the largest input quantization step of the element's
-  block over the ranks plus its output step, bf16 within 1e-2 of the
-  largest magnitude, None to 1e-6.  Prints each codec's time per call
-  (CUDA events around 10 back-to-back calls on rank 0).
-- ``linear``: ``tests/test_end_to_end.py``'s value-exact linear model
-  under ``AllReduce(chunk_size=1 | 128)`` x sgd/adam, 3 steps on a
-  16-row global batch, against single-device training on the whole batch
-  at atol 2e-5; and ``test_compressors``' five cases at their tolerances
-  (several ``AutoDist``s in one process, hence ``AUTODIST_IS_TESTING``).
-- ``gpt CODEC``: GPT-2 small at full width under ``AllReduce(compressor=
-  CODEC)``, 8 sequences of 1024 tokens per rank, 6 adamw(3e-4) steps.
-  Step 1's synced gradients through the kernels are bitwise equal to the
-  codec's plain versions; losses are finite and fall; every rank holds the
-  same parameters after; each quantization kernel launches as at R = 1 (4
-  ``quantize_int8`` + 2 ``dequant_sum`` a step for Int8, 6 + 2 for EF, 2 +
-  2 ``equarx_hop`` for EQuARX).  Prints the median step (steps 2-6),
-  tokens/s over all ranks, peak memory and the sync's time per step.
-
-Rank 0 prints; each phase ends with a ``RESULT {...}`` JSON line.  A
-failed check exits non-zero.
+Each rank runs ``chip_smoke.train_gpt2_codec`` on its own GPU: GPT-2 small
+at full width under ``AllReduce(compressor=CODEC)``, 8 sequences of 1024
+tokens per rank, with that function's checks (step 1's synced gradients
+through the kernels bitwise equal to the codec's plain versions over the
+same NCCL collectives, finite and falling losses, the launches per step of
+the one-GPU run) and one more: every rank ends with the same parameters.
+Rank 0 builds the kernels and prints; the run ends with a ``RESULT {...}``
+JSON line.  A failed check exits non-zero.
 """
 import json
-import math
 import os
-import statistics
-import subprocess
 import sys
-import time
 
-REPO = os.path.dirname(os.path.abspath(__file__))
-GPT2_BUCKET_ELEMENTS = 73_244_160
-CODECS = ("NoneCompressor", "BF16Compressor", "BF16CompressorEF", "Int8Compressor",
-          "Int8CompressorEF", "EquarxInt8Compressor")
-QUANT_LAUNCHES = {   # per step, GPT-2 small's two buckets (as at R = 1)
-    "NoneCompressor": {"quantize_int8": 0, "dequant_sum": 0, "equarx_hop": 0},
-    "Int8Compressor": {"quantize_int8": 4, "dequant_sum": 2, "equarx_hop": 0},
-    "Int8CompressorEF": {"quantize_int8": 6, "dequant_sum": 2, "equarx_hop": 0},
-    "EquarxInt8Compressor": {"quantize_int8": 2, "dequant_sum": 0, "equarx_hop": 2},
-}
-COMPRESSOR_CASES = {"NoneCompressor": 1e-6, "HorovodCompressor": 5e-3,
-                    "HorovodCompressorEF": 5e-3, "Int8Compressor": 5e-2,
-                    "Int8CompressorEF": 5e-2}
-GPT_STEPS, GPT_BATCH_PER_RANK, GPT_SEQ = 6, 8, 1024
-
-
-class CheckFailure(Exception):
-    pass
-
-
-def check(cond, msg):
-    if not cond:
-        raise CheckFailure(msg)
-
-
-class Run:
-    """This rank's device, world and printing."""
-
-    def __init__(self, cpu):
-        import torch
-
-        from autodist_tpu_torch.parallel.mesh import replica_world
-
-        self.torch = torch
-        self.cpu = cpu
-        local = int(os.environ.get("LOCAL_RANK", "0"))
-        self.device = torch.device("cpu") if cpu else torch.device("cuda", local)
-        self.world = replica_world(self.device)
-        kind = "cpus" if cpu else "gpus"
-        self.spec_info = {"nodes": [{"address": "localhost",
-                                     kind: list(range(self.world.size)), "chief": True}]}
-
-    def log(self, msg):
-        if self.world.rank == 0:
-            print(msg, flush=True)
-
-    def sync(self):
-        if not self.cpu:
-            self.torch.cuda.synchronize(self.device)
-
-    def time_ms(self, fn, reps=10, warmup=3):
-        """Time per call of ``reps`` back-to-back calls (CUDA events; the
-        host clock on the CPU), after ``warmup`` calls and a barrier."""
-        torch = self.torch
-        for _ in range(warmup):
-            fn()
-        self.sync()
-        if self.world.group is not None:
-            torch.distributed.barrier()
-        if self.cpu:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            return (time.perf_counter() - t0) * 1e3 / reps
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize(self.device)
-        return start.elapsed_time(end) / reps
-
-    def autodist(self, builder):
-        from autodist_tpu_torch.autodist import AutoDist
-        from autodist_tpu_torch.resource_spec import ResourceSpec
-
-        return AutoDist(resource_spec=ResourceSpec(resource_info=self.spec_info),
-                        strategy_builder=builder, device=self.device)
-
-    def same_on_every_rank(self, tensors):
-        """True when every rank holds the same bits in ``tensors``."""
-        torch = self.torch
-        if self.world.group is None:
-            return True
-        flat = torch.cat([t.detach().reshape(-1).view(torch.uint8)
-                          for t in tensors]).to(self.device)   # NCCL moves device tensors
-        ref = flat.clone()
-        torch.distributed.broadcast(ref, src=0, group=self.world.group)
-        agree = torch.tensor([int(torch.equal(ref, flat))], device=flat.device)
-        torch.distributed.all_reduce(agree, op=torch.distributed.ReduceOp.MIN,
-                                     group=self.world.group)
-        return bool(agree.item())
-
-
-def block_steps(x):
-    """Each element's quantization step: its 256-block's absmax / 127."""
-    import torch
-
-    n = x.shape[0]
-    pad = torch.nn.functional.pad(x.abs(), (0, -n % 256)).view(-1, 256)
-    return (pad.amax(dim=1, keepdim=True) / 127.0).expand(-1, 256).reshape(-1)[:n]
-
-
-def phase_codecs(run):
-    torch = run.torch
-    from autodist_tpu_torch.kernel.synchronization.compressor import get_compressor
-    from autodist_tpu_torch.parallel import collectives as coll
-    from autodist_tpu_torch.proto import schema
-
-    n = 5000 if run.cpu else GPT2_BUCKET_ELEMENTS
-    g = torch.Generator(device=run.device).manual_seed(1000 + run.world.rank)
-    buf = torch.randn(n, device=run.device, generator=g) * torch.exp(
-        torch.rand(1, device=run.device, generator=g) * 6 - 3) * 1e-3
-    buf[256:512] = 0.0
-    state = 1e-6 * torch.randn(n, device=run.device, generator=g)
-    group = run.world.group
-    results = {}
-    for name in CODECS:
-        comp = get_compressor(getattr(schema.AllReduceSynchronizer, name))
-        plain = get_compressor(getattr(schema.AllReduceSynchronizer, name), impl="plain")
-        reduced = buf + state if comp.stateful else buf   # what the codec averages
-        exact = coll.pmean(reduced, group)
-        in_steps = block_steps(reduced)
-        torch.distributed.all_reduce(in_steps, op=torch.distributed.ReduceOp.MAX, group=group)
-        st = state.clone() if comp.stateful else ()
-        out, new_state = comp.all_reduce(buf, st, group)
-        run.sync()
-        err = float((out - exact).abs().max())
-        if name.startswith("Int8") or name.startswith("Equarx"):
-            pout, pstate = plain.all_reduce(buf, state.clone() if comp.stateful else (), group)
-            run.sync()
-            check(torch.equal(out, pout), f"{name}: kernels and plain versions differ")
-            if comp.stateful:
-                check(torch.equal(new_state, pstate), f"{name}: EF residuals differ")
-            # half an input step (the mean of the ranks' errors) and half an
-            # output step at most: one of each allows for the f32 roundings
-            limit = in_steps + block_steps(out)
-            check(bool(((out - exact).abs() <= limit * (1 + 1e-6)).all()),
-                  f"{name}: mean off the exact mean by more than two quantization steps")
-        elif name.startswith("BF16"):
-            check(err <= 1e-2 * float(exact.abs().max()), f"{name}: error {err}")
-        else:
-            check(err <= 1e-6, f"{name}: error {err}")
-        check(run.same_on_every_rank([out]), f"{name}: ranks hold different means")
-        ms = run.time_ms(lambda: comp.all_reduce(buf, state.clone() if comp.stateful else (),
-                                                 group))
-        results[name] = {"ms": ms, "max_abs_err_vs_f32_mean": err}
-        run.log(f"codec {name} R={run.world.size} n={n}: {ms:.4f} ms per all_reduce, "
-                f"max-abs error vs the f32 mean {err:.3e}"
-                + (", bitwise equal to its plain versions" if name[0] in "IE" else ""))
-    return {"phase": "codecs", "world": run.world.size, "n": n, "codecs": results}
-
-
-def phase_linear(run):
-    torch = run.torch
-    import numpy as np
-
-    from autodist_tpu_torch import optim
-    from autodist_tpu_torch.strategy import AllReduce
-
-    batch = np.random.RandomState(0).randn(16, 12).astype(np.float32)
-    r = np.random.RandomState(7)
-    init = {"w": r.randn(12, 3).astype(np.float32), "b": np.zeros(3, np.float32)}
-
-    def loss(p, b):
-        return torch.mean((b["x"] @ p["w"] + p["b"]) ** 2)
-
-    def oracle(make):
-        p = {k: torch.tensor(v, requires_grad=True) for k, v in init.items()}
-        opt = make.create(p.values())
-        for _ in range(3):
-            opt.zero_grad()
-            loss(p, {"x": torch.from_numpy(batch)}).backward()
-            opt.step()
-        return {k: v.detach() for k, v in p.items()}
-
-    worst = 0.0
-    for chunk in (1, 128):
-        for opt in ("sgd", "adam"):
-            make = (lambda: optim.sgd(0.1)) if opt == "sgd" else (lambda: optim.adam(0.05))
-            params = {k: torch.from_numpy(v.copy()) for k, v in init.items()}
-            sess = run.autodist(AllReduce(chunk_size=chunk)).distribute(loss, params, make())
-            for _ in range(3):
-                metrics = sess.run({"x": batch})
-            got, want = sess.params(), oracle(make())
-            err = max(float((got[k] - want[k]).abs().max()) for k in want)
-            worst = max(worst, err)
-            check(err <= 2e-5 and sess.step == 3 and math.isfinite(metrics["loss"].item()),
-                  f"linear AllReduce({chunk}) {opt}: max-abs {err} from the oracle")
-            check(run.same_on_every_rank(list(got.values())),
-                  f"linear AllReduce({chunk}) {opt}: ranks differ")
-            run.log(f"linear AllReduce(chunk_size={chunk}) {opt}: max-abs {err:.3e} from "
-                    f"single-device training on the global batch (limit 2e-5)")
-    b = np.random.RandomState(0).randn(16, 64).astype(np.float32)
-    exp = torch.from_numpy(np.ones(64, np.float32) - 0.1 * b.mean(0))
-    for comp, tol in COMPRESSOR_CASES.items():
-        sess = run.autodist(AllReduce(compressor=comp)).distribute(
-            lambda p, x: torch.mean(x["x"] @ p["w"]), {"w": torch.ones(64)}, optim.sgd(0.1))
-        sess.run({"x": b})
-        err = float((sess.params()["w"] - exp).abs().max())
-        check(err < tol, f"compressors {comp}: {err} >= {tol}")
-        run.log(f"compressors {comp}: max-abs {err:.3e} (limit {tol})")
-    return {"phase": "linear", "world": run.world.size, "max_abs_err": worst}
-
-
-def phase_gpt(run, codec):
-    torch = run.torch
-    import numpy as np
-
-    from autodist_tpu_torch import optim
-    from autodist_tpu_torch.models.gpt import GPT_TINY, GPTConfig
-    from autodist_tpu_torch.models.train_lib import gpt_capture
-    from autodist_tpu_torch.ops import flash_attention, fused_norm, quantize
-    from autodist_tpu_torch.strategy import AllReduce
-
-    check(codec in QUANT_LAUNCHES, f"codec {codec!r} not one of {list(QUANT_LAUNCHES)}")
-    config, seq, per_rank = (GPT_TINY, 16, 2) if run.cpu else (
-        GPTConfig(), GPT_SEQ, GPT_BATCH_PER_RANK)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    ad = run.autodist(AllReduce(compressor=codec))
-    loss_fn, params, sparse = gpt_capture(config, seq, seed=0, device=run.device)
-    global_batch = per_rank * run.world.size
-    toks = np.random.default_rng(0).integers(0, config.vocab_size, (global_batch, seq + 1))
-    batch = {"tokens": toks[:, :-1].astype(np.int32), "targets": toks[:, 1:].astype(np.int32)}
-    sess = ad.distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
-                         has_rng=True)
-    t = sess.transformer
-
-    def fresh():
-        return {k: v.clone() if torch.is_tensor(v) else v for k, v in sess.state["comp"].items()}
-
-    _, _, grads = t.gradients(sess.state, sess.shard_batch(batch))
-    synced, _ = t.sync(grads, fresh())
-    plain, _ = t.sync(grads, fresh(), impl="plain")
-    run.sync()
-    check(all(torch.equal(synced[n], plain[n]) for n in t.names),
-          f"{codec}: step 1's synced gradients differ from the plain versions'")
-    sync_ms = run.time_ms(lambda: t.sync(grads, fresh()), reps=5, warmup=2)
-    del grads, synced, plain
-    modules = (flash_attention, fused_norm, quantize)
-    for m in modules:
-        m.reset_launches()
-    if not run.cpu:
-        torch.cuda.reset_peak_memory_stats(run.device)
-    losses, step_ms = [], []
-    for _ in range(GPT_STEPS):
-        t0 = time.perf_counter()
-        losses.append(sess.run(batch)["loss"].item())
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {k: v for m in modules for k, v in m.LAUNCHES.items()}
-    steady = statistics.median(step_ms[1:])
-    peak = 0.0 if run.cpu else torch.cuda.max_memory_allocated(run.device) / 1e9
-    check(all(math.isfinite(x) for x in losses), f"{codec}: non-finite losses {losses}")
-    check(statistics.mean(losses[-3:]) < losses[0], f"{codec}: losses do not fall {losses}")
-    check(run.same_on_every_rank(list(sess.state["params"].values())),
-          f"{codec}: ranks hold different parameters")
-    if not run.cpu:
-        want = {k: v * GPT_STEPS for k, v in QUANT_LAUNCHES[codec].items()}
-        got = {k: launches[k] for k in want}
-        check(got == want, f"{codec}: launches {got}, expected {want}")
-    tokens_s = global_batch * seq / steady * 1e3
-    run.log(f"gpt {codec} R={run.world.size}: losses "
-            + ", ".join(f"{x:.5f}" for x in losses))
-    run.log(f"gpt {codec} R={run.world.size}: step ms " + ", ".join(f"{x:.2f}" for x in step_ms)
-            + f"; median {steady:.2f} ms (steps 2-{GPT_STEPS}), {tokens_s:.0f} tokens/s over "
-              f"{global_batch} sequences, peak memory {peak:.2f} GB (rank 0), sync "
-              f"{sync_ms:.4f} ms a step, launches {launches}")
-    return {"phase": "gpt", "codec": codec, "world": run.world.size, "step_ms": steady,
-            "tokens_s": tokens_s, "losses": losses, "peak_gb": peak, "sync_ms": sync_ms,
-            "launches": launches}
+import chip_smoke as smoke
 
 
 def main(argv):
     import torch
 
-    cpu = "--cpu" in argv
-    args = [a for a in argv if a != "--cpu"]
-    if not args or args[0] not in ("codecs", "linear", "gpt") or (
-            args[0] == "gpt" and len(args) != 2):
-        print(__doc__, file=sys.stderr)
+    if len(argv) != 1 or argv[0] not in smoke.CODECS:
+        print(__doc__ + f"\nCODEC is one of {list(smoke.CODECS)}", file=sys.stderr)
         return 2
-    if not cpu and not torch.cuda.is_available():
-        print("FAIL: no CUDA device (pass --cpu to rehearse on the CPU)", file=sys.stderr)
+    codec = argv[0]
+    world_size = int(os.environ.get("WORLD_SIZE", "1"))
+    if world_size < 2:
+        print("FAIL: run under torchrun with --nproc-per-node >= 2", file=sys.stderr)
         return 1
-    if int(os.environ.get("WORLD_SIZE", "1")) < (1 if args[0] == "gpt" else 2):
-        print("FAIL: run under torchrun with --nproc-per-node >= 2 (gpt: >= 1)",
-              file=sys.stderr)
+    m = smoke.setup(torch)
+    if m is None:
         return 1
-    sys.path.insert(0, REPO)
-    run = Run(cpu)
-    if run.world.rank == 0 and not cpu:
-        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                               "--format=csv,noheader"], capture_output=True, text=True,
-                              timeout=60).stdout.strip().splitlines()
-        print(f"{len(card)} x {card[0] if card else 'unknown'}; torch {torch.__version__}",
-              flush=True)
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    spec = ResourceSpec(resource_info={"nodes": [
+        {"address": "localhost", "gpus": list(range(world_size)), "chief": True}]})
+    ad = m["AutoDist"](resource_spec=spec, strategy_builder=m["AllReduce"](compressor=codec))
+    rank = ad.world.rank   # joins the process group
+    if rank == 0:
+        m["build"].build(list(smoke.SOURCES))
+    else:
+        sys.stdout = open(os.devnull, "w")
+    torch.distributed.barrier()
+    print(f"{world_size} ranks, torch {torch.__version__}, {torch.cuda.get_device_name()}")
     try:
-        if args[0] == "codecs":
-            result = phase_codecs(run)
-        elif args[0] == "linear":
-            result = phase_linear(run)
-        else:
-            result = phase_gpt(run, args[1])
-    except CheckFailure as e:
-        print(f"FAIL (rank {run.world.rank}): {e}", file=sys.stderr, flush=True)
+        result = smoke.train_gpt2_codec(torch, ad, codec, (m["fa"], m["fn"], m["tq"]))
+    except smoke.SmokeFailure as e:
+        print(f"FAIL (rank {rank}): {e}", file=sys.stderr, flush=True)
         return 1
-    run.log("RESULT " + json.dumps(result))
-    if run.world.group is not None:
-        torch.distributed.destroy_process_group()
+    print("RESULT " + json.dumps(result), flush=True)
+    torch.distributed.destroy_process_group()
     return 0
 
 

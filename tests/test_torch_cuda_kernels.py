@@ -166,7 +166,7 @@ def test_quantize_kernel_matches_plain_version(n):
     torch.cuda.synchronize()
     assert tq.LAUNCHES["quantize_int8"] == 1
     assert torch.isnan(s[0]).all() and torch.isnan(ps[0]).all()   # NaN poisons its block
-    assert torch.equal(q[1:], pq[1:]) and torch.equal(s[1:], ps[1:])
+    assert torch.equal(q, pq) and not q[0].any() and torch.equal(s[1:], ps[1:])
     assert not q[1].any() and float(s[1]) == 1.0 and float(s[2]) == 1.0
     assert torch.equal(q[2].cpu(), torch.round(x[2].cpu()).to(torch.int8))   # half to even
 

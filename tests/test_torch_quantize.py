@@ -110,18 +110,19 @@ def test_nan_poisons_its_block_scale():
     x = _blocks(8, seed=3)
     x[1, 17] = np.nan
     q, s = tq.quantize_int8(torch.from_numpy(x))
-    _, s_ref = jq.quantize_int8(jnp.asarray(np.concatenate([x, np.zeros(
+    q_ref, s_ref = jq.quantize_int8(jnp.asarray(np.concatenate([x, np.zeros(
         (jq.ROWS - 8, jq.BLOCK), np.float32)])), interpret=True)
     assert np.isnan(float(s[1])) and np.isnan(np.asarray(s_ref)[1, 0])
+    assert not q[1].any() and not np.asarray(q_ref)[1].any()   # a NaN's q is 0
     assert torch.isfinite(torch.cat([s[:1], s[2:]])).all()
 
 
 def test_pad_to_blocks_and_dispatch():
     x = np.arange(tq.BLOCK * 3 + 7, dtype=np.float32)
-    want = np.asarray(jq.pad_to_blocks(jnp.asarray(x)))
-    got = tq.pad_to_blocks(torch.from_numpy(x), rows_multiple=tq.ROWS)
-    np.testing.assert_array_equal(got.numpy(), want)
-    assert tq.pad_to_blocks(torch.from_numpy(x)).shape == (4, tq.BLOCK)
+    want = np.asarray(jq.pad_to_blocks(jnp.asarray(x)))   # ROWS blocks, the TPU tile
+    got = tq.pad_to_blocks(torch.from_numpy(x))
+    assert got.shape == (4, tq.BLOCK) and not want[4:].any()
+    np.testing.assert_array_equal(got.numpy(), want[:4])
     # CPU tensors take the plain versions and launch nothing
     tq.reset_launches()
     xb = torch.from_numpy(_blocks(8, seed=1))
