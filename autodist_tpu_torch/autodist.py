@@ -17,7 +17,11 @@ NCCL on CUDA, gloo on the CPU) and a spec of R replicas needs exactly R
 ranks.  Rank 0 is the chief: it builds the strategy and serialises it (a
 worker with ``AUTODIST_WORKER`` set loads it by ``AUTODIST_STRATEGY_ID``
 instead), and every other rank runs the strategy rank 0 holds, whose JSON
-it receives by broadcast.  A rank runs on ``cuda:LOCAL_RANK``; a
+it receives by broadcast.  A spec whose ``mesh:`` asks for ``{"replica":
+R_d, "seq": R_s}`` lays the ranks out on that mesh
+(:func:`autodist_tpu_torch.parallel.mesh.mesh_world`): GPT's attention then
+runs the ring over each seq row and ``run`` hands rank (d, s) its block of
+the global batch.  A rank runs on ``cuda:LOCAL_RANK``; a
 one-process run on the spec's first GPU; ``device="cpu"`` runs on the
 CPU.  Without a GPU and without that request it raises.  ``launch``,
 ``serve``, ``aot_compile`` and the async PS runtime are later slices of
@@ -30,7 +34,7 @@ from autodist_tpu_torch.const import ENV
 from autodist_tpu_torch.kernel.device.resolver import resolve_device, torch_device
 from autodist_tpu_torch.model_item import ModelItem
 from autodist_tpu_torch.parallel.mesh import (broadcast_text, launched_world_size,
-                                              replica_world)
+                                              mesh_world, replica_world)
 from autodist_tpu_torch.proto import schema
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.strategy.base import Strategy, StrategyCompiler
@@ -69,6 +73,7 @@ class AutoDist:
             device = torch_device(self._resource_spec.gpu_devices[0][0])
         self._device = resolve_device(device)
         self._world = None
+        self._mesh_worlds = {}
         if strategy_builder is None:
             from autodist_tpu_torch.strategy import PSLoadBalancing
 
@@ -86,6 +91,14 @@ class AutoDist:
         if self._world is None:
             self._world = replica_world(self._device)
         return self._world
+
+    def _mesh_world(self, mesh):
+        """:attr:`world` placed on a compiled strategy's mesh, built once per
+        mesh (every rank builds the same meshes in the same order)."""
+        key = (tuple(mesh.axis_names), tuple(int(x) for x in mesh.axis_sizes))
+        if key not in self._mesh_worlds:
+            self._mesh_worlds[key] = mesh_world(self.world, *key)
+        return self._mesh_worlds[key]
 
     @property
     def is_chief(self):
@@ -141,5 +154,6 @@ class AutoDist:
                          name=name)
         raw = self._build_or_load_strategy(item)
         strategy = StrategyCompiler(item, self._resource_spec).compile(raw)
-        return DistributedSession(GraphTransformer(strategy, item, self._device, self.world),
+        world = self._mesh_world(strategy.graph_config.mesh)
+        return DistributedSession(GraphTransformer(strategy, item, self._device, world),
                                   rng=rng, strategy_id=raw.id)

@@ -1,9 +1,11 @@
-// Flash attention for Hopper (sm_90a): forward, dq and dkdv kernels.
+// Flash attention for Hopper (sm_90a): forward, ring block update, dq and
+// dkdv kernels.
 //
 // Replaces the Pallas TPU kernels of autodist_tpu/ops/pallas/flash_attention.py:
-//   forward  <- _flash_fwd  (pallas_call at :198, body _fwd_kernel :140)
-//   dq       <- _dq_call    (pallas_call at :328, body _dq_kernel :264)
-//   dkdv     <- _dkdv_call  (pallas_call at :367, body _dkdv_kernel :226)
+//   forward       <- _flash_fwd         (pallas_call at :198, body _fwd_kernel :140)
+//   block update  <- flash_block_update (pallas_call at :494, body _block_update_kernel :403)
+//   dq            <- _dq_call           (pallas_call at :328, body _dq_kernel :264)
+//   dkdv          <- _dkdv_call         (pallas_call at :367, body _dkdv_kernel :226)
 // Each comes in two designs: bf16 inputs (the model's path) run on the
 // tensor cores (mma_*_kernel), f32 inputs on f32 FMAs (fma_*_kernel), so
 // that f32 keeps f32 products.
@@ -21,6 +23,16 @@
 //   it writes f32 per-q-head partials that the caller sums over each group.
 //   Any S and any D <= 128: the ragged last tile is masked in the kernel.
 //
+// Ring attention (parallel/ring_attention.py) places each block at its
+// global position: the block update, dq and dkdv take q_off and k_off, and
+// causal keeps q_off + row >= k_off + col.  A block wholly in the future
+// (k_off > q_off + Sq - 1) computes nothing: the update passes the carry
+// through (m clamped at the floor), dq and dkdv write zeros, which the
+// ring adds.  The block update is the forward kernel with other ends
+// (template flag kUpdate): it loads the unnormalised (m, l, o) carry where
+// the forward starts from (floor, 0, 0), takes no bias row, and stores the
+// carry where the forward normalises and writes lse.
+//
 // Bound on an H100 SXM at the GPT-2-small shape (B=8, H=12, S=1024, D=64,
 // causal, bf16), from the S(S+1)/2 unmasked (row, key) pairs per head, at
 // 989 TFLOP/s (bf16 dense) and 3.35 TB/s:
@@ -30,6 +42,9 @@
 //            q, k, v, dO, dq + lse, delta        = 63.7 MB   -> 19.0 us
 //   dkdv:    4 products (s, dp, dv, dk)          = 25.8 GFLOP -> 26.1 us (ops);
 //            q, k, v, dO, dk, dv + lse, delta    = 76.3 MB   -> 22.8 us
+//   update:  as the forward, 12.9 GFLOP -> 13.0 us; q, k, v (37.7 MB) and
+//            the f32 carry read and written (m, l 1.6 MB, o 50.3 MB)
+//                                                = 89.6 MB   -> 26.8 us (bytes)
 //
 // The bf16 design (FlashAttention-2's register layout on mma.sync): a block
 // of 4 warps takes a 64-row tile, each warp 16 rows; tiles of 64 keys are
@@ -114,33 +129,60 @@ __device__ __forceinline__ void tile_abt(float (&acc)[4][4], const float* A, con
   }
 }
 
-// Masked, scaled score for global row r and key c (the Pallas _scores).
+// Masked, scaled score for row r and key c of the block (the Pallas
+// _scores); shift = q_off - k_off, so causal keeps q_off + r >= k_off + c.
+// kBias false (the block update) adds no bias row.  The flag is a template
+// argument: a runtime test of the pointer in the unrolled score loops made
+// dq 37 % slower (chip_smoke.py, one H100 80GB HBM3 at 700 W).
+template <bool kBias>
 __device__ __forceinline__ float masked_score(float dot, int r, int c, int Sk, float scale,
-                                              const float* __restrict__ bias_row, int causal) {
+                                              const float* __restrict__ bias_row, int causal,
+                                              int shift) {
   if (c >= Sk) return kNegInf;
-  if (causal && r < c) return kNegInf;
-  return dot * scale + bias_row[c];
+  if (causal && r + shift < c) return kNegInf;
+  return kBias ? dot * scale + bias_row[c] : dot * scale;
 }
 
-// Last key tile a q-tile can see (exclusive): the causal block skip.
-__device__ __forceinline__ int key_tiles(int q0, int Sq, int Sk, int causal) {
+// Key tiles a q-tile can see (exclusive end): the causal block skip.  0 when
+// the block lies wholly in the tile's future.
+__device__ __forceinline__ int key_tiles(int q0, int Sq, int Sk, int causal, int shift) {
   int nk = (Sk + kBlockK - 1) / kBlockK;
   if (causal) {
-    const int last_row = min(q0 + kBlockQ, Sq) - 1;
-    nk = min(nk, last_row / kBlockK + 1);
+    const int last_key = min(q0 + kBlockQ, Sq) - 1 + shift;  // the last row's last key
+    nk = last_key < 0 ? 0 : min(nk, last_key / kBlockK + 1);
   }
   return nk;
 }
 
+// First q-tile that sees key k0 (the first key of a k-tile): its last row
+// must reach k0 - shift.  At or past the last tile when no row sees it.
+__device__ __forceinline__ int first_query_tile(int k0, int causal, int shift) {
+  if (!causal) return 0;
+  const int need = k0 - shift - (kBlockQ - 1);
+  return need <= 0 ? 0 : (need + kBlockQ - 1) / kBlockQ;
+}
+
+// The (m, l, o) carry of the ring block update, (BH, Sq) and (BH, Sq, D)
+// f32: read at entry, written at exit.  Unused (null) by the forward.
+struct Carry {
+  const float* m_in;
+  const float* l_in;
+  const float* o_in;
+  float* m_out;
+  float* l_out;
+  float* o_out;
+};
+
 // ------------------------------------------------------------------ forward --
 // One block per (q head fold bh, q-tile); loops over k-tiles with the running
-// max m, denominator l and output accumulator in registers.
-template <int DC>
+// max m, denominator l and output accumulator in registers.  kUpdate: the
+// ring block update (the carry in and out, no bias, offsets).
+template <int DC, bool kUpdate>
 __global__ void __launch_bounds__(kThreads)
 fma_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ bias,
-               float* __restrict__ out, float* __restrict__ lse, int H, int group, int Sq,
-               int Sk, int D, float scale, int causal) {
+               float* __restrict__ out, float* __restrict__ lse, Carry carry, int H, int group,
+               int Sq, int Sk, int D, float scale, int causal, int shift) {
   extern __shared__ float smem[];
   const int ld = D | 1;
   float* Qs = smem;
@@ -155,20 +197,27 @@ fma_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const float* kp = k + (size_t)kvh * Sk * D;
   const float* vp = v + (size_t)kvh * Sk * D;
-  const float* bias_row = bias + (size_t)b * Sk;
+  const float* bias_row = kUpdate ? nullptr : bias + (size_t)b * Sk;
 
   load_tile(Qs, ld, q + (size_t)bh * Sq * D, q0, Sq, D);
 
   float m[4], l[4], acc[4][DC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    m[i] = kMFloor;
-    l[i] = 0.f;
+    const int r = q0 + ty + 16 * i;
+    const bool carried = kUpdate && r < Sq;
+    const size_t row = (size_t)bh * Sq + r;
+    // the carry's m is clamped at the floor: an m of -inf cannot NaN
+    m[i] = carried ? fmaxf(carry.m_in[row], kMFloor) : kMFloor;
+    l[i] = carried ? carry.l_in[row] : 0.f;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < DC; ++c) {
+      const int d = tx + 16 * c;
+      acc[i][c] = carried && d < D ? carry.o_in[row * D + d] : 0.f;
+    }
   }
 
-  const int nk = key_tiles(q0, Sq, Sk, causal);
+  const int nk = key_tiles(q0, Sq, Sk, causal, shift);
   for (int j = 0; j < nk; ++j) {
     const int k0 = j * kBlockK;
     __syncthreads();
@@ -184,7 +233,8 @@ fma_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float mx = kNegInf;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        s[i][jj] = masked_score(s[i][jj], r, k0 + tx + 16 * jj, Sk, scale, bias_row, causal);
+        s[i][jj] = masked_score<!kUpdate>(s[i][jj], r, k0 + tx + 16 * jj, Sk, scale, bias_row,
+                                          causal, shift);
         mx = fmaxf(mx, s[i][jj]);
       }
       const float m_new = fmaxf(m[i], row_max(mx));
@@ -223,6 +273,19 @@ fma_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= Sq) continue;
+    if (kUpdate) {   // the unnormalised carry
+      const size_t row = (size_t)bh * Sq + r;
+#pragma unroll
+      for (int dc = 0; dc < DC; ++dc) {
+        const int d = tx + 16 * dc;
+        if (d < D) carry.o_out[row * D + d] = acc[i][dc];
+      }
+      if (tx == 0) {
+        carry.m_out[row] = m[i];
+        carry.l_out[row] = l[i];
+      }
+      continue;
+    }
     const float denom = l[i] == 0.f ? 1.f : l[i];  // fully masked row -> 0
     float* orow = out + ((size_t)bh * Sq + r) * D;
 #pragma unroll
@@ -242,7 +305,7 @@ fma_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ bias,
               const float* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ delta, float* __restrict__ dq, int H, int group,
-              int Sq, int Sk, int D, float scale, int causal) {
+              int Sq, int Sk, int D, float scale, int causal, int shift) {
   extern __shared__ float smem[];
   const int ld = D | 1;
   float* Qs = smem;
@@ -272,7 +335,7 @@ fma_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
 
-  const int nk = key_tiles(q0, Sq, Sk, causal);
+  const int nk = key_tiles(q0, Sq, Sk, causal, shift);  // 0: the rows get zeros
   for (int j = 0; j < nk; ++j) {
     const int k0 = j * kBlockK;
     __syncthreads();
@@ -288,7 +351,8 @@ fma_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int r = q0 + ty + 16 * i;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        const float x = masked_score(s[i][jj], r, k0 + tx + 16 * jj, Sk, scale, bias_row, causal);
+        const float x =
+            masked_score<true>(s[i][jj], r, k0 + tx + 16 * jj, Sk, scale, bias_row, causal, shift);
         const float p = r < Sq ? expf(x - row_lse[i]) : 0.f;
         Ps[(ty + 16 * i) * kPld + tx + 16 * jj] = p * (dp[i][jj] - row_delta[i]) * scale;
       }
@@ -335,7 +399,7 @@ fma_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dk,
                 float* __restrict__ dv, int H, int group, int Sq, int Sk, int D, float scale,
-                int causal) {
+                int causal, int shift) {
   extern __shared__ float smem[];
   const int ld = D | 1;
   float* Ks = smem;
@@ -366,8 +430,9 @@ fma_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < DC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
 
   const int nq = (Sq + kBlockQ - 1) / kBlockQ;
-  // causal: q-tiles whose last row lies before this k-tile see none of it
-  const int i0 = causal ? k0 / kBlockQ : 0;
+  // causal: q-tiles whose last row lies before this k-tile see none of it;
+  // when no tile sees it the loop is empty and the rows get zeros
+  const int i0 = first_query_tile(k0, causal, shift);
   for (int it = i0; it < nq; ++it) {
     const int q0 = it * kBlockQ;
     __syncthreads();
@@ -390,7 +455,8 @@ fma_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int cl = tx + 16 * jj;
-        const float x = masked_score(s[i][jj], r, k0 + cl, Sk, scale, bias_row, causal);
+        const float x =
+            masked_score<true>(s[i][jj], r, k0 + cl, Sk, scale, bias_row, causal, shift);
         const float p = r < Sq ? expf(x - Ls[rl]) : 0.f;
         Ps[rl * kPld + cl] = p;
         Ds[rl * kPld + cl] = p * (dp[i][jj] - Es[rl]) * scale;
@@ -543,12 +609,13 @@ __device__ __forceinline__ void load_tile_bf16(uint16_t* dst, const uint16_t* __
   }
 }
 
-template <int DP>
+// kUpdate: the ring block update, as in fma_fwd_kernel.
+template <int DP, bool kUpdate>
 __global__ void __launch_bounds__(kMmaThreads)
 mma_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                const uint16_t* __restrict__ v, const float* __restrict__ bias,
-               uint16_t* __restrict__ out, float* __restrict__ lse, int H, int group, int Sq,
-               int Sk, int D, float scale, int causal, int vec) {
+               uint16_t* __restrict__ out, float* __restrict__ lse, Carry carry, int H,
+               int group, int Sq, int Sk, int D, float scale, int causal, int shift, int vec) {
   constexpr int L = DP + 8, KD = DP / 16, ND = DP / 8, NK = kBlockK / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* Qs = reinterpret_cast<uint16_t*>(smem_raw);
@@ -563,7 +630,7 @@ mma_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   const int r0 = (threadIdx.x / 32) * 16;
   const uint16_t* kp = k + (size_t)kvh * Sk * D;
   const uint16_t* vp = v + (size_t)kvh * Sk * D;
-  const float* bias_row = bias + (size_t)b * Sk;
+  const float* bias_row = kUpdate ? nullptr : bias + (size_t)b * Sk;
   const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
 
   load_tile_bf16<DP>(Qs, q + (size_t)bh * Sq * D, q0, Sq, D, vec);
@@ -572,14 +639,25 @@ mma_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 #pragma unroll
   for (int kk = 0; kk < KD; ++kk) load_a(qa[kk], Qs, L, r0, kk * 16, g, t);
 
-  float m[2] = {kMFloor, kMFloor}, l[2] = {0.f, 0.f};
-  float acc[ND][4];
+  // the carry in the accumulator's fragment layout (m clamped at the floor)
+  float m[2], l[2], acc[ND][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool carried = kUpdate && row[h] < Sq;
+    m[h] = carried ? fmaxf(carry.m_in[(size_t)bh * Sq + row[h]], kMFloor) : kMFloor;
+    l[h] = carried ? carry.l_in[(size_t)bh * Sq + row[h]] : 0.f;
+  }
 #pragma unroll
   for (int dn = 0; dn < ND; ++dn)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, col = dn * 8 + 2 * t + (e & 1);
+      acc[dn][e] = kUpdate && row[h] < Sq && col < D
+                       ? carry.o_in[((size_t)bh * Sq + row[h]) * D + col]
+                       : 0.f;
+    }
 
-  const int nk = key_tiles(q0, Sq, Sk, causal);
+  const int nk = key_tiles(q0, Sq, Sk, causal, shift);
   for (int j = 0; j < nk; ++j) {
     const int k0 = j * kBlockK;
     __syncthreads();
@@ -607,7 +685,8 @@ mma_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + n * 8 + 2 * t + (e & 1);
-        s[n][e] = masked_score(s[n][e], row[e >> 1], col, Sk, scale, bias_row, causal);
+        s[n][e] = masked_score<!kUpdate>(s[n][e], row[e >> 1], col, Sk, scale, bias_row, causal,
+                                         shift);
         mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
       }
     float corr[2], rs[2] = {0.f, 0.f};
@@ -647,6 +726,21 @@ mma_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (row[h] >= Sq) continue;
+    if (kUpdate) {   // the unnormalised carry
+      const size_t r = (size_t)bh * Sq + row[h];
+#pragma unroll
+      for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = dn * 8 + 2 * t + e;
+          if (col < D) carry.o_out[r * D + col] = acc[dn][2 * h + e];
+        }
+      if (t == 0) {
+        carry.m_out[r] = m[h];
+        carry.l_out[r] = l[h];
+      }
+      continue;
+    }
     const float denom = l[h] == 0.f ? 1.f : l[h];  // fully masked row -> 0
     uint16_t* orow = out + ((size_t)bh * Sq + row[h]) * D;
 #pragma unroll
@@ -666,7 +760,7 @@ mma_dq_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
               const uint16_t* __restrict__ v, const float* __restrict__ bias,
               const uint16_t* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ delta, uint16_t* __restrict__ dq, int H, int group,
-              int Sq, int Sk, int D, float scale, int causal, int vec) {
+              int Sq, int Sk, int D, float scale, int causal, int shift, int vec) {
   constexpr int L = DP + 8, KD = DP / 16, ND = DP / 8, NK = kBlockK / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* Qs = reinterpret_cast<uint16_t*>(smem_raw);
@@ -706,7 +800,7 @@ mma_dq_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
 
-  const int nk = key_tiles(q0, Sq, Sk, causal);
+  const int nk = key_tiles(q0, Sq, Sk, causal, shift);  // 0: the rows get zeros
   for (int j = 0; j < nk; ++j) {
     const int k0 = j * kBlockK;
     __syncthreads();
@@ -735,7 +829,8 @@ mma_dq_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1;
         const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const float x = masked_score(s[n][e], row[h], col, Sk, scale, bias_row, causal);
+        const float x =
+            masked_score<true>(s[n][e], row[h], col, Sk, scale, bias_row, causal, shift);
         const float p = row[h] < Sq ? expf(x - row_lse[h]) : 0.f;
         s[n][e] = p * (dp[n][e] - row_delta[h]) * scale;  // ds
       }
@@ -778,7 +873,7 @@ mma_dkdv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                 const uint16_t* __restrict__ v, const float* __restrict__ bias,
                 const uint16_t* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, TO* __restrict__ dk, TO* __restrict__ dv, int H,
-                int group, int Sq, int Sk, int D, float scale, int causal, int vec) {
+                int group, int Sq, int Sk, int D, float scale, int causal, int shift, int vec) {
   constexpr int L = DP + 8, KD = DP / 16, ND = DP / 8, NQ = kBlockQ / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* Ks = reinterpret_cast<uint16_t*>(smem_raw);
@@ -815,8 +910,9 @@ mma_dkdv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     for (int e = 0; e < 4; ++e) acc_k[dn][e] = acc_v[dn][e] = 0.f;
 
   const int nq = (Sq + kBlockQ - 1) / kBlockQ;
-  // causal: q-tiles whose last row lies before this k-tile see none of it
-  const int i0 = causal ? k0 / kBlockQ : 0;
+  // causal: q-tiles whose last row lies before this k-tile see none of it;
+  // when no tile sees it the loop is empty and the rows get zeros
+  const int i0 = first_query_tile(k0, causal, shift);
   for (int it = i0; it < nq; ++it) {
     const int q0 = it * kBlockQ;
     __syncthreads();
@@ -850,7 +946,8 @@ mma_dkdv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int ql = n * 8 + 2 * t + (e & 1);
         const int query = q0 + ql;
-        const float x = masked_score(s[n][e], query, key[e >> 1], Sk, scale, bias_row, causal);
+        const float x =
+            masked_score<true>(s[n][e], query, key[e >> 1], Sk, scale, bias_row, causal, shift);
         const float p = query < Sq ? expf(x - Ls[ql]) : 0.f;
         s[n][e] = p;
         dp[n][e] = p * (dp[n][e] - Es[ql]) * scale;  // ds
@@ -925,6 +1022,42 @@ bool bad_shape(int BH, int H, int group, int Sq, int Sk, int D) {
          (Sk + kBlockK - 1) / kBlockK > 65535;
 }
 
+// The forward kernels, as the forward (kUpdate false: bias, out, lse) or as
+// the ring block update (kUpdate true: the carry, offsets).
+template <bool kUpdate>
+cudaError_t launch_forward(const void* q, const void* k, const void* v, const float* bias,
+                           void* out, float* lse, Carry carry, int BH, int H, int group,
+                           int Sq, int Sk, int D, float scale, int causal, int shift,
+                           int is_bf16, cudaStream_t s) {
+  const dim3 grid(BH, (Sq + kBlockQ - 1) / kBlockQ);
+  if (is_bf16) {
+    using P = const uint16_t*;
+    const int vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+    const int DP = padded_width(D);
+    const size_t smem = mma_smem(DP, 3, 0);
+#define FWD_ARGS grid, kMmaThreads, smem, s, (P)q, (P)k, (P)v, bias, (uint16_t*)out, lse, carry, \
+                 H, group, Sq, Sk, D, scale, causal, shift, vec
+    switch (DP) {
+      case 16: return launch(mma_fwd_kernel<16, kUpdate>, FWD_ARGS);
+      case 32: return launch(mma_fwd_kernel<32, kUpdate>, FWD_ARGS);
+      case 64: return launch(mma_fwd_kernel<64, kUpdate>, FWD_ARGS);
+      default: return launch(mma_fwd_kernel<128, kUpdate>, FWD_ARGS);
+    }
+#undef FWD_ARGS
+  }
+  using P = const float*;
+  const size_t smem = fma_smem(D, 3, 1, 0);
+#define FWD_ARGS grid, kThreads, smem, s, (P)q, (P)k, (P)v, bias, (float*)out, lse, carry, H, \
+                 group, Sq, Sk, D, scale, causal, shift
+  switch (column_chunks(D)) {
+    case 1: return launch(fma_fwd_kernel<1, kUpdate>, FWD_ARGS);
+    case 2: return launch(fma_fwd_kernel<2, kUpdate>, FWD_ARGS);
+    case 4: return launch(fma_fwd_kernel<4, kUpdate>, FWD_ARGS);
+    default: return launch(fma_fwd_kernel<8, kUpdate>, FWD_ARGS);
+  }
+#undef FWD_ARGS
+}
+
 }  // namespace
 
 extern "C" {
@@ -935,44 +1068,36 @@ int flash_fwd(const void* q, const void* k, const void* v, const void* bias, voi
               void* lse, int BH, int H, int group, int Sq, int Sk, int D, float scale,
               int causal, int is_bf16, void* stream) {
   if (bad_shape(BH, H, group, Sq, Sk, D)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid(BH, (Sq + kBlockQ - 1) / kBlockQ);
-  const float* bs = (const float*)bias;
-  float* ls = (float*)lse;
-  if (is_bf16) {
-    using P = const uint16_t*;
-    const int vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
-    const int DP = padded_width(D);
-    const size_t smem = mma_smem(DP, 3, 0);
-#define FWD_ARGS grid, kMmaThreads, smem, s, (P)q, (P)k, (P)v, bs, (uint16_t*)out, ls, H, group, \
-                 Sq, Sk, D, scale, causal, vec
-    switch (DP) {
-      case 16: return (int)launch(mma_fwd_kernel<16>, FWD_ARGS);
-      case 32: return (int)launch(mma_fwd_kernel<32>, FWD_ARGS);
-      case 64: return (int)launch(mma_fwd_kernel<64>, FWD_ARGS);
-      default: return (int)launch(mma_fwd_kernel<128>, FWD_ARGS);
-    }
-#undef FWD_ARGS
-  }
-  using P = const float*;
-  const size_t smem = fma_smem(D, 3, 1, 0);
-#define FWD_ARGS grid, kThreads, smem, s, (P)q, (P)k, (P)v, bs, (float*)out, ls, H, group, Sq, \
-                 Sk, D, scale, causal
-  switch (column_chunks(D)) {
-    case 1: return (int)launch(fma_fwd_kernel<1>, FWD_ARGS);
-    case 2: return (int)launch(fma_fwd_kernel<2>, FWD_ARGS);
-    case 4: return (int)launch(fma_fwd_kernel<4>, FWD_ARGS);
-    default: return (int)launch(fma_fwd_kernel<8>, FWD_ARGS);
-  }
-#undef FWD_ARGS
+  return (int)launch_forward<false>(q, k, v, (const float*)bias, out, (float*)lse, Carry{}, BH,
+                                    H, group, Sq, Sk, D, scale, causal, 0, is_bf16,
+                                    (cudaStream_t)stream);
 }
 
-// dout like q; lse, delta (BH, Sq) f32; dq like q.
+// The ring step: fold the block k, v (BH, Sk, D) into the carry of q (BH, Sq,
+// D) at global offsets q_off, k_off.  m_in, l_in (BH, Sq) and o_in (BH, Sq,
+// D) f32 in; m_out, l_out, o_out out (they may alias the inputs: each row is
+// read and written by the same threads).
+int flash_block_update(const void* q, const void* k, const void* v, const void* m_in,
+                       const void* l_in, const void* o_in, void* m_out, void* l_out,
+                       void* o_out, int BH, int Sq, int Sk, int D, float scale, int causal,
+                       int q_off, int k_off, int is_bf16, void* stream) {
+  if (bad_shape(BH, 1, 1, Sq, Sk, D)) return (int)cudaErrorInvalidValue;
+  const Carry carry{(const float*)m_in, (const float*)l_in, (const float*)o_in,
+                    (float*)m_out,      (float*)l_out,      (float*)o_out};
+  return (int)launch_forward<true>(q, k, v, nullptr, nullptr, nullptr, carry, BH, 1, 1, Sq, Sk,
+                                   D, scale, causal, q_off - k_off, is_bf16,
+                                   (cudaStream_t)stream);
+}
+
+// dout like q; lse, delta (BH, Sq) f32; dq like q.  q_off, k_off: the global
+// positions of the q and k blocks (0, 0 outside the ring).
 int flash_dq(const void* q, const void* k, const void* v, const void* bias, const void* dout,
              const void* lse, const void* delta, void* dq, int BH, int H, int group, int Sq,
-             int Sk, int D, float scale, int causal, int is_bf16, void* stream) {
+             int Sk, int D, float scale, int causal, int q_off, int k_off, int is_bf16,
+             void* stream) {
   if (bad_shape(BH, H, group, Sq, Sk, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const int shift = q_off - k_off;
   const dim3 grid(BH, (Sq + kBlockQ - 1) / kBlockQ);
   const float* bs = (const float*)bias;
   const float* ls = (const float*)lse;
@@ -984,7 +1109,7 @@ int flash_dq(const void* q, const void* k, const void* v, const void* bias, cons
     const int DP = padded_width(D);
     const size_t smem = mma_smem(DP, 4, 0);
 #define DQ_ARGS grid, kMmaThreads, smem, s, (P)q, (P)k, (P)v, bs, (P)dout, ls, ds, \
-                (uint16_t*)dq, H, group, Sq, Sk, D, scale, causal, vec
+                (uint16_t*)dq, H, group, Sq, Sk, D, scale, causal, shift, vec
     switch (DP) {
       case 16: return (int)launch(mma_dq_kernel<16>, DQ_ARGS);
       case 32: return (int)launch(mma_dq_kernel<32>, DQ_ARGS);
@@ -996,7 +1121,7 @@ int flash_dq(const void* q, const void* k, const void* v, const void* bias, cons
   using P = const float*;
   const size_t smem = fma_smem(D, 4, 1, 0);
 #define DQ_ARGS grid, kThreads, smem, s, (P)q, (P)k, (P)v, bs, (P)dout, ls, ds, (float*)dq, H, \
-                group, Sq, Sk, D, scale, causal
+                group, Sq, Sk, D, scale, causal, shift
   switch (column_chunks(D)) {
     case 1: return (int)launch(fma_dq_kernel<1>, DQ_ARGS);
     case 2: return (int)launch(fma_dq_kernel<2>, DQ_ARGS);
@@ -1007,12 +1132,14 @@ int flash_dq(const void* q, const void* k, const void* v, const void* bias, cons
 }
 
 // dk, dv (BH, Sk, D) per q head: like k when group == 1, f32 partials when
-// group > 1 (the caller sums each group of q heads).
+// group > 1 (the caller sums each group of q heads).  Offsets as flash_dq.
 int flash_dkdv(const void* q, const void* k, const void* v, const void* bias, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int BH, int H, int group,
-               int Sq, int Sk, int D, float scale, int causal, int is_bf16, void* stream) {
+               int Sq, int Sk, int D, float scale, int causal, int q_off, int k_off,
+               int is_bf16, void* stream) {
   if (bad_shape(BH, H, group, Sq, Sk, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const int shift = q_off - k_off;
   const dim3 grid(BH, (Sk + kBlockK - 1) / kBlockK);
   const float* bs = (const float*)bias;
   const float* ls = (const float*)lse;
@@ -1024,7 +1151,7 @@ int flash_dkdv(const void* q, const void* k, const void* v, const void* bias, co
     const int DP = padded_width(D);
     const size_t smem = mma_smem(DP, 4, 2 * kBlockQ);
 #define DKDV_ARGS(TO) grid, kMmaThreads, smem, s, (P)q, (P)k, (P)v, bs, (P)dout, ls, ds, \
-                      (TO*)dk, (TO*)dv, H, group, Sq, Sk, D, scale, causal, vec
+                      (TO*)dk, (TO*)dv, H, group, Sq, Sk, D, scale, causal, shift, vec
     if (group > 1) {
       switch (DP) {
         case 16: return (int)launch(mma_dkdv_kernel<16, float>, DKDV_ARGS(float));
@@ -1044,7 +1171,7 @@ int flash_dkdv(const void* q, const void* k, const void* v, const void* bias, co
   using P = const float*;
   const size_t smem = fma_smem(D, 4, 2, 2 * kBlockQ);
 #define DKDV_ARGS grid, kThreads, smem, s, (P)q, (P)k, (P)v, bs, (P)dout, ls, ds, (float*)dk, \
-                  (float*)dv, H, group, Sq, Sk, D, scale, causal
+                  (float*)dv, H, group, Sq, Sk, D, scale, causal, shift
   switch (column_chunks(D)) {
     case 1: return (int)launch(fma_dkdv_kernel<1>, DKDV_ARGS);
     case 2: return (int)launch(fma_dkdv_kernel<2>, DKDV_ARGS);

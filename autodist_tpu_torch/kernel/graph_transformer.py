@@ -21,6 +21,14 @@ batch; the replicas meet in the collectives of ``world.group``
 4. optimizer update, which writes the new values back into the stored
    tensors in place.
 
+On a mesh with a ``seq`` axis and more than one axis (``{"replica": R_d,
+"seq": R_s}``, even at ``seq: 1``, as in JAX) sequence parallelism is on:
+each rank holds one sequence block of its data slice, the loss runs inside
+:func:`~autodist_tpu_torch.parallel.context.seq_axis_context` (so GPT's
+attention takes the ring over the rank's seq row and its positions start
+at the block's global offset), and the gradients and the loss are still
+averaged over every rank.
+
 It returns the metrics ``{"loss", "step"}``, the loss the mean over the
 replicas (the JAX step's ``pmean(loss)``).  Gradient accumulation,
 clipping and batch masks are later slices (ROADMAP, Queue A item 2) and
@@ -33,6 +41,7 @@ import torch
 from autodist_tpu_torch.kernel import partitioner as part
 from autodist_tpu_torch.kernel.synchronization import all_reduce as ar_sync
 from autodist_tpu_torch.parallel import collectives as coll
+from autodist_tpu_torch.parallel.context import seq_axis_context
 from autodist_tpu_torch.parallel.mesh import ReplicaWorld, check_replicas
 from autodist_tpu_torch.utils.rng import step_generator
 
@@ -57,6 +66,8 @@ class GraphTransformer:
         self.num_replicas = max(1, len(strategy.graph_config.replicas))
         check_replicas(self.num_replicas, self.world)
         self.group = self.world.group
+        # sequence parallelism: set on the world by parallel.mesh.mesh_world
+        self.seq_axis = self.world.seq
         if model_item.optimizer is None:
             raise ValueError("ModelItem has no optimizer")
         if model_item.has_aux:
@@ -100,11 +111,12 @@ class GraphTransformer:
         if item.has_rng:
             replica = self.world.rank if self.num_replicas > 1 else None
             args += (step_generator(state["rng"], state["step"], self.device, replica),)
-        loss = item.loss_fn(*args)
-        new_mutable = None
-        if mutable is not None:
-            loss, new_mutable = loss
-        grads = torch.autograd.grad(loss, list(storage.values()))
+        with seq_axis_context(self.seq_axis):
+            loss = item.loss_fn(*args)
+            new_mutable = None
+            if mutable is not None:
+                loss, new_mutable = loss
+            grads = torch.autograd.grad(loss, list(storage.values()))
         return loss, new_mutable, dict(zip(self.names, grads))
 
     def sync(self, grads, comp_states, impl=None):

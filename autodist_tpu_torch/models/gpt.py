@@ -18,9 +18,14 @@ Reproduces the flax model's numerics in PyTorch:
 
 Attention runs through :func:`~autodist_tpu_torch.ops.flash_attention.
 flash_attention` (the Hopper kernels on CUDA) unless ``attention_impl=
-"xla"`` picks the kernel-free plain path.  Parameter names map one to one
-onto the flax tree (``h_0.attn.qkv.weight`` <-> ``h_0/attn/qkv/kernel``).
-Decoding with a KV cache, ring attention and remat are later slices.
+"xla"`` picks the kernel-free plain path.  Under sequence parallelism (a
+:func:`~autodist_tpu_torch.parallel.context.seq_axis_context`, which the
+graph transformer enters on a ``{"replica", "seq"}`` mesh) it runs
+:func:`~autodist_tpu_torch.parallel.ring_attention.ring_attention` over
+the seq row with full heads, and the position embedding starts at the
+block's global offset.  Parameter names map one to one onto the flax tree
+(``h_0.attn.qkv.weight`` <-> ``h_0/attn/qkv/kernel``).  Decoding with a KV
+cache and remat are later slices.
 """
 import dataclasses
 import math
@@ -31,6 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from autodist_tpu_torch.ops.flash_attention import attention_plain, flash_attention, use_flash
+from autodist_tpu_torch.parallel.context import current_seq_axis, global_position_offset
+from autodist_tpu_torch.parallel.ring_attention import ring_attention
 
 # flax's lecun_normal: truncated normal at +-2 std, std corrected for the cut
 _TRUNC_STD = 0.87962566103423978
@@ -127,8 +134,15 @@ class CausalSelfAttention(nn.Module):
         q = qkv[..., :c.hidden_size].reshape(B, S, c.num_heads, head_dim)
         k = qkv[..., c.hidden_size:c.hidden_size + kv_dim].reshape(B, S, kv_heads, head_dim)
         v = qkv[..., c.hidden_size + kv_dim:].reshape(B, S, kv_heads, head_dim)
-        attend = flash_attention if use_flash(c.attention_impl) else attention_plain
-        y = attend(q, k, v, causal=True)
+        if current_seq_axis() is not None:
+            # causal over global positions while K/V blocks stream around
+            # the seq ring, which streams full-head blocks
+            group = c.num_heads // kv_heads
+            k, v = (t.repeat_interleave(group, dim=2) if group > 1 else t for t in (k, v))
+            y = ring_attention(q, k, v, causal=True, impl=c.attention_impl)
+        else:
+            attend = flash_attention if use_flash(c.attention_impl) else attention_plain
+            y = attend(q, k, v, causal=True)
         return self.out(y.reshape(B, S, c.hidden_size))
 
 
@@ -175,9 +189,11 @@ class GPT(nn.Module):
     def forward(self, tokens, generator=None):
         c = self.config
         S = tokens.shape[1]
-        if S > c.max_position:
-            raise ValueError(f"sequence length {S} exceeds max_position {c.max_position}")
-        x = F.embedding(tokens, self.wte) + self.wpe[:S][None]
+        pos0 = global_position_offset(S)   # sequence parallelism: the block's start
+        if pos0 + S > c.max_position:
+            raise ValueError(f"positions {pos0}..{pos0 + S - 1} exceed max_position "
+                             f"{c.max_position}")
+        x = F.embedding(tokens, self.wte) + self.wpe[pos0:pos0 + S][None]
         x = _dropout(x.to(c.dtype), c.dropout_rate, generator)
         for i in range(c.num_layers):
             x = getattr(self, f"h_{i}")(x, generator)

@@ -3,21 +3,27 @@ PyTorch versions.
 
 Counterpart of ``autodist_tpu/ops/pallas/flash_attention.py``.  The public
 :func:`flash_attention` keeps the JAX layout ``(B, S, H, D)``, folds it to
-``(B*H, S, D)``, and runs the three kernels of
-``csrc/flash_attention.cu`` through a :class:`torch.autograd.Function`:
+``(B*H, S, D)``, and runs the kernels of ``csrc/flash_attention.cu``
+through a :class:`torch.autograd.Function`:
 
 - :func:`flash_fwd` (replaces ``_flash_fwd``): out and per-row logsumexp;
 - :func:`flash_dq` (replaces ``_dq_call``): dq from p recomputed from lse;
 - :func:`flash_dkdv` (replaces ``_dkdv_call``): dk and dv per q head.
 
+Ring attention (:mod:`autodist_tpu_torch.parallel.ring_attention`) runs a
+fourth, :func:`flash_block_update` (replaces ``flash_block_update``): it
+folds one visiting K/V block into the unnormalised ``(m, l, o)`` carry.
+It and the backward kernels take the blocks' global positions ``q_off``
+and ``k_off``; causal keeps ``q_off + row >= k_off + col``.
+
 Each kernel takes bf16 (tensor-core products) or f32 (f32 FMAs) inputs.
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 ``LAUNCHES``; for CPU tensors it runs the plain version beside it
-(:func:`flash_fwd_plain`, :func:`flash_dq_plain`, :func:`flash_dkdv_plain`),
-which does the same math in f32 with whole-matrix ops.  Any other device
-raises.  The kernels take any S and D <= 128 (the ragged tile is masked in
-the kernel), so there is no counterpart of the JAX ``_xla_attention``
-fallback.  As in JAX, delta = rowsum(dO * O), the fold, the GQA group-sum of
+(:func:`flash_fwd_plain`, :func:`flash_block_update_plain`,
+:func:`flash_dq_plain`, :func:`flash_dkdv_plain`), which does the same
+math in f32 with whole-matrix ops.  Any other device raises.  The kernels
+take any S and D <= 128 (the ragged tile is masked in the kernel), so
+there is no counterpart of the JAX ``_xla_attention`` fallback.  As in JAX, delta = rowsum(dO * O), the fold, the GQA group-sum of
 the per-q-head dk/dv partials and the zero bias gradient are plain ops.
 """
 import ctypes
@@ -31,7 +37,7 @@ _M_FLOOR = -1e20   # running-max floor: a fully masked row gives exact zeros
 MAX_HEAD_DIM = 128
 
 # launches of each kernel, counted where the wrapper launches it
-LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkdv": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_block_update": 0, "flash_dq": 0, "flash_dkdv": 0}
 
 
 def reset_launches():
@@ -62,15 +68,18 @@ def _expand_kv(t, h, group):
         group, dim=1).reshape(bhk * group, s, d)
 
 
-def _scores_plain(q, k, bias, h, sm_scale, causal, group):
-    """Masked f32 scores (B*H, Sq, Sk), as the kernels compute them."""
+def _scores_plain(q, k, bias, h, sm_scale, causal, group, q_off=0, k_off=0):
+    """Masked f32 scores (B*H, Sq, Sk), as the kernels compute them; causal
+    over the global positions ``q_off + row`` and ``k_off + col``.  No bias
+    row (``bias=None``) adds nothing."""
     kx = _expand_kv(k, h, group).float()
     s = torch.matmul(q.float(), kx.transpose(1, 2)) * sm_scale
-    s = s + bias.repeat_interleave(h, dim=0)[:, None, :]
+    if bias is not None:
+        s = s + bias.repeat_interleave(h, dim=0)[:, None, :]
     if causal:
         sq, sk = s.shape[1], s.shape[2]
-        keep = (torch.arange(sq, device=s.device)[:, None]
-                >= torch.arange(sk, device=s.device)[None, :])
+        keep = (q_off + torch.arange(sq, device=s.device)[:, None]
+                >= k_off + torch.arange(sk, device=s.device)[None, :])
         s = torch.where(keep[None], s, torch.full_like(s, _NEG_INF))
     return s
 
@@ -86,26 +95,47 @@ def flash_fwd_plain(q, k, v, bias, h, sm_scale, causal, group=1):
     return out.to(q.dtype), (m + torch.log(denom))[..., 0]
 
 
-def _probs_and_dscores(q, k, v, bias, do, lse, delta, h, sm_scale, causal, group):
-    s = _scores_plain(q, k, bias, h, sm_scale, causal, group)
+def flash_block_update_plain(q, k, v, m, l, o, q_off, k_off, causal=False,
+                             sm_scale=None):
+    """Plain ring step: fold the block ``k``, ``v`` (BH, Sk, D) into the
+    carry of ``q`` (BH, Sq, D): m, l (BH, Sq) f32 and the unnormalised o
+    (BH, Sq, D) f32 -> new (m, l, o).  The entering m is clamped at
+    ``_M_FLOOR`` (an m of -inf cannot NaN); a block wholly in the future
+    returns the carry unchanged but for that clamp."""
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = _scores_plain(q, k, None, 1, sm_scale, causal, 1, q_off, k_off)
+    m_prev = torch.clamp(m, min=_M_FLOOR)
+    m_new = torch.maximum(m_prev, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m_prev - m_new)
+    l_new = l * corr + p.sum(dim=-1)
+    o_new = o * corr[..., None] + torch.matmul(p, v.float())
+    return m_new, l_new, o_new
+
+
+def _probs_and_dscores(q, k, v, bias, do, lse, delta, h, sm_scale, causal, group,
+                       q_off, k_off):
+    s = _scores_plain(q, k, bias, h, sm_scale, causal, group, q_off, k_off)
     p = torch.exp(s - lse[..., None])
     dp = torch.matmul(do.float(), _expand_kv(v, h, group).float().transpose(1, 2))
     return p, p * (dp - delta[..., None]) * sm_scale
 
 
-def flash_dq_plain(q, k, v, bias, do, lse, delta, h, sm_scale, causal, group=1):
+def flash_dq_plain(q, k, v, bias, do, lse, delta, h, sm_scale, causal, group=1,
+                   q_off=0, k_off=0):
     """Plain dq: ds . k with p recomputed from lse; like q."""
     _, ds = _probs_and_dscores(q, k, v, bias, do, lse, delta, h, sm_scale,
-                               causal, group)
+                               causal, group, q_off, k_off)
     return torch.matmul(ds, _expand_kv(k, h, group).float()).to(q.dtype)
 
 
 def flash_dkdv_plain(q, k, v, bias, do, lse, delta, h, sm_scale, causal,
-                     group=1):
+                     group=1, q_off=0, k_off=0):
     """Plain dk, dv per q head (B*H, Sk, D): like k when group == 1, f32
     partials when group > 1 (the caller sums each group)."""
     p, ds = _probs_and_dscores(q, k, v, bias, do, lse, delta, h, sm_scale,
-                               causal, group)
+                               causal, group, q_off, k_off)
     dv = torch.matmul(p.transpose(1, 2), do.float())
     dk = torch.matmul(ds.transpose(1, 2), q.float())
     out_dtype = torch.float32 if group > 1 else k.dtype
@@ -115,11 +145,15 @@ def flash_dkdv_plain(q, k, v, bias, do, lse, delta, h, sm_scale, causal,
 # ------------------------------------------------------------------ kernels --
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (BH, H, group, Sq, Sk, D), scale, causal[, q_off, k_off], is_bf16, stream
 _SHAPE_ARGS = [_INT] * 6 + [_FLOAT, _INT, _INT, _PTR]
+_OFFSET_ARGS = [_INT] * 6 + [_FLOAT, _INT, _INT, _INT, _INT, _PTR]
 _ARGTYPES = {
     "flash_fwd": [_PTR] * 6 + _SHAPE_ARGS,
-    "flash_dq": [_PTR] * 8 + _SHAPE_ARGS,
-    "flash_dkdv": [_PTR] * 9 + _SHAPE_ARGS,
+    # (BH, Sq, Sk, D), scale, causal, q_off, k_off, is_bf16, stream
+    "flash_block_update": [_PTR] * 9 + [_INT] * 4 + [_FLOAT] + [_INT] * 4 + [_PTR],
+    "flash_dq": [_PTR] * 8 + _OFFSET_ARGS,
+    "flash_dkdv": [_PTR] * 9 + _OFFSET_ARGS,
 }
 
 
@@ -133,16 +167,18 @@ def _library():
 
 
 def _check(q, k, v, bias, h, group, rows=(), grads=()):
-    """Validate what the kernels take; returns (BH, Sq, Sk, D)."""
-    tensors = (q, k, v, bias, *rows, *grads)
+    """Validate what the kernels take (``bias`` None: the block update,
+    which takes none); returns (BH, Sq, Sk, D)."""
+    f32 = tuple(t for t in (bias, *rows) if t is not None)
+    tensors = (q, k, v, *f32, *grads)
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash attention: all tensors must be on one device")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash attention kernels take bf16 or f32, got {q.dtype}")
     if any(t.dtype != q.dtype for t in (k, v, *grads)):
         raise TypeError("flash attention: q, k, v and dO must share a dtype")
-    if any(t.dtype != torch.float32 for t in (bias, *rows)):
-        raise TypeError("flash attention: bias, lse and delta must be f32")
+    if any(t.dtype != torch.float32 for t in f32):
+        raise TypeError("flash attention: bias, lse, delta, m and l must be f32")
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(f"flash attention: want q (BH, Sq, D), k = v (BH/g, Sk, D); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -152,11 +188,11 @@ def _check(q, k, v, bias, h, group, rows=(), grads=()):
             or k.shape[2] != d):
         raise ValueError(f"flash attention: q {tuple(q.shape)} and k {tuple(k.shape)} "
                          f"do not fold {h} heads in groups of {group}")
-    if tuple(bias.shape) != (bh // h, sk):
+    if bias is not None and tuple(bias.shape) != (bh // h, sk):
         raise ValueError(f"flash attention: bias must be (B, Sk) = {(bh // h, sk)}, "
                          f"got {tuple(bias.shape)}")
     if any(tuple(t.shape) != (bh, sq) for t in rows):
-        raise ValueError("flash attention: lse and delta must be (BH, Sq)")
+        raise ValueError("flash attention: lse, delta, m and l must be (BH, Sq)")
     if any(t.shape != q.shape for t in grads):
         raise ValueError("flash attention: dO must be shaped like q")
     if not 0 < d <= MAX_HEAD_DIM or sq == 0 or sk == 0:
@@ -167,12 +203,13 @@ def _check(q, k, v, bias, h, group, rows=(), grads=()):
     return bh, sq, sk, d
 
 
-def _launch(name, ptrs, dims, sm_scale, causal, q):
+def _launch(name, ptrs, dims, sm_scale, causal, q, offsets=()):
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, name)(*[t.data_ptr() for t in ptrs], *dims,
                                  float(sm_scale), int(bool(causal)),
+                                 *[int(x) for x in offsets],
                                  int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
@@ -199,30 +236,57 @@ def flash_fwd(q, k, v, bias, h, sm_scale, causal, group=1):
     return out, lse
 
 
-def flash_dq(q, k, v, bias, do, lse, delta, h, sm_scale, causal, group=1):
-    """dq on folded tensors (see :func:`flash_fwd`); like q."""
+def flash_block_update(q, k, v, m, l, o, q_off, k_off, causal=False,
+                       sm_scale=None):
+    """One ring step on folded tensors: q (BH, Sq, D), the visiting block k,
+    v (BH, Sk, D), the carry m, l (BH, Sq) f32 and the unnormalised o (BH,
+    Sq, D) f32, at global positions ``q_off``, ``k_off`` -> new (m, l, o).
+    The inputs are left as they are."""
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    if _device_kind(q) == "cpu":
+        return flash_block_update_plain(q, k, v, m, l, o, q_off, k_off, causal,
+                                        sm_scale)
+    bh, sq, sk, d = _check(q, k, v, None, 1, 1, rows=(m, l))
+    if (o.dtype != torch.float32 or o.shape != q.shape or o.device != q.device
+            or not o.is_contiguous()):
+        raise ValueError(f"flash_block_update: o must be contiguous f32 shaped like q "
+                         f"{tuple(q.shape)}, got {o.dtype} {tuple(o.shape)}")
+    m2, l2, o2 = torch.empty_like(m), torch.empty_like(l), torch.empty_like(o)
+    _launch("flash_block_update", (q, k, v, m, l, o, m2, l2, o2), (bh, sq, sk, d),
+            sm_scale, causal, q, offsets=(q_off, k_off))
+    return m2, l2, o2
+
+
+def flash_dq(q, k, v, bias, do, lse, delta, h, sm_scale, causal, group=1,
+             q_off=0, k_off=0):
+    """dq on folded tensors (see :func:`flash_fwd`); like q.  ``q_off`` and
+    ``k_off`` place the blocks globally (ring attention); a block that no
+    row sees gives zeros."""
     if _device_kind(q) == "cpu":
         return flash_dq_plain(q, k, v, bias, do, lse, delta, h, sm_scale,
-                              causal, group)
+                              causal, group, q_off, k_off)
     bh, sq, sk, d = _check(q, k, v, bias, h, group, rows=(lse, delta), grads=(do,))
     dq = torch.empty_like(q)
     _launch("flash_dq", (q, k, v, bias, do, lse, delta, dq),
-            (bh, h, group, sq, sk, d), sm_scale, causal, q)
+            (bh, h, group, sq, sk, d), sm_scale, causal, q, offsets=(q_off, k_off))
     return dq
 
 
-def flash_dkdv(q, k, v, bias, do, lse, delta, h, sm_scale, causal, group=1):
+def flash_dkdv(q, k, v, bias, do, lse, delta, h, sm_scale, causal, group=1,
+               q_off=0, k_off=0):
     """dk, dv per q head (B*H, Sk, D): like k when group == 1, f32 partials
-    when group > 1."""
+    when group > 1.  Offsets as :func:`flash_dq`; keys that no row sees get
+    zeros."""
     if _device_kind(q) == "cpu":
         return flash_dkdv_plain(q, k, v, bias, do, lse, delta, h, sm_scale,
-                                causal, group)
+                                causal, group, q_off, k_off)
     bh, sq, sk, d = _check(q, k, v, bias, h, group, rows=(lse, delta), grads=(do,))
     out_dtype = torch.float32 if group > 1 else k.dtype
     dk = torch.empty((bh, sk, d), dtype=out_dtype, device=q.device)
     dv = torch.empty((bh, sk, d), dtype=out_dtype, device=q.device)
     _launch("flash_dkdv", (q, k, v, bias, do, lse, delta, dk, dv),
-            (bh, h, group, sq, sk, d), sm_scale, causal, q)
+            (bh, h, group, sq, sk, d), sm_scale, causal, q, offsets=(q_off, k_off))
     return dk, dv
 
 
@@ -256,7 +320,7 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, dbias, None, None, None, None
 
 
-def _fold(t):
+def fold_heads(t):
     """(B, S, H', D) -> contiguous (B*H', S, D)."""
     b, s, hh, d = t.shape
     return t.transpose(1, 2).reshape(b * hh, s, d)
@@ -276,7 +340,8 @@ def _prepare(q, k, v, kv_mask, sm_scale):
     return bias, h, h // h_kv, float(sm_scale)
 
 
-def _unfold(out, b, h):
+def unfold_heads(out, b, h):
+    """(B*H, S, D) -> the (B, S, H, D) view."""
     bh, s, d = out.shape
     return out.view(b, h, s, d).transpose(1, 2)
 
@@ -290,9 +355,9 @@ def flash_attention(q, k, v, causal=False, kv_mask=None, sm_scale=None):
     1/sqrt(D).  CUDA tensors run the kernels, CPU tensors the plain versions.
     """
     bias, h, group, sm_scale = _prepare(q, k, v, kv_mask, sm_scale)
-    out = _FlashAttention.apply(_fold(q), _fold(k), _fold(v), bias, h,
-                                sm_scale, bool(causal), group)
-    return _unfold(out, q.shape[0], h)
+    out = _FlashAttention.apply(fold_heads(q), fold_heads(k), fold_heads(v), bias,
+                                h, sm_scale, bool(causal), group)
+    return unfold_heads(out, q.shape[0], h)
 
 
 def attention_plain(q, k, v, causal=False, kv_mask=None, sm_scale=None):
@@ -300,6 +365,6 @@ def attention_plain(q, k, v, causal=False, kv_mask=None, sm_scale=None):
     differentiated by autograd: the kernel-free path (``attention_impl=
     "xla"``) that the kernels are held against on the card."""
     bias, h, group, sm_scale = _prepare(q, k, v, kv_mask, sm_scale)
-    out, _ = flash_fwd_plain(_fold(q), _fold(k), _fold(v), bias, h, sm_scale,
-                             bool(causal), group)
-    return _unfold(out, q.shape[0], h)
+    out, _ = flash_fwd_plain(fold_heads(q), fold_heads(k), fold_heads(v), bias, h,
+                             sm_scale, bool(causal), group)
+    return unfold_heads(out, q.shape[0], h)

@@ -1,22 +1,29 @@
-"""Collectives over the replica group (counterpart of the parts of
-``autodist_tpu/parallel/collectives.py`` that the sync codecs use).
+"""Collectives over a process group (counterpart of the parts of
+``autodist_tpu/parallel/collectives.py`` and ``autodist_tpu/kernel/
+collectives.py`` that the sync codecs and sequence parallelism use).
 
 The JAX package binds ``jax.lax`` collectives to a mesh axis name inside
 ``shard_map``; here one process runs each replica and the collectives run
 over a ``torch.distributed`` process group (NCCL on CUDA, gloo on the
-CPU).  ``group=None`` means one replica: every function is then the
-identity and needs no process group.  A ``DeviceMesh`` of named axes
-waits for the hierarchical slice (ROADMAP, Queue A item 5).
+CPU): the whole world for the gradient sync, a seq row for ring
+attention.  ``group=None`` means a group of one: every function is then
+the identity and needs no process group.
 
-- :func:`axis_size` -- the number of replicas (``jax.lax.axis_size``);
-- :func:`psum`, :func:`pmean` -- sum and mean over the replicas;
-- :func:`all_to_all_single` -- tiled all-to-all over dim 0: replica d
+- :func:`axis_size` -- the number of ranks (``jax.lax.axis_size``);
+- :func:`psum`, :func:`pmean` -- sum and mean over the ranks;
+- :func:`all_to_all_single` -- tiled all-to-all over dim 0: rank d
   receives row block d of every peer, in peer order
   (``jax.lax.all_to_all(split_axis=0, concat_axis=0, tiled=True)``);
+- :func:`all_to_all` -- the same over any split and concat dims,
+  differentiable (Ulysses attention);
 - :func:`all_gather_into_tensor` -- tiled all-gather over dim 0
-  (``jax.lax.all_gather(axis=0, tiled=True)``).
+  (``jax.lax.all_gather(axis=0, tiled=True)``);
+- :func:`ring_perm`, :func:`ppermute` -- a permutation of the group's
+  ranks and the point-to-point exchange along it (``jax.lax.ppermute``);
+  :func:`ppermute_ad` differentiates it as JAX does, by the inverse
+  permutation.
 
-Each returns a new tensor and leaves its input as it was.
+Each returns new tensors and leaves its inputs as they were.
 """
 import warnings
 
@@ -25,7 +32,7 @@ import torch.distributed as dist
 
 
 def axis_size(group=None):
-    """Replicas in ``group`` (1 for ``None``)."""
+    """Ranks in ``group`` (1 for ``None``)."""
     return 1 if group is None else dist.get_world_size(group)
 
 
@@ -68,3 +75,100 @@ def all_gather_into_tensor(x, group=None):
         warnings.simplefilter("ignore", FutureWarning)
         dist.all_gather_into_tensor(out, x.contiguous(), group=group)
     return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.config = (group, split_axis, concat_axis)
+        return _all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, split_axis, concat_axis = ctx.config
+        return _all_to_all(grad, group, concat_axis, split_axis), None, None, None
+
+
+def _all_to_all(x, group, split_axis, concat_axis):
+    r = axis_size(group)
+    if x.shape[split_axis] % r:
+        raise ValueError(f"dim {split_axis} ({x.shape[split_axis]}) does not split over "
+                         f"{r} ranks")
+    blocks = all_to_all_single(torch.stack(x.chunk(r, dim=split_axis)), group)
+    return torch.cat(blocks.unbind(0), dim=concat_axis)
+
+
+def all_to_all(x, group, split_axis, concat_axis):
+    """Tiled all-to-all: ``split_axis`` splits into one block per rank, rank
+    d receives block d of every peer and concatenates them along
+    ``concat_axis`` in peer order (``jax.lax.all_to_all(..., tiled=True)``).
+    Differentiable: the gradient takes the inverse exchange."""
+    if group is None:
+        return x
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+def ring_perm(size):
+    """The closed rotation ring: index ``i`` sends to ``(i + 1) % size``."""
+    return [(i, (i + 1) % size) for i in range(size)]
+
+
+def _check_perm(perm, size):
+    srcs = [int(a) for a, _ in perm]
+    dsts = [int(b) for _, b in perm]
+    if (len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts)
+            or not all(0 <= i < size for i in srcs + dsts)):
+        raise ValueError(f"ppermute: {perm} is not a permutation of indices in "
+                         f"[0, {size})")
+
+
+def ppermute(x, group, perm):
+    """Send ``x`` along ``perm``, pairs ``(src, dst)`` of indices in
+    ``group``; returns what this rank receives, zeros where no index sends
+    to it (``jax.lax.ppermute``).  ``x`` may be a tensor or a tuple of
+    tensors, all sent in one exchange.  Every rank posts its send and its
+    receive together (``batch_isend_irecv``, peers by global rank).
+    ``group=None``: the identity."""
+    if group is None:
+        return x
+    many = isinstance(x, (tuple, list))
+    xs = [t.contiguous() for t in (x if many else (x,))]
+    size, me = axis_size(group), dist.get_rank(group)
+    _check_perm(perm, size)
+    dst = [int(b) for a, b in perm if int(a) == me]
+    src = [int(a) for a, b in perm if int(b) == me]
+    outs = [torch.empty_like(t) for t in xs]
+    ops = []
+    if dst:
+        peer = dist.get_global_rank(group, dst[0])
+        ops += [dist.P2POp(dist.isend, t, peer, group) for t in xs]
+    if src:
+        peer = dist.get_global_rank(group, src[0])
+        ops += [dist.P2POp(dist.irecv, out, peer, group) for out in outs]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    if not src:
+        for out in outs:
+            out.zero_()
+    return tuple(outs) if many else outs[0]
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, perm):
+        ctx.config = (group, perm)
+        return ppermute(x, group, perm)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, perm = ctx.config
+        return ppermute(grad, group, [(b, a) for a, b in perm]), None, None
+
+
+def ppermute_ad(x, group, perm):
+    """:func:`ppermute` of one tensor, differentiable: the gradient travels
+    the inverse permutation, as JAX differentiates ``ppermute``."""
+    if group is None:
+        return x
+    return _PPermute.apply(x, group, tuple(tuple(p) for p in perm))

@@ -1,5 +1,6 @@
-"""Rank bootstrap for the flat replica axis: the port's counterpart of
-``autodist_tpu/parallel/mesh.py::build_mesh`` for ``{"replica": R}``.
+"""Rank bootstrap and the mesh: the port's counterpart of
+``autodist_tpu/parallel/mesh.py::build_mesh`` for ``{"replica": R}`` and
+``{"replica": R_d, "seq": R_s}``.
 
 The JAX package runs every replica in one program over a device mesh.
 The port runs one process per replica, as ``torchrun`` launches them, and
@@ -13,24 +14,100 @@ process group once, with NCCL for CUDA devices and gloo for the CPU; a
 group that the caller initialised already is taken as it is.
 :func:`check_replicas` holds the world against the strategy: a spec of R
 replicas runs in a world of exactly R processes, never silently as R = 1.
+
+:func:`mesh_world` lays the ranks out on the strategy's mesh as
+``build_mesh`` lays out devices, ``np.arange(R).reshape(sizes)``
+row-major: on ``{"replica": R_d, "seq": R_s}`` rank r sits at ``(d, s) =
+divmod(r, R_s)``.  Each seq row (the R_s ranks of one d) gets a process
+group of its own for ring attention; the gradient sync stays on the whole
+world.
 """
 import dataclasses
+import math
 from typing import Any, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch.const import ENV
+from autodist_tpu_torch.const import AXIS_REPLICA, AXIS_SEQUENCE, ENV
+from autodist_tpu_torch.parallel.context import SeqAxis
 
 
 @dataclasses.dataclass(frozen=True)
 class ReplicaWorld:
     """This process's place among the replicas; ``group`` is None for a
-    one-process world (every collective is then the identity)."""
+    one-process world (every collective is then the identity).  Under
+    sequence parallelism (:func:`mesh_world`), ``seq`` is this rank's
+    :class:`SeqAxis` and ``data_index`` its seq row's index among the
+    ``size // seq.size`` rows, which slice dim 0 of the batch."""
 
     rank: int
     size: int
     group: Optional[Any] = None
+    seq: Optional[SeqAxis] = None
+    data_index: int = 0
+
+    @property
+    def data_slice(self):
+        """(index, count) of this rank's slice of the batch's dim 0."""
+        if self.seq is None:
+            return self.rank, self.size
+        return self.data_index, self.size // self.seq.size
+
+
+def factorize(n, sizes):
+    """Resolve one -1 entry in ``sizes`` so the product equals n (the JAX
+    package's ``parallel/mesh.py::_factorize``)."""
+    sizes = list(sizes)
+    neg = [i for i, s in enumerate(sizes) if s == -1]
+    if len(neg) > 1:
+        raise ValueError("At most one mesh axis may be -1")
+    prod = math.prod(s for s in sizes if s != -1)
+    if neg:
+        if n % prod:
+            raise ValueError(f"Cannot infer axis: {n} devices not divisible by {prod}")
+        sizes[neg[0]] = n // prod
+    elif prod != n:
+        raise ValueError(f"Mesh axes {sizes} do not multiply to device count {n}")
+    return sizes
+
+
+MESH_AXES = (AXIS_REPLICA, AXIS_SEQUENCE)
+
+
+def check_mesh_axes(names):
+    """Raise unless every axis is one the port realises (replica, seq)."""
+    other = [n for n in names if n not in MESH_AXES]
+    if other or len(set(names)) != len(names):
+        raise NotImplementedError(
+            f"mesh axes {list(names)}: the port realises {list(MESH_AXES)}, each at most "
+            f"once; the model-parallel axes are a later slice (ROADMAP, Queue A item 9)")
+
+
+def mesh_world(world, names, sizes):
+    """``world`` placed on the mesh ``names`` x ``sizes`` (replica and seq
+    axes).  Sequence parallelism is on when the mesh has a seq axis beside
+    another, even at ``seq: 1`` (``graph_transformer.py:78`` of the JAX
+    package); then the result carries this rank's :class:`SeqAxis` and
+    seq-row index.  Every rank must call it, in the same order: it creates
+    one process group per seq row of more than one rank (``dist.new_group``
+    for every row, on every rank).  Any other mesh, a 1-D ``{"seq": R}``
+    among them (JAX shards dim 0 over it), returns ``world``."""
+    names, sizes = tuple(names), [int(x) for x in sizes]
+    check_mesh_axes(names)
+    if AXIS_SEQUENCE not in names or len(names) == 1:
+        return world
+    check_replicas(math.prod(sizes), world)
+    axis = names.index(AXIS_SEQUENCE)
+    rows = np.moveaxis(np.arange(world.size).reshape(sizes), axis, -1).reshape(
+        -1, sizes[axis])
+    seq, data_index = None, 0
+    for i, row in enumerate(rows.tolist()):
+        group = dist.new_group(row) if len(row) > 1 else None
+        if world.rank in row:
+            seq, data_index = SeqAxis(group, row.index(world.rank), len(row)), i
+    return dataclasses.replace(world, seq=seq, data_index=data_index)
 
 
 def launched_world_size():

@@ -3,10 +3,13 @@
 
 ``run(global_batch)`` takes this replica's slice of dim 0 of a global
 batch (a dict of numpy arrays or tensors; replica r of R gets rows
-``[r * B/R, (r + 1) * B/R)``, the Remapper contract), moves it to the
-device, runs one training step and returns its metrics; the loss, the
-mean over the replicas, stays a 0-d device tensor, so the host waits for
-the device only when the caller reads it.  ``params()`` and
+``[r * B/R, (r + 1) * B/R)``, the Remapper contract) and, under sequence
+parallelism on ``{"replica": R_d, "seq": R_s}``, rank (d, s) rows ``[d *
+B/R_d, (d + 1) * B/R_d)`` and columns ``[s * S/R_s, (s + 1) * S/R_s)``
+of every leaf with a dim 1; moves it to the device, runs one training
+step and returns its metrics; the loss, the mean over the replicas, stays
+a 0-d device tensor, so the host waits for the device only when the
+caller reads it.  ``params()`` and
 ``mutable_state()`` copy the current values, the same on every replica,
 to the host.  ``evaluate``, telemetry, preemption, ``fit`` and checkpoints are
 later slices of the port (ROADMAP, Queue A items 7 and 10).
@@ -30,21 +33,30 @@ class DistributedSession:
         return self._t
 
     def shard_batch(self, batch):
-        """This replica's slice of dim 0 of a global batch, on the device."""
+        """This rank's slice of a global batch (dim 0, and dim 1 under
+        sequence parallelism), on the device."""
         if not isinstance(batch, dict):
             raise TypeError(f"batches are dicts of arrays, got {type(batch).__name__}")
-        world = self._t.world
+        index, count = self._t.world.data_slice
+        seq = self._t.seq_axis
         out = {}
         for key, value in batch.items():
             t = value if isinstance(value, torch.Tensor) else torch.from_numpy(
                 np.ascontiguousarray(value))
-            if world.size > 1:
-                if t.dim() == 0 or t.shape[0] % world.size:
+            if count > 1:
+                if t.dim() == 0 or t.shape[0] % count:
                     raise ValueError(
                         f"batch[{key!r}] of shape {tuple(t.shape)}: dim 0 does not "
-                        f"divide over {world.size} replicas")
-                per = t.shape[0] // world.size
-                t = t[world.rank * per:(world.rank + 1) * per]
+                        f"divide over {count} replicas")
+                per = t.shape[0] // count
+                t = t[index * per:(index + 1) * per]
+            if seq is not None and seq.size > 1 and t.dim() > 1:
+                if t.shape[1] % seq.size:
+                    raise ValueError(
+                        f"batch[{key!r}] of shape {tuple(t.shape)}: Batch dim 1 must be "
+                        f"divisible by {seq.size} (sharded over the seq axis)")
+                per = t.shape[1] // seq.size
+                t = t[:, seq.index * per:(seq.index + 1) * per].contiguous()
             out[key] = t.to(self.device, non_blocking=True)
         return out
 

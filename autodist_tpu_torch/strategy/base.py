@@ -16,6 +16,7 @@ from abc import ABC, abstractmethod
 
 from autodist_tpu_torch.const import DEFAULT_SERIALIZATION_DIR
 from autodist_tpu_torch.kernel.device.resolver import DeviceResolver
+from autodist_tpu_torch.parallel.mesh import check_mesh_axes, factorize
 from autodist_tpu_torch.proto import schema
 from autodist_tpu_torch.utils import logging
 
@@ -94,18 +95,22 @@ class StrategyBuilder(ABC):
 
     @staticmethod
     def make_graph_config(strategy, resource_spec):
-        """Fill replicas (every accelerator, else the CPUs) and the default
-        1-D replica mesh."""
+        """Fill replicas (every accelerator, else the CPUs) and the mesh:
+        the spec's ``mesh:`` request (replica and seq axes, one size may be
+        -1), else the default 1-D replica mesh."""
         replicas = [k for k, _ in resource_spec.accelerator_devices]
         if not replicas:
             replicas = [k for k, _ in resource_spec.cpu_devices]
-        if resource_spec.mesh_request:
-            raise NotImplementedError(
-                "an explicit mesh request is a later slice of the port "
-                "(ROADMAP, Queue A item 9)")
         strategy.graph_config.replicas = replicas
-        strategy.graph_config.mesh = schema.MeshConfig(
-            axis_names=["replica"], axis_sizes=[len(replicas)])
+        request = resource_spec.mesh_request
+        if request:
+            check_mesh_axes(list(request))
+            strategy.graph_config.mesh = schema.MeshConfig(
+                axis_names=list(request),
+                axis_sizes=factorize(len(replicas), list(request.values())))
+        else:
+            strategy.graph_config.mesh = schema.MeshConfig(
+                axis_names=["replica"], axis_sizes=[len(replicas)])
 
 
 _AR = schema.AllReduceSynchronizer

@@ -68,14 +68,48 @@ Phases (each failure exits non-zero before the last line):
    launches per step (Int8: 4 ``quantize_int8`` + 2 ``dequant_sum``; EF: 6 +
    2; EQuARX: 2 ``quantize_int8`` + 2 ``equarx_hop``; 12 of each flash
    kernel); prints step ms, tokens/s, peak memory, and the Int8 profile;
-10. prints the ``{"kernels": [...]}`` line (eight kernels), then the
+10. (after phase 3) holds the ring-attention kernels on one card as a
+   "virtual ring": at the GPT-2 shape (B=8, H=12, S=1024, D=64, causal)
+   S splits into n = 4 blocks of 256 (and again into n = 2 blocks of 512,
+   the seq row of ``{replica: 2, seq: 2}``), and each q block folds the
+   K/V blocks in ring order, ``(i - t) mod n`` at step t, through
+   ``flash_block_update`` at their global offsets, from the carry (floor,
+   0, 0).  Each step's
+   carry is held against ``flash_block_update_plain`` on the same carry, a
+   future block must leave the carry bitwise unchanged (m clamped at the
+   floor), and the normalised result against ``flash_fwd`` over the whole
+   sequence and against the plain versions' own ring.  The backward: the
+   offset ``flash_dq`` / ``flash_dkdv`` of every (q block, k block) pair
+   summed per block against the full-sequence kernels, a future pair's
+   partials exactly zero.  In bf16 and in f32.  Then the main path's own
+   block, the ring of one (BH=96, 1024 x 1024, causal, offsets 0, bf16):
+   ``flash_block_update`` against its plain version from the (floor, 0, 0)
+   carry and from a random one, at the carry tolerances above (the kernels
+   line's ``max_abs_err`` is this block's normalised output from the floor
+   carry).  Then (after phase 3's
+   timings) times ``flash_block_update``, its plain version and its bound
+   at the ring-of-one block (BH=96, 1024 x 1024, causal, offsets 0; the
+   kernels line) and at a ring-of-4 past block (96, 256 x 256, no masked
+   key), and the offset ``flash_dq`` / ``flash_dkdv`` at that past block;
+11. trains GPT-2 small as in phase 5 (10 adamw steps, B=8, S=1024) under
+   ``mesh: {replica: 1, seq: 1}``, sequence parallelism on a ring of one,
+   in a process of its own (``chip_smoke.py --ring LOSS``): finite losses
+   that fall, step 1's loss within 1e-3 of phase 5's flat-path loss
+   (``LOSS``) and of the same step through the plain ring
+   (``attention_impl="xla"``), and per step 12 ``flash_block_update``, 12
+   ``flash_dq``, 12 ``flash_dkdv`` and no ``flash_fwd``; prints step ms,
+   tokens/s, peak memory and the profile;
+12. prints the ``{"kernels": [...]}`` line (nine kernels), then the
    ``{"ok": true, ...}`` line.
 
 Tolerances, kernel vs plain version on the same inputs.  Flash, bf16
 inputs (the tensor-core kernels; plain version in f32): out max-abs <= 1e-2
 * max(1, max|out|) (bf16 rounding of the output), lse max-abs <= 1e-3, dq,
 dk, dv relative Frobenius error <= 1e-2.  f32 inputs (the FMA kernels):
-1e-4 in place of each 1e-2 and 1e-3 (f32 sums in another order).  Fused
+1e-4 in place of each 1e-2 and 1e-3 (f32 sums in another order).  The
+virtual ring: the same, and each step's carry m max-abs <= 1e-3, l and o
+relative Frobenius <= 1e-2 (1e-4 each in f32).  The ring-of-one run: step
+1's loss within 1e-3 (absolute) of the flat path's and the plain ring's.  Fused
 norm: y max-abs <= 1e-2 * max(1, max|y|) in bf16 (output rounding) and
 1e-4 in f32; mean and var max-abs <= 1e-4 of their largest magnitude (f32
 partial sums in another order).  Step 1 loss, kernels vs plain versions:
@@ -97,6 +131,8 @@ SOURCES = {"flash_attention": "autodist_tpu_torch/csrc/flash_attention.cu",
            "quantize": "autodist_tpu_torch/csrc/quantize.cu"}
 KERNELS = {   # kernel -> (source, the TPU kernel's pallas_call)
     "flash_fwd": ("flash_attention", "autodist_tpu/ops/pallas/flash_attention.py:198"),
+    "flash_block_update": ("flash_attention",
+                           "autodist_tpu/ops/pallas/flash_attention.py:494"),
     "flash_dq": ("flash_attention", "autodist_tpu/ops/pallas/flash_attention.py:328"),
     "flash_dkdv": ("flash_attention", "autodist_tpu/ops/pallas/flash_attention.py:367"),
     "bn_fwd": ("fused_norm", "autodist_tpu/ops/pallas/fused_norm.py:112"),
@@ -126,6 +162,9 @@ CODECS = {   # codec -> its quantization launches per GPT-2 small step (2 bucket
     "EquarxInt8Compressor": {"quantize_int8": 2, "dequant_sum": 0, "equarx_hop": 2},
 }
 CODEC_STEPS = 5
+RING_BLOCKS = (4, 2)        # the virtual rings' block counts of the GPT-2 sequence
+RING_LOSS_TOL = 1e-3        # step 1 loss, ring of one vs the flat path (absolute)
+NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
 class SmokeFailure(Exception):
@@ -305,6 +344,240 @@ def measure_kernels(torch, fa):
             print(f"timing {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
                   f"({r['bound_by']}: {r['gflop']:.2f} GFLOP, {r['mbytes']:.2f} MB)")
+    return results
+
+
+def max_abs(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def rel_error(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+def check_ring_kernels(torch, fa):
+    """The virtual ring on one card (phase 10): ``flash_block_update`` and
+    the offset ``flash_dq`` / ``flash_dkdv`` over the GPT-2 sequence cut in
+    each of RING_BLOCKS blocks, in bf16 and f32."""
+    for dtype in ("bfloat16", "float32"):
+        c = make_case(torch, BATCH, SEQ, 12, 12, 64, True, False, seed=11, dtype=dtype)
+        for n in RING_BLOCKS:
+            virtual_ring(torch, fa, c, dtype, n)
+        del c
+        torch.cuda.empty_cache()
+
+
+def virtual_ring(torch, fa, c, dtype, n):
+    """One virtual ring of ``n`` blocks on the case ``c`` (see
+    :func:`check_ring_kernels`); raises on a failed check."""
+    out_tol, lse_tol, grad_tol = TOLERANCES[dtype]
+    h, scale = c["h"], c["scale"]
+    q, k, v, do, bias = c["q"], c["k"], c["v"], c["do"], c["bias"]
+    blk = SEQ // n
+    bh = q.shape[0]
+
+    def part(t, i):
+        return t[:, i * blk:(i + 1) * blk].contiguous()
+
+    def start():
+        return (torch.full((bh, blk), fa._M_FLOOR, device="cuda"),
+                torch.zeros(bh, blk, device="cuda"),
+                torch.zeros(bh, blk, 64, device="cuda"))
+
+    def finish(m, l, o):
+        denom = torch.where(l == 0, torch.ones_like(l), l)
+        return (o / denom[..., None]).to(q.dtype), m + torch.log(denom)
+
+    step_err = {"m": 0.0, "l": 0.0, "o": 0.0}
+    outs, lses, plain_outs = [], [], []
+    for i in range(n):
+        qi = part(q, i)
+        carry, plain = start(), start()
+        for t in range(n):
+            j = (i - t) % n
+            kj, vj = part(k, j), part(v, j)
+            offsets = (i * blk, j * blk, True, scale)
+            new = fa.flash_block_update(qi, kj, vj, *carry, *offsets)
+            ref = fa.flash_block_update_plain(qi, kj, vj, *carry, *offsets)
+            plain = fa.flash_block_update_plain(qi, kj, vj, *plain, *offsets)
+            torch.cuda.synchronize()
+            step_err["m"] = max(step_err["m"], max_abs(new[0], ref[0]))
+            step_err["l"] = max(step_err["l"], rel_error(new[1], ref[1]))
+            step_err["o"] = max(step_err["o"], rel_error(new[2], ref[2]))
+            if j > i:   # wholly in the future: the carry passes through
+                check(torch.equal(new[0], carry[0].clamp(min=fa._M_FLOOR))
+                      and torch.equal(new[1], carry[1]) and torch.equal(new[2], carry[2]),
+                      f"virtual ring {dtype}: block {j} changed q block {i}'s carry")
+            carry = new
+        out_i, lse_i = finish(*carry)
+        outs.append(out_i)
+        lses.append(lse_i)
+        plain_outs.append(finish(*plain)[0])
+    out, lse = torch.cat(outs, dim=1), torch.cat(lses, dim=1)
+    full_out, full_lse = fa.flash_fwd(q, k, v, bias, h, scale, True)
+    plain_err = max_abs(out, torch.cat(plain_outs, dim=1))
+    e_out, e_lse = max_abs(out, full_out), max_abs(lse, full_lse)
+    m_tol, carry_tol = (1e-3, 1e-2) if dtype == "bfloat16" else (1e-4, 1e-4)
+    print(f"virtual ring [{dtype}, {n} blocks of {blk}]: per-step carry m max-abs "
+          f"{step_err['m']:.3e}, l rel {step_err['l']:.3e}, o rel {step_err['o']:.3e}; "
+          f"out vs flash_fwd max-abs {e_out:.3e}, lse {e_lse:.3e}; out vs the plain "
+          f"ring max-abs {plain_err:.3e}")
+    check(step_err["m"] <= m_tol, f"virtual ring {dtype}: m error {step_err['m']}")
+    check(step_err["l"] <= carry_tol and step_err["o"] <= carry_tol,
+          f"virtual ring {dtype}: carry error {step_err}")
+    out_bound = out_tol * max(1.0, float(full_out.float().abs().max()))
+    check(e_out <= out_bound, f"virtual ring {dtype}: out max-abs {e_out} > {out_bound}")
+    check(plain_err <= out_bound, f"virtual ring {dtype}: out vs plain ring {plain_err}")
+    check(e_lse <= lse_tol, f"virtual ring {dtype}: lse max-abs {e_lse} > {lse_tol}")
+
+    # backward: every (q block, k block) pair at its offsets, summed
+    delta = (do.float() * out.float()).sum(-1)
+    bias_blk = torch.zeros(BATCH, blk, device="cuda")
+    dq = [torch.zeros(bh, blk, 64, device="cuda") for _ in range(n)]
+    dk = [torch.zeros_like(dq[0]) for _ in range(n)]
+    dv = [torch.zeros_like(dq[0]) for _ in range(n)]
+    for i in range(n):
+        for j in range(n):
+            args = (part(q, i), part(k, j), part(v, j), bias_blk, part(do, i),
+                    part(lse, i), part(delta, i), h, scale, True)
+            dq_p = fa.flash_dq(*args, q_off=i * blk, k_off=j * blk)
+            dk_p, dv_p = fa.flash_dkdv(*args, q_off=i * blk, k_off=j * blk)
+            if j > i:
+                torch.cuda.synchronize()
+                check(not dq_p.any() and not dk_p.any() and not dv_p.any(),
+                      f"virtual ring {dtype}: future block {j} of q block {i} gave "
+                      f"non-zero gradients")
+            dq[i] += dq_p.float()
+            dk[j] += dk_p.float()
+            dv[j] += dv_p.float()
+    full_delta = (do.float() * full_out.float()).sum(-1)
+    full = (fa.flash_dq(q, k, v, bias, do, full_lse, full_delta, h, scale, True),
+            *fa.flash_dkdv(q, k, v, bias, do, full_lse, full_delta, h, scale, True))
+    torch.cuda.synchronize()
+    rels = {name: rel_error(torch.cat(parts, dim=1), ref)
+            for name, parts, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), full)}
+    print(f"virtual ring [{dtype}, {n} blocks] backward, block sums vs the full-sequence "
+          f"kernels: "
+          + ", ".join(f"{name} rel {r:.3e}" for name, r in rels.items())
+          + "; future blocks gave exact zeros")
+    for name, r in rels.items():
+        check(r <= grad_tol, f"virtual ring {dtype}: {name} relative error {r}")
+
+
+def check_ring_of_one_block(torch, fa):
+    """``flash_block_update`` against its plain version at the block the
+    main path gives it, the ring of one (BH=96, 1024 x 1024, causal,
+    offsets 0, bf16), from the (floor, 0, 0) carry the ring starts with and
+    from a random carry: m max-abs <= 1e-3, l and o relative Frobenius <=
+    1e-2, the normalised output as phase 3's out.  Returns the max-abs
+    error of that output from the floor carry (the kernels line's)."""
+    out_tol = TOLERANCES["bfloat16"][0]
+    c = make_case(torch, BATCH, SEQ, 12, 12, 64, True, False, seed=13)
+    q, k, v = c["q"], c["k"], c["v"]
+    bh = q.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(14)
+    carries = {
+        "floor": (torch.full((bh, SEQ), fa._M_FLOOR, device="cuda"),
+                  torch.zeros(bh, SEQ, device="cuda"), torch.zeros(bh, SEQ, 64, device="cuda")),
+        "random": (torch.rand(bh, SEQ, device="cuda", generator=g),
+                   torch.rand(bh, SEQ, device="cuda", generator=g) + 0.5,
+                   torch.randn(bh, SEQ, 64, device="cuda", generator=g)),
+    }
+    err = None
+    for label, carry in carries.items():
+        cfg = (0, 0, True, c["scale"])
+        m, l, o = fa.flash_block_update(q, k, v, *(t.clone() for t in carry), *cfg)
+        pm, pl, po = fa.flash_block_update_plain(q, k, v, *carry, *cfg)
+        torch.cuda.synchronize()
+        e_m, e_l, e_o = max_abs(m, pm), rel_error(l, pl), rel_error(o, po)
+        out, ref = (o / l[..., None]).to(q.dtype), po / pl[..., None]
+        e_out = max_abs(out, ref)
+        bound = out_tol * max(1.0, float(ref.abs().max()))
+        print(f"ring-of-one block [bf16, {label} carry]: m max-abs {e_m:.3e}, l rel "
+              f"{e_l:.3e}, o rel {e_o:.3e}; o / l max-abs {e_out:.3e} (limit {bound:.3e})")
+        check(e_m <= 1e-3, f"ring-of-one block, {label} carry: m error {e_m}")
+        check(e_l <= 1e-2 and e_o <= 1e-2,
+              f"ring-of-one block, {label} carry: l error {e_l}, o error {e_o}")
+        check(e_out <= bound, f"ring-of-one block, {label} carry: out max-abs {e_out}")
+        if err is None:
+            err = e_out
+    del c, q, k, v, carries
+    torch.cuda.empty_cache()
+    return {"flash_block_update": err}
+
+
+def ring_work(bh, sq, sk, d, pairs, batch):
+    """(flops, bytes) of the ring kernels on one block, bf16 inputs: each
+    input read once, each output written once; ``pairs`` unmasked (row,
+    key) pairs."""
+    q_elems, k_elems, rows = bh * sq * d, bh * sk * d, bh * sq
+    return {
+        # q, k, v; m and l read and written; o (f32) read and written
+        "flash_block_update": (4 * d * pairs, (q_elems + 2 * k_elems) * 2 + 4 * rows * 4
+                               + 2 * q_elems * 4),
+        # q, dO, dq and k, v (bf16); lse, delta; the zero bias row
+        "flash_dq": (6 * d * pairs, (3 * q_elems + 2 * k_elems) * 2 + 2 * rows * 4
+                     + batch * sk * 4),
+        # q, dO and k, v, dk, dv (bf16); lse, delta; the bias row
+        "flash_dkdv": (8 * d * pairs, (2 * q_elems + 4 * k_elems) * 2 + 2 * rows * 4
+                       + batch * sk * 4),
+    }
+
+
+def measure_ring_kernels(torch, fa):
+    """Kernel and plain times and the bound of ``flash_block_update`` at the
+    ring-of-one block (BH=96, 1024 x 1024, causal, offsets 0: the kernels
+    line) and at a ring-of-4 past block (96, 256 x 256, no masked key), and
+    of the offset ``flash_dq`` / ``flash_dkdv`` at that past block.  No
+    single PyTorch call computes the carry update: no library time."""
+    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")   # > the 50 MB L2
+    h, d = 12, 64
+    results = {}
+    for label, s, q_off, k_off in (("ring of one, 1024 x 1024 causal", SEQ, 0, 0),
+                                   ("ring-of-4 past block, 256 x 256", SEQ // 4, SEQ // 4,
+                                    0)):
+        c = make_case(torch, BATCH, s, h, h, d, True, False, seed=13)
+        q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+        bh = q.shape[0]
+        g = torch.Generator(device="cuda").manual_seed(14)
+        m = torch.rand(bh, s, device="cuda", generator=g)
+        l = torch.rand(bh, s, device="cuda", generator=g) + 0.5
+        o = torch.randn(bh, s, d, device="cuda", generator=g)
+        cfg = (q_off, k_off, True, c["scale"])
+        m2, l2, o2 = fa.flash_block_update(q, k, v, m, l, o, *cfg)
+        lse = m2 + torch.log(l2)
+        delta = (do.float() * (o2 / l2[..., None])).sum(-1)
+        bias = torch.zeros(BATCH, s, device="cuda")
+        keep = (q_off + torch.arange(s, device="cuda"))[:, None] >= (
+            k_off + torch.arange(s, device="cuda"))[None, :]
+        pairs = float(keep.sum()) * bh
+        grads = (bias, do, lse, delta, h, c["scale"], True)
+        offsets = dict(q_off=q_off, k_off=k_off)
+        fns = {"flash_block_update": (lambda: fa.flash_block_update(q, k, v, m, l, o, *cfg),
+                                      lambda: fa.flash_block_update_plain(q, k, v, m, l, o,
+                                                                          *cfg))}
+        if q_off:
+            fns["flash_dq"] = (lambda: fa.flash_dq(q, k, v, *grads, **offsets),
+                               lambda: fa.flash_dq_plain(q, k, v, *grads, **offsets))
+            fns["flash_dkdv"] = (lambda: fa.flash_dkdv(q, k, v, *grads, **offsets),
+                                 lambda: fa.flash_dkdv_plain(q, k, v, *grads, **offsets))
+        work = ring_work(bh, s, s, d, pairs, BATCH)
+        with torch.no_grad():
+            for name, (kern, plain) in fns.items():
+                flops, nbytes = work[name]
+                t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+                r = {"ms": time_ms(kern, torch, flush),
+                     "plain_ms": time_ms(plain, torch, flush, reps=10), "library_ms": None,
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+                print(f"timing {name} [{label}, q_off {q_off}, k_off {k_off}]: kernel "
+                      f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library none (no "
+                      f"single PyTorch call), bound {r['bound_ms']:.5f} ms ({r['bound_by']}: "
+                      f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+                if name == "flash_block_update":
+                    results.setdefault(name, r)
+        del c, q, k, v, do, m, l, o, m2, l2, o2, fns
+        torch.cuda.empty_cache()
     return results
 
 
@@ -622,14 +895,12 @@ def train_gpt2_small(torch, ad, kernel_modules):
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     check(rel <= LOSS_REL_TOL, f"step 1 loss differs from the plain path by {rel}")
     per_step = config.num_layers * STEPS
-    want = {"flash_fwd": per_step, "flash_dq": per_step, "flash_dkdv": per_step,
-            "bn_fwd": 0, "gn_fwd": 0, "quantize_int8": 0, "dequant_sum": 0,
-            "equarx_hop": 0}
+    want = dict(NO_LAUNCHES, flash_fwd=per_step, flash_dq=per_step, flash_dkdv=per_step)
     check(launches == want, f"expected launches {want}, got {launches}")
     check(all(bool(torch.isfinite(t).all()) for t in sess.state["params"].values()),
           "non-finite parameters after training")
     profile_steps(torch, sess, batch)
-    return {n: launches[n] for n in ("flash_fwd", "flash_dq", "flash_dkdv")}
+    return {n: launches[n] for n in ("flash_fwd", "flash_dq", "flash_dkdv")}, losses[0]
 
 
 def norm_site_shapes(torch):
@@ -711,9 +982,7 @@ def train_resnet50(torch, ad, kernel_modules, norm, steps):
           f"{tag}: the last three losses do not average below the first: {losses}")
     check(rel <= LOSS_REL_TOL, f"{tag}: step 1 loss differs from the plain path by {rel}")
     kernel = "bn_fwd" if norm == "bn_fused" else "gn_fwd"
-    want = {"flash_fwd": 0, "flash_dq": 0, "flash_dkdv": 0, "bn_fwd": 0, "gn_fwd": 0,
-            "quantize_int8": 0, "dequant_sum": 0, "equarx_hop": 0,
-            kernel: NORM_SITES * steps}
+    want = dict(NO_LAUNCHES, **{kernel: NORM_SITES * steps})
     check(launches == want, f"{tag}: expected launches {want}, got {launches}")
     check(all(bool(torch.isfinite(t).all()) for t in sess.state["params"].values()),
           f"{tag}: non-finite parameters after training")
@@ -868,8 +1137,7 @@ def train_gpt2_codec(torch, ad, codec, kernel_modules):
     check(statistics.mean(losses[-3:]) < losses[0],
           f"{codec}: the last three losses do not average below the first: {losses}")
     per_layer = config.num_layers * CODEC_STEPS
-    want = {"flash_fwd": per_layer, "flash_dq": per_layer, "flash_dkdv": per_layer,
-            "bn_fwd": 0, "gn_fwd": 0}
+    want = dict(NO_LAUNCHES, flash_fwd=per_layer, flash_dq=per_layer, flash_dkdv=per_layer)
     want.update({k: v * CODEC_STEPS for k, v in CODECS[codec].items()})
     check(launches == want, f"{codec}: expected launches {want}, got {launches}")
     check(all(bool(torch.isfinite(p).all()) for p in sess.state["params"].values()),
@@ -891,23 +1159,91 @@ def run_codec_phase():
     their output and sums their launches."""
     launches = dict.fromkeys(("quantize_int8", "dequant_sum", "equarx_hop"), 0)
     for codec in CODECS:
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--codec", codec],
-                              cwd=REPO, capture_output=True, text=True, timeout=900)
-        result = None
-        for line in proc.stdout.splitlines():
-            if line.startswith("CODEC_RESULT "):
-                result = json.loads(line[len("CODEC_RESULT "):])
-            else:
-                print(line)
-        print(f"{codec}: run took {time.perf_counter() - t0:.1f} s")
-        check(proc.returncode == 0 and result is not None,
-              f"{codec} run failed (exit {proc.returncode}):\n{proc.stderr[-3000:]}")
+        result = run_child(["--codec", codec], "CODEC_RESULT")
         for k, v in result["launches"].items():
             launches[k] += v
     print(f"compressed AllReduce runs: launches {launches} "
           f"({CODEC_STEPS} steps under each of {', '.join(CODECS)})")
     return launches
+
+
+def train_gpt2_ring(torch, ad, kernel_modules, flat_loss):
+    """Sequence parallelism on a ring of one (phase 11): phase 5's GPT-2
+    small, batch and weights under ``mesh: {replica: 1, seq: 1}``, where
+    attention runs ``ring_attention``: ``flash_block_update`` forward, the
+    offset ``flash_dq`` / ``flash_dkdv`` backward.  Step 1's loss is held
+    against ``flat_loss`` (phase 5's) and against the plain ring
+    (``attention_impl="xla"``) on the same weights."""
+    import dataclasses
+
+    import numpy as np
+
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.models.gpt import GPTConfig
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+    from autodist_tpu_torch.parallel.context import SeqAxis, seq_axis_context
+
+    config = GPTConfig()
+    loss_fn, params, sparse = gpt_capture(config, SEQ, seed=0)
+    toks = np.random.default_rng(0).integers(0, config.vocab_size, (BATCH, SEQ + 1))
+    batch = {"tokens": toks[:, :-1].astype(np.int32), "targets": toks[:, 1:].astype(np.int32)}
+    plain_loss_fn, _, _ = gpt_capture(dataclasses.replace(config, attention_impl="xla"),
+                                      SEQ, seed=0)
+    with torch.no_grad(), seq_axis_context(SeqAxis(group=None, index=0, size=1)):
+        dev_batch = {n: torch.from_numpy(a).cuda() for n, a in batch.items()}
+        plain_loss = plain_loss_fn(params, dev_batch).item()
+    del plain_loss_fn, dev_batch
+    torch.cuda.empty_cache()
+
+    sess = ad.distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
+                         has_rng=True)
+    seq = sess.transformer.seq_axis
+    check(seq is not None and seq.size == 1, f"the ring-of-one run has seq axis {seq}")
+    losses, step_ms, launches, peak_gb = timed_steps(torch, sess, batch, STEPS,
+                                                     kernel_modules)
+    steady = statistics.median(step_ms[1:])
+    print("ring losses: " + ", ".join(f"{x:.5f}" for x in losses))
+    print("ring step ms: " + ", ".join(f"{x:.2f}" for x in step_ms))
+    print(f"ring (mesh replica 1 x seq 1): median step {steady:.2f} ms (steps 2-{STEPS}), "
+          f"{BATCH * SEQ / steady * 1e3:.0f} tokens/s, peak memory {peak_gb:.2f} GB, "
+          f"launches {launches}")
+    print(f"ring step 1 loss: {losses[0]:.6f}; flat path (phase 5) {flat_loss:.6f}, "
+          f"difference {abs(losses[0] - flat_loss):.3e}; plain ring {plain_loss:.6f}, "
+          f"difference {abs(losses[0] - plain_loss):.3e}")
+    check(all(math.isfinite(x) for x in losses), f"ring: non-finite loss in {losses}")
+    check(losses[-1] < losses[0], f"ring: loss did not fall: {losses}")
+    check(abs(losses[0] - flat_loss) <= RING_LOSS_TOL,
+          f"ring: step 1 loss {losses[0]} differs from the flat path's {flat_loss}")
+    check(abs(losses[0] - plain_loss) <= RING_LOSS_TOL,
+          f"ring: step 1 loss {losses[0]} differs from the plain ring's {plain_loss}")
+    per_step = config.num_layers * STEPS
+    want = dict(NO_LAUNCHES, flash_block_update=per_step, flash_dq=per_step,
+                flash_dkdv=per_step)
+    check(launches == want, f"ring: expected launches {want}, got {launches}")
+    check(all(bool(torch.isfinite(t).all()) for t in sess.state["params"].values()),
+          "ring: non-finite parameters after training")
+    profile_steps(torch, sess, batch)
+    return {"launches": {"flash_block_update": launches["flash_block_update"]},
+            "step_ms": steady, "losses": losses, "peak_gb": peak_gb}
+
+
+def run_child(args, marker):
+    """``chip_smoke.py ARGS`` in a process of its own (``AutoDist`` is one
+    instance per process); forwards its output and returns its ``MARKER``
+    JSON result."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=900)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith(marker + " "):
+            result = json.loads(line[len(marker) + 1:])
+        else:
+            print(line)
+    print(f"{' '.join(args)}: run took {time.perf_counter() - t0:.1f} s")
+    check(proc.returncode == 0 and result is not None,
+          f"{' '.join(args)} run failed (exit {proc.returncode}):\n{proc.stderr[-3000:]}")
+    return result
 
 
 def setup(torch):
@@ -933,8 +1269,10 @@ def setup(torch):
     torch.backends.cudnn.allow_tf32 = False
     spec = ResourceSpec(resource_info={"nodes": [
         {"address": "localhost", "gpus": [0], "chief": True}]})
+    ring_spec = ResourceSpec(resource_info={"nodes": [
+        {"address": "localhost", "gpus": [0], "chief": True}], "mesh": {"replica": 1, "seq": 1}})
     return dict(AutoDist=autodist.AutoDist, build=build, fa=fa, fn=fn, tq=tq, spec=spec,
-                AllReduce=AllReduce)
+                ring_spec=ring_spec, AllReduce=AllReduce)
 
 
 def codec_main(codec):
@@ -953,6 +1291,23 @@ def codec_main(codec):
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     print("CODEC_RESULT " + json.dumps(result))
+    return 0
+
+
+def ring_main(flat_loss):
+    """``chip_smoke.py --ring LOSS``: the ring-of-one training run (phase 11)."""
+    import torch
+
+    m = setup(torch)
+    if m is None:
+        return 1
+    try:
+        ad = m["AutoDist"](resource_spec=m["ring_spec"], strategy_builder=m["AllReduce"]())
+        result = train_gpt2_ring(torch, ad, (m["fa"], m["fn"], m["tq"]), float(flat_loss))
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    print("RING_RESULT " + json.dumps(result))
     return 0
 
 
@@ -978,14 +1333,17 @@ def main():
         m["build"].build(list(SOURCES))
         print(f"kernel build: {time.perf_counter() - t0:.1f} s")
         errors = check_kernels(torch, fa)
+        check_ring_kernels(torch, fa)
+        errors.update(check_ring_of_one_block(torch, fa))
         errors.update(check_norm_kernels(torch, fn))
         errors.update(check_quantize_kernels(torch, tq))
         timing = measure_kernels(torch, fa)
+        timing.update(measure_ring_kernels(torch, fa))
         timing.update(measure_norm_kernels(torch, fn))
         timing.update(measure_quantize_kernels(torch, tq))
         torch.cuda.empty_cache()
         ad = m["AutoDist"](resource_spec=m["spec"], strategy_builder=m["AllReduce"]())
-        launches = train_gpt2_small(torch, ad, kernel_modules)
+        launches, flat_loss = train_gpt2_small(torch, ad, kernel_modules)
         torch.cuda.empty_cache()
         report_norm_sites(torch)
         launches.update(train_resnet50(torch, ad, kernel_modules, "bn_fused", RESNET_STEPS))
@@ -994,6 +1352,7 @@ def main():
         del ad
         torch.cuda.empty_cache()
         launches.update(run_codec_phase())
+        launches.update(run_child(["--ring", repr(flat_loss)], "RING_RESULT")["launches"])
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1014,4 +1373,6 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--codec":
         sys.exit(codec_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ring":
+        sys.exit(ring_main(sys.argv[2]))
     sys.exit(main())

@@ -1,55 +1,136 @@
 #!/usr/bin/env python3
-"""``chip_smoke.py``'s compressed AllReduce phase over R GPUs of one host,
-one process per GPU (NCCL)::
+"""``chip_smoke.py``'s multi-rank phases over R GPUs of one host, one
+process per GPU (NCCL)::
 
     python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
         multi_gpu_check.py Int8Compressor
+    python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        multi_gpu_check.py ring
 
-Each rank runs ``chip_smoke.train_gpt2_codec`` on its own GPU: GPT-2 small
-at full width under ``AllReduce(compressor=CODEC)``, 8 sequences of 1024
-tokens per rank, with that function's checks (step 1's synced gradients
-through the kernels bitwise equal to the codec's plain versions over the
-same NCCL collectives, finite and falling losses, the launches per step of
-the one-GPU run) and one more: every rank ends with the same parameters.
+``CODEC`` (one of ``chip_smoke.CODECS``): each rank runs
+``chip_smoke.train_gpt2_codec`` on its own GPU: GPT-2 small at full width
+under ``AllReduce(compressor=CODEC)``, 8 sequences of 1024 tokens per rank,
+with that function's checks (step 1's synced gradients through the kernels
+bitwise equal to the codec's plain versions over the same NCCL
+collectives, finite and falling losses, the launches per step of the
+one-GPU run) and one more: every rank ends with the same parameters.
+
+``ring``: sequence parallelism.  One global batch of 8 sequences of 1024
+tokens trains GPT-2 small (adamw 3e-4, 5 steps) on ``mesh: {replica: 1,
+seq: R}`` (every rank 8 sequences of 1024 / R tokens) and on ``{replica:
+R / 2, seq: 2}``, attention through ``ring_attention`` over each seq row
+(``flash_block_update`` forward, offset ``flash_dq`` / ``flash_dkdv``
+backward, K/V blocks between the GPUs by NCCL point-to-point).  Checks:
+step 1's loss within 1e-3 of the same batch's loss in one process on the
+flat path (no sequence parallelism); 12 * R_s launches per step of each
+ring kernel and none of ``flash_fwd``; finite losses that fall; every rank
+ends with the same parameters.
+
 Rank 0 builds the kernels and prints; the run ends with a ``RESULT {...}``
 JSON line.  A failed check exits non-zero.
 """
 import json
+import math
 import os
+import statistics
 import sys
 
 import chip_smoke as smoke
+
+RING_STEPS = 5
+RING_SEQUENCES = 8
+
+
+def train_gpt2_mesh(torch, ad, kernel_modules):
+    """GPT-2 small on ``ad``'s ``{replica, seq}`` mesh, RING_SEQUENCES
+    sequences of SEQ tokens in all, RING_STEPS adamw steps; returns the
+    run's numbers."""
+    import numpy as np
+
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.models.gpt import GPTConfig
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+
+    config = GPTConfig()
+    loss_fn, params, sparse = gpt_capture(config, smoke.SEQ, seed=0)
+    toks = np.random.default_rng(0).integers(0, config.vocab_size,
+                                             (RING_SEQUENCES, smoke.SEQ + 1))
+    batch = {"tokens": toks[:, :-1].astype(np.int32), "targets": toks[:, 1:].astype(np.int32)}
+    with torch.no_grad():   # the same batch and weights in one process, flat path
+        flat_loss = loss_fn(params, {n: torch.from_numpy(a).cuda()
+                                     for n, a in batch.items()}).item()
+    torch.cuda.empty_cache()
+    sess = ad.distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
+                         has_rng=True)
+    seq, rows = sess.transformer.seq_axis, sess.transformer.world.data_slice[1]
+    tag = f"mesh replica {rows} x seq {seq.size}"
+    losses, step_ms, launches, peak_gb = smoke.timed_steps(torch, sess, batch, RING_STEPS,
+                                                           kernel_modules)
+    steady = statistics.median(step_ms[1:])
+    print(f"{tag} losses: " + ", ".join(f"{x:.5f}" for x in losses))
+    print(f"{tag} step ms: " + ", ".join(f"{x:.2f}" for x in step_ms))
+    print(f"{tag}: median step {steady:.2f} ms (steps 2-{RING_STEPS}), "
+          f"{RING_SEQUENCES * smoke.SEQ / steady * 1e3:.0f} tokens/s over all ranks, "
+          f"peak memory {peak_gb:.2f} GB, launches {launches}")
+    print(f"{tag} step 1 loss {losses[0]:.6f}, one process on the flat path "
+          f"{flat_loss:.6f}, difference {abs(losses[0] - flat_loss):.3e}")
+    smoke.check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss {losses}")
+    smoke.check(losses[-1] < losses[0], f"{tag}: loss did not fall: {losses}")
+    smoke.check(abs(losses[0] - flat_loss) <= smoke.RING_LOSS_TOL,
+                f"{tag}: step 1 loss {losses[0]} differs from the flat path's {flat_loss}")
+    per_step = config.num_layers * seq.size * RING_STEPS
+    want = dict(smoke.NO_LAUNCHES, flash_block_update=per_step, flash_dq=per_step,
+                flash_dkdv=per_step)
+    smoke.check(launches == want, f"{tag}: expected launches {want}, got {launches}")
+    smoke.check(smoke.same_on_every_rank(torch, list(sess.state["params"].values()),
+                                         sess.transformer.group),
+                f"{tag}: the ranks hold different parameters")
+    print(f"{tag}: all {sess.transformer.world.size} ranks hold the same parameters")
+    return {"mesh": {"replica": rows, "seq": seq.size}, "losses": losses,
+            "flat_loss": flat_loss, "step_ms": steady, "peak_gb": peak_gb,
+            "launches_per_step": {k: v // RING_STEPS for k, v in launches.items() if v}}
 
 
 def main(argv):
     import torch
 
-    if len(argv) != 1 or argv[0] not in smoke.CODECS:
+    if len(argv) != 1 or argv[0] not in (*smoke.CODECS, "ring"):
         print(__doc__ + f"\nCODEC is one of {list(smoke.CODECS)}", file=sys.stderr)
         return 2
-    codec = argv[0]
+    mode = argv[0]
     world_size = int(os.environ.get("WORLD_SIZE", "1"))
-    if world_size < 2:
-        print("FAIL: run under torchrun with --nproc-per-node >= 2", file=sys.stderr)
+    if world_size < 2 or (mode == "ring" and world_size % 2):
+        print("FAIL: run under torchrun with --nproc-per-node >= 2 (even for ring)",
+              file=sys.stderr)
         return 1
+    if mode == "ring":   # one AutoDist per mesh, both in this process
+        os.environ["AUTODIST_IS_TESTING"] = "1"
     m = smoke.setup(torch)
     if m is None:
         return 1
     from autodist_tpu_torch.resource_spec import ResourceSpec
 
     torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
-    spec = ResourceSpec(resource_info={"nodes": [
-        {"address": "localhost", "gpus": list(range(world_size)), "chief": True}]})
-    ad = m["AutoDist"](resource_spec=spec, strategy_builder=m["AllReduce"](compressor=codec))
-    rank = ad.world.rank   # joins the process group
+    nodes = [{"address": "localhost", "gpus": list(range(world_size)), "chief": True}]
+    meshes = ([{"replica": 1, "seq": world_size}, {"replica": world_size // 2, "seq": 2}]
+              if mode == "ring" else [None])
+    builder = m["AllReduce"]() if mode == "ring" else m["AllReduce"](compressor=mode)
+    ads = [m["AutoDist"](resource_spec=ResourceSpec(resource_info=dict(
+        {"nodes": nodes}, **({"mesh": mesh} if mesh else {}))), strategy_builder=builder)
+        for mesh in meshes]
+    rank = ads[0].world.rank   # joins the process group
     if rank == 0:
         m["build"].build(list(smoke.SOURCES))
     else:
         sys.stdout = open(os.devnull, "w")
     torch.distributed.barrier()
     print(f"{world_size} ranks, torch {torch.__version__}, {torch.cuda.get_device_name()}")
+    modules = (m["fa"], m["fn"], m["tq"])
     try:
-        result = smoke.train_gpt2_codec(torch, ad, codec, (m["fa"], m["fn"], m["tq"]))
+        if mode == "ring":
+            result = {"ring": [train_gpt2_mesh(torch, ad, modules) for ad in ads]}
+        else:
+            result = smoke.train_gpt2_codec(torch, ads[0], mode, modules)
     except smoke.SmokeFailure as e:
         print(f"FAIL (rank {rank}): {e}", file=sys.stderr, flush=True)
         return 1

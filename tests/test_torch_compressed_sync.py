@@ -2,7 +2,8 @@
 
 - (b) Each codec's ``all_reduce`` at R = 1 against the JAX codec inside a
   1-device ``shard_map``.
-- (c) One gloo world of 4 ranks, started once for the module (rank code in
+- (c) One gloo world of 4 ranks, started once per test process and shared
+  with ``tests/test_torch_ring_attention.py`` (rank code and launcher in
   ``tests/torch_gloo_ranks.py``, which imports no JAX), against the JAX
   package on 4 of the 8 virtual CPU devices:
   - each codec's ``all_reduce`` against the JAX codec in ``shard_map``;
@@ -27,11 +28,6 @@ quantization step; the bf16 family within 1e-2 relative to the largest
 magnitude (a bf16 sum in the backend's own order), its residual exactly at
 R = 1; the NoneCompressor to 1e-6.
 """
-import os
-import pickle
-import subprocess
-import sys
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,13 +49,11 @@ from autodist_tpu_torch import optim
 from autodist_tpu_torch.autodist import AutoDist
 from autodist_tpu_torch.kernel.synchronization.compressor import (get_compressor,
                                                                    wire_byte_factor)
-from autodist_tpu_torch.models import convert
 from autodist_tpu_torch.proto import schema
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.strategy import AllReduce
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCK = 256
+BLOCK = ranks.BLOCK
 INT8 = ("Int8Compressor", "Int8CompressorEF", "EquarxInt8Compressor")
 BF16 = ("BF16Compressor", "BF16CompressorEF")
 CPU_SPEC = {"nodes": [{"address": "localhost", "cpus": [0], "chief": True}]}
@@ -67,16 +61,6 @@ CPU_SPEC = {"nodes": [{"address": "localhost", "cpus": [0], "chief": True}]}
 
 def _enum(name):
     return getattr(synchronizers_pb2.AllReduceSynchronizer, name)
-
-
-def _codec_inputs(r, n, seed):
-    """(r, n) buffers with magnitudes spread over blocks, an all-zero block,
-    and (r, n) residual states."""
-    rng = np.random.RandomState(seed)
-    bufs = (rng.randn(r, n) * np.exp(rng.uniform(-3, 3, (r, 1)))).astype(np.float32)
-    bufs[:, BLOCK:2 * BLOCK] = 0.0
-    states = (1e-3 * rng.randn(r, n)).astype(np.float32)
-    return bufs, states
 
 
 def _jax_all_reduce(name, bufs, states):
@@ -123,7 +107,7 @@ def _assert_codec_close(name, got, want, got_state, want_state, corrected):
 
 @pytest.mark.parametrize("name", ranks.CODECS)
 def test_codec_matches_jax_at_one_replica(name):
-    bufs, states = _codec_inputs(1, 1000, seed=5)
+    bufs, states = ranks.codec_inputs(1, 1000, seed=5)
     want, want_state = _jax_all_reduce(name, bufs, states)
     comp = get_compressor(getattr(schema.AllReduceSynchronizer, name))
     state = torch.from_numpy(states[0]) if comp.stateful else ()
@@ -156,63 +140,12 @@ def _jax_gpt_params():
     return params
 
 
-def _gpt_batch():
-    rng = np.random.default_rng(0)
-    toks = rng.integers(0, jgpt.GPT_TINY.vocab_size,
-                        (ranks.GPT_BATCH, ranks.GPT_SEQ + 1)).astype(np.int32)
-    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
-
-
-def _linear_inputs():
-    rs = np.random.RandomState(0)
-    batch = rs.randn(16, 12).astype(np.float32)
-    r = np.random.RandomState(7)
-    return batch, {"w": r.randn(12, 3).astype(np.float32), "b": np.zeros(3, np.float32)}
-
-
 @pytest.fixture(scope="module")
-def gloo(tmp_path_factory):
-    """Start the 4 ranks once; returns (inputs, JAX GPT params, per-rank results)."""
-    workdir = tmp_path_factory.mktemp("gloo4")
-    linear_batch, linear_params = _linear_inputs()
+def gloo():
+    """The 4 ranks (started once per test process); returns (inputs, JAX GPT
+    params, per-rank results)."""
     j_gpt_params = _jax_gpt_params()
-    inputs = {
-        "codec_bufs": {}, "codec_states": {},
-        "linear_batch": linear_batch, "linear_params": linear_params,
-        "compressor_batch": np.random.RandomState(0).randn(16, 64).astype(np.float32),
-        "gpt_params": {convert.torch_to_jax_name(n): t.numpy() for n, t in
-                       convert.params_from_jax(j_gpt_params).items()},
-        "gpt_batch": _gpt_batch(),
-    }
-    for i, n in enumerate(ranks.CODEC_SIZES):
-        inputs["codec_bufs"][n], inputs["codec_states"][n] = _codec_inputs(
-            ranks.WORLD, n, seed=40 + i)
-    with open(workdir / "inputs.pkl", "wb") as f:
-        pickle.dump(inputs, f)
-    procs = []
-    for r in range(ranks.WORLD):
-        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(ranks.WORLD), LOCAL_RANK=str(r),
-                   AUTODIST_INIT_METHOD=f"file://{workdir / 'store'}",
-                   AUTODIST_IS_TESTING="1", PYTHONPATH=REPO, OMP_NUM_THREADS="2")
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(REPO, "tests", "torch_gloo_ranks.py"),
-             str(workdir)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    outputs = []
-    try:
-        for p in procs:
-            outputs.append(p.communicate(timeout=240)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    for r, (p, out) in enumerate(zip(procs, outputs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out[-4000:]}"
-    results = []
-    for r in range(ranks.WORLD):
-        with open(workdir / f"rank{r}.pkl", "rb") as f:
-            results.append(pickle.load(f))
-    assert [res["rank"] for res in results] == list(range(ranks.WORLD))
-    assert all(res["world"] == ranks.WORLD for res in results)
+    inputs, results = ranks.world(lambda: j_gpt_params)
     return inputs, j_gpt_params, results
 
 

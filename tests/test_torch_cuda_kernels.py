@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (flash attention, fused batch and group norm,
-int8 quantization) against their plain versions.
+"""The port's CUDA kernels (flash attention and the ring block update,
+fused batch and group norm, int8 quantization) against their plain
+versions.
 
 Needs an NVIDIA GPU and nvcc; every test is marked ``cuda`` and skips
 without a GPU.  The file imports no JAX, so it also runs on a machine
@@ -12,6 +13,14 @@ Each case runs ``flash_attention`` forward and backward (the three
 kernels) and ``attention_plain`` in f32 on the same inputs.  Tolerance:
 relative Frobenius error <= 1e-2 for bf16 inputs (bf16 output and
 operand rounding) and <= 1e-5 for f32 inputs (f32 sums in another order).
+
+The ring kernels: ``flash_block_update`` and the offset ``flash_dq`` /
+``flash_dkdv`` with the block on the diagonal, in the past and wholly in
+the future, against their plain versions on the same inputs (m max-abs
+<= 1e-3 in bf16 and 1e-5 in f32, everything else relative Frobenius as
+above; a future block leaves the carry bitwise unchanged but for m's clamp
+at the floor, and gives exact-zero gradients); and ``ring_attention`` on a
+ring of one against ``attention_plain``, forward and backward.
 
 Each norm case runs ``fused_batch_norm`` / ``fused_group_norm`` forward (the
 kernel) and backward, and the plain version in f32 on the same inputs.
@@ -32,6 +41,8 @@ import torch
 from autodist_tpu_torch.ops import flash_attention as tfa
 from autodist_tpu_torch.ops import fused_norm as tfn
 from autodist_tpu_torch.ops import quantize as tq
+from autodist_tpu_torch.parallel.context import SeqAxis, seq_axis_context
+from autodist_tpu_torch.parallel.ring_attention import ring_attention
 
 # (B, S, H, H_kv, D, causal, masked, dtype)
 CASES = {
@@ -65,7 +76,8 @@ def test_kernels_match_plain_versions(case):
     out = tfa.flash_attention(*inputs, causal=causal, kv_mask=kv_mask)
     out.backward(do)
     torch.cuda.synchronize()
-    assert tfa.LAUNCHES == {"flash_fwd": 1, "flash_dq": 1, "flash_dkdv": 1}
+    assert tfa.LAUNCHES == {"flash_fwd": 1, "flash_block_update": 0, "flash_dq": 1,
+                            "flash_dkdv": 1}
     ref = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
     ref_out = tfa.attention_plain(*ref, causal=causal, kv_mask=kv_mask)
     ref_out.backward(do.float())
@@ -77,6 +89,95 @@ def test_kernels_match_plain_versions(case):
         assert rel <= REL_TOL[dtype], (name, rel)
     if masked:
         assert not out[1].any() and not inputs[0].grad[1].any()
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+
+# (BH, Sq, Sk, D, causal, q_off, k_off, dtype): diagonal, past, future and a
+# ragged non-causal block of another length
+RING_CASES = {
+    "bf16_diagonal": (6, 200, 200, 64, True, 200, 200, "bfloat16"),
+    "bf16_past": (6, 200, 200, 64, True, 400, 0, "bfloat16"),
+    "bf16_future": (6, 200, 200, 64, True, 0, 200, "bfloat16"),
+    "bf16_full_sk77_d40": (6, 130, 77, 40, False, 0, 0, "bfloat16"),
+    "f32_diagonal_d40": (4, 150, 150, 40, True, 150, 150, "float32"),
+    "f32_future": (4, 150, 150, 32, True, 150, 300, "float32"),
+}
+M_TOL = {"bfloat16": 1e-3, "float32": 1e-5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RING_CASES))
+def test_ring_kernels_match_plain_versions(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    bh, sq, sk, d, causal, q_off, k_off, dtype = RING_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dt = getattr(torch, dtype)
+    q, do = (torch.randn(bh, sq, d, device="cuda", generator=g).to(dt) for _ in range(2))
+    k, v = (torch.randn(bh, sk, d, device="cuda", generator=g).to(dt) for _ in range(2))
+    m = torch.rand(bh, sq, device="cuda", generator=g) - 0.5   # an earlier block's carry
+    m[0] = float("-inf")                                       # and the plain ring's seed
+    l = torch.rand(bh, sq, device="cuda", generator=g) + 0.5
+    l[0] = 0.0
+    o = torch.randn(bh, sq, d, device="cuda", generator=g)
+    o[0] = 0.0
+    scale = d ** -0.5
+    tfa.reset_launches()
+    got = tfa.flash_block_update(q, k, v, m, l, o, q_off, k_off, causal, scale)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_block_update"] == 1
+    want = tfa.flash_block_update_plain(q, k, v, m, l, o, q_off, k_off, causal, scale)
+    assert float((got[0] - want[0]).abs().max()) <= M_TOL[dtype]
+    for a, b in zip(got[1:], want[1:]):
+        assert _rel(a, b) <= REL_TOL[dtype]
+    future = causal and k_off > q_off + sq - 1
+    if future:   # the carry passes through, m clamped at the floor
+        assert torch.equal(got[0], m.clamp(min=tfa._M_FLOOR))
+        assert torch.equal(got[1], l) and torch.equal(got[2], o)
+
+    lse = torch.randn(bh, sq, device="cuda", generator=g) + 5.0
+    delta = torch.randn(bh, sq, device="cuda", generator=g)
+    bias = torch.zeros(bh // 2, sk, device="cuda")
+    args = (q, k, v, bias, do, lse, delta, 2, scale, causal)
+    offsets = dict(q_off=q_off, k_off=k_off)
+    dq = tfa.flash_dq(*args, **offsets)
+    dk, dv = tfa.flash_dkdv(*args, **offsets)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_dq"] == tfa.LAUNCHES["flash_dkdv"] == 1
+    if future:   # outputs come from torch.empty: every row must be written
+        assert not dq.any() and not dk.any() and not dv.any()
+        return
+    ref = (tfa.flash_dq_plain(*args, **offsets), *tfa.flash_dkdv_plain(*args, **offsets))
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert bool(torch.isfinite(a.float()).all()) and _rel(a, b) <= REL_TOL[dtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ring_of_one_matches_plain_attention(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, do = (torch.randn(2, 300, 4, 64, device="cuda", generator=g).to(
+        getattr(torch, dtype)) for _ in range(4))
+    inputs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    tfa.reset_launches()
+    with seq_axis_context(SeqAxis(group=None, index=0, size=1)):
+        out = ring_attention(*inputs, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_block_update": 1, "flash_dq": 1,
+                            "flash_dkdv": 1}
+    ref = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    ref_out = tfa.attention_plain(*ref, causal=True)
+    ref_out.backward(do.float())
+    for name, got, want in zip(("out", "dq", "dk", "dv"),
+                               (out.detach(), *(t.grad for t in inputs)),
+                               (ref_out.detach(), *(t.grad for t in ref))):
+        assert _rel(got, want) <= REL_TOL[dtype], name
 
 
 # (shape, num_groups (None: batch norm), act, residual, dtype)

@@ -1,16 +1,18 @@
-"""Rank code of the 4-rank gloo world that ``tests/test_torch_compressed_sync.py``
-holds against the JAX package.  It imports no JAX: the port has to run
-where JAX is absent.
+"""The 4-rank gloo world that ``tests/test_torch_compressed_sync.py`` and
+``tests/test_torch_ring_attention.py`` hold against the JAX package: its
+rank code and its launcher.  It imports no JAX: the port has to run where
+JAX is absent.
 
-The test starts one process per rank::
+:func:`world` starts one process per rank, once per test process (both
+test modules share the world and its results)::
 
     RANK=r WORLD_SIZE=4 LOCAL_RANK=r AUTODIST_INIT_METHOD=file://DIR/store \\
         AUTODIST_IS_TESTING=1 python tests/torch_gloo_ranks.py DIR
 
-Each rank reads ``DIR/inputs.pkl`` (numpy arrays the test made from seeds),
-joins the process group through the port's own bootstrap
-(:func:`autodist_tpu_torch.parallel.mesh.replica_world`, gloo for the CPU),
-runs the cases below and writes ``DIR/rank<r>.pkl``:
+Each rank reads ``DIR/inputs.pkl`` (numpy arrays made from seeds by
+:func:`make_inputs`), joins the process group through the port's own
+bootstrap (:func:`autodist_tpu_torch.parallel.mesh.replica_world`, gloo for
+the CPU), runs the cases below and writes ``DIR/rank<r>.pkl``:
 
 - ``codec``: every codec's ``all_reduce`` on this rank's buffer (and, for
   the error-feedback codecs, its residual state);
@@ -18,14 +20,27 @@ runs the cases below and writes ``DIR/rank<r>.pkl``:
   model, 3 steps under ``AllReduce(chunk_size=1 | 128)`` x sgd/adam;
 - ``compressors``: ``test_compressors``' one sgd step under each codec;
 - ``gpt``: 3 GPT-tiny adamw steps under ``Int8Compressor`` and
-  ``EquarxInt8Compressor``.
+  ``EquarxInt8Compressor``;
+- ``seq_parallel`` (one dict): ring attention on the seq rows of the
+  meshes ``{replica: 2, seq: 2}`` and ``{replica: 1, seq: 4}`` under both
+  impls, with the gradients of ``sum(sin(out))``; Ulysses attention on the
+  first, causal and not, and its indivisible-heads error; 3 GPT-tiny sgd
+  steps on ``{replica: 2, seq: 2}``, on the flat 4 replicas and on the
+  one-axis ``{seq: 4}`` (data parallel, as in JAX), and the error of a
+  batch whose dim 1 does not divide.
 
 Every ``AutoDist`` case records its strategy id and final parameters, so
 the test can check that the ranks agree.
 """
+import atexit
 import os
 import pickle
+import shutil
+import subprocess
 import sys
+import tempfile
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -39,7 +54,111 @@ COMPRESSOR_CASES = {"NoneCompressor": 1e-6, "HorovodCompressor": 5e-3,
                     "Int8CompressorEF": 5e-2}
 GPT_CODECS = ("Int8Compressor", "EquarxInt8Compressor")
 GPT_SEQ, GPT_BATCH, GPT_STEPS = 16, 8, 3
+GPT_VOCAB = 512   # GPT_TINY's vocabulary
 SPEC = {"nodes": [{"address": "localhost", "cpus": list(range(WORLD)), "chief": True}]}
+BLOCK = 256
+# sequence parallelism: (replica, seq) layouts of the ring cases, the ring
+# inputs' (B, S, H, D), Ulysses' heads, the GPT mesh and its sgd rate
+RING_LAYOUTS = ((2, 2), (1, 4))
+RING_SHAPE = (2, 32, 2, 8)
+ULYSSES_HEADS, ULYSSES_BAD_HEADS = 4, 3
+SP_MESH = {"replica": 2, "seq": 2}
+SEQ_ONLY_MESH = {"seq": WORLD}   # one axis: dim 0 sharded over it, no ring
+SP_LR = 0.05
+
+
+def codec_inputs(r, n, seed):
+    """(r, n) buffers with magnitudes spread over blocks, an all-zero block,
+    and (r, n) residual states."""
+    rng = np.random.RandomState(seed)
+    bufs = (rng.randn(r, n) * np.exp(rng.uniform(-3, 3, (r, 1)))).astype(np.float32)
+    bufs[:, BLOCK:2 * BLOCK] = 0.0
+    states = (1e-3 * rng.randn(r, n)).astype(np.float32)
+    return bufs, states
+
+
+def gpt_batch():
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, GPT_VOCAB, (GPT_BATCH, GPT_SEQ + 1)).astype(np.int32)
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def linear_inputs():
+    rs = np.random.RandomState(0)
+    batch = rs.randn(16, 12).astype(np.float32)
+    r = np.random.RandomState(7)
+    return batch, {"w": r.randn(12, 3).astype(np.float32), "b": np.zeros(3, np.float32)}
+
+
+def qkv(shape, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+
+
+def make_inputs(jax_gpt_params):
+    """Every rank's inputs, from seeds; ``jax_gpt_params`` is the flax
+    GPT-tiny parameter tree both packages train."""
+    from autodist_tpu_torch.models import convert
+
+    linear_batch, linear_params = linear_inputs()
+    b, s, _, d = RING_SHAPE
+    inputs = {
+        "codec_bufs": {}, "codec_states": {},
+        "linear_batch": linear_batch, "linear_params": linear_params,
+        "compressor_batch": np.random.RandomState(0).randn(16, 64).astype(np.float32),
+        "gpt_params": {convert.torch_to_jax_name(n): t.numpy() for n, t in
+                       convert.params_from_jax(jax_gpt_params).items()},
+        "gpt_batch": gpt_batch(),
+        "ring_qkv": qkv(RING_SHAPE, seed=11),
+        "ulysses_qkv": qkv((b, s, ULYSSES_HEADS, d), seed=12),
+        "ulysses_bad_qkv": qkv((b, s // 2, ULYSSES_BAD_HEADS, d), seed=13),
+    }
+    for i, n in enumerate(CODEC_SIZES):
+        inputs["codec_bufs"][n], inputs["codec_states"][n] = codec_inputs(WORLD, n,
+                                                                          seed=40 + i)
+    return inputs
+
+
+_WORLD = {}
+
+
+def world(jax_gpt_params):
+    """Start the 4 ranks once per process and return ``(inputs, results)``,
+    the per-rank results in rank order; later calls return the same.
+    ``jax_gpt_params()`` gives the flax GPT-tiny tree; it is called only
+    when the ranks start."""
+    if "results" in _WORLD:
+        return _WORLD["inputs"], _WORLD["results"]
+    workdir = tempfile.mkdtemp(prefix="gloo4-")
+    atexit.register(shutil.rmtree, workdir, ignore_errors=True)
+    inputs = make_inputs(jax_gpt_params())
+    with open(os.path.join(workdir, "inputs.pkl"), "wb") as f:
+        pickle.dump(inputs, f)
+    procs = []
+    for r in range(WORLD):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(WORLD), LOCAL_RANK=str(r),
+                   AUTODIST_INIT_METHOD=f"file://{os.path.join(workdir, 'store')}",
+                   AUTODIST_IS_TESTING="1", PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), workdir], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outputs = []
+    try:
+        for p in procs:
+            outputs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, outputs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out[-4000:]}"
+    results = []
+    for r in range(WORLD):
+        with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    assert [res["rank"] for res in results] == list(range(WORLD))
+    assert all(res["world"] == WORLD for res in results)
+    _WORLD.update(inputs=inputs, results=results)
+    return inputs, results
 
 
 def _session_result(sess, metrics):
@@ -68,8 +187,8 @@ def main(workdir):
     rank = world.rank
     results = {"rank": rank, "world": world.size}
 
-    def autodist(builder):
-        return AutoDist(resource_spec=ResourceSpec(resource_info=SPEC),
+    def autodist(builder, spec=SPEC):
+        return AutoDist(resource_spec=ResourceSpec(resource_info=spec),
                         strategy_builder=builder, device="cpu")
 
     for name in CODECS:
@@ -108,9 +227,72 @@ def main(workdir):
         results["gpt", comp] = dict(_session_result(sess, {"loss": torch.tensor(0.0)}),
                                     losses=losses)
 
+    results["seq_parallel"] = seq_parallel_cases(inputs, world, autodist)
+
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
     torch.distributed.destroy_process_group()
+
+
+def seq_parallel_cases(inputs, world, autodist):
+    import torch
+
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.models.gpt import GPT_TINY
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+    from autodist_tpu_torch.parallel.context import seq_axis_context
+    from autodist_tpu_torch.parallel.mesh import mesh_world
+    from autodist_tpu_torch.parallel.ring_attention import all_to_all_attention, ring_attention
+    from autodist_tpu_torch.strategy import AllReduce
+
+    out = {}
+
+    def block(arrays, seq):
+        per = arrays[0].shape[1] // seq.size
+        return [torch.from_numpy(a[:, seq.index * per:(seq.index + 1) * per].copy())
+                for a in arrays]
+
+    worlds = {layout: mesh_world(world, ("replica", "seq"), layout) for layout in RING_LAYOUTS}
+    for layout, w in worlds.items():
+        for impl in ("flash", "xla"):
+            q, k, v = (t.requires_grad_(True) for t in block(inputs["ring_qkv"], w.seq))
+            with seq_axis_context(w.seq):
+                y = ring_attention(q, k, v, causal=True, impl=impl)
+                grads = torch.autograd.grad(torch.sin(y).sum(), (q, k, v))
+            out["ring", layout, impl] = dict(index=w.seq.index, size=w.seq.size,
+                                             row=w.data_index, out=y.detach().numpy(),
+                                             grads=[g.numpy() for g in grads])
+    seq = worlds[RING_LAYOUTS[0]].seq
+    with seq_axis_context(seq):
+        for causal in (False, True):
+            y = all_to_all_attention(*block(inputs["ulysses_qkv"], seq), causal=causal)
+            out["ulysses", causal] = dict(index=seq.index, out=y.numpy())
+        try:
+            all_to_all_attention(*block(inputs["ulysses_bad_qkv"], seq))
+        except ValueError as e:
+            out["ulysses_indivisible"] = str(e)
+
+    params = {n: torch.from_numpy(a) for n, a in inputs["gpt_params"].items()}
+    batch = inputs["gpt_batch"]
+    for name, mesh in (("seq", SP_MESH), ("flat", None), ("seq_only", SEQ_ONLY_MESH)):
+        spec = dict(SPEC, mesh=mesh) if mesh else SPEC
+        loss_fn, _, sparse = gpt_capture(GPT_TINY, GPT_SEQ, device="cpu")
+        sess = autodist(AllReduce(), spec).distribute(
+            loss_fn, params, optim.sgd(SP_LR), sparse_vars=sparse, has_rng=True)
+        losses = [sess.run(batch)["loss"].item() for _ in range(GPT_STEPS)]
+        seq_axis = sess.transformer.seq_axis
+        out["gpt", name] = dict(
+            losses=losses, strategy_id=sess.strategy_id,
+            seq=None if seq_axis is None else (seq_axis.index, seq_axis.size),
+            data_slice=sess.transformer.world.data_slice,
+            params={n: t.numpy() for n, t in sess.params().items()})
+        if name == "seq":
+            bad = dict(batch, tokens=batch["tokens"][:, :GPT_SEQ - 1])
+            try:
+                sess.run(bad)
+            except ValueError as e:
+                out["dim1_error"] = str(e)
+    return out
 
 
 if __name__ == "__main__":
