@@ -8,6 +8,9 @@ source is rebuilt at its next use and an unchanged one is loaded as it is.
 The compiler's output, with ``-Xptxas -v``'s register and spill report, is
 kept beside each library as ``<name>.log``.
 
+``defines`` (``-D`` flags) build a variant of a source beside the default
+one, under its own name; the kernels' wrappers load the default.
+
 Nothing here runs at import time: the first kernel call builds.
 """
 import ctypes
@@ -40,23 +43,25 @@ def find_nvcc():
                        "the CUDA kernels build on a machine with the CUDA toolkit")
 
 
-def library_path(name):
-    """Where the library of ``csrc/<name>.cu`` lives for the current source."""
+def library_path(name, defines=()):
+    """Where the library of ``csrc/<name>.cu`` (built with ``defines``)
+    lives for the current source."""
+    flags = " ".join((*NVCC_FLAGS, *defines))
     with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + flags.encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
-def _start(name, nvcc):
+def _start(name, nvcc, defines=()):
     """Start ``nvcc`` for ``csrc/<name>.cu``; None when already built."""
-    out = library_path(name)
+    out = library_path(name, defines)
     if os.path.exists(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    log = open(os.path.join(BUILD_DIR, name + ".log"), "w")
+    log = open(os.path.join(BUILD_DIR, name + "".join(defines) + ".log"), "w")
     proc = subprocess.Popen(
-        [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")],
+        [nvcc, *NVCC_FLAGS, *defines, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")],
         stdout=log, stderr=subprocess.STDOUT)
     return proc, log, tmp, out
 
@@ -72,13 +77,14 @@ def _finish(name, job):
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 
-def build(names):
-    """Compile every named source that is not built yet, all ``nvcc``
-    processes started together; returns the library paths."""
-    pending = [n for n in names if not os.path.exists(library_path(n))]
+def build(names, defines=()):
+    """Compile every named source that is not built yet (each with
+    ``defines``), all ``nvcc`` processes started together; returns the
+    library paths."""
+    pending = [n for n in names if not os.path.exists(library_path(n, defines))]
     if pending:
         nvcc = find_nvcc()
-        jobs = {n: _start(n, nvcc) for n in pending}
+        jobs = {n: _start(n, nvcc, defines) for n in pending}
         errors = []
         for n, job in jobs.items():
             if job is None:
@@ -89,14 +95,16 @@ def build(names):
                 errors.append(str(e))
         if errors:
             raise RuntimeError("\n".join(errors))
-    return [library_path(n) for n in names]
+    return [library_path(n, defines) for n in names]
 
 
-def load(name):
-    """The ``ctypes`` library of ``csrc/<name>.cu``, built on first use."""
+def load(name, defines=()):
+    """The ``ctypes`` library of ``csrc/<name>.cu`` (built with
+    ``defines``), built on first use."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(key)
         if lib is None:
-            (path,) = build([name])
-            lib = _loaded[name] = ctypes.CDLL(path)
+            (path,) = build([name], defines)
+            lib = _loaded[key] = ctypes.CDLL(path)
         return lib

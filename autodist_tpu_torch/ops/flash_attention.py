@@ -17,14 +17,24 @@ It and the backward kernels take the blocks' global positions ``q_off``
 and ``k_off``; causal keeps ``q_off + row >= k_off + col``.
 
 Each kernel takes bf16 (tensor-core products) or f32 (f32 FMAs) inputs.
+In bf16 the forward and the block update are one Hopper kernel, ``wgmma``
+fed by TMA tile loads; TMA reads rows whose stride is a multiple of 16
+bytes, so for a D that is not a multiple of 8 the wrappers append zero
+columns to q, k, v (and the carry's o), which change no q.k, keep the
+scale 1/sqrt(D) of the true D, and cut the extra output columns off; and
+the kernel takes a positive scale, so a scale <= 0 is turned into one
+with the same scores (:func:`positive_scale`).
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 ``LAUNCHES``; for CPU tensors it runs the plain version beside it
 (:func:`flash_fwd_plain`, :func:`flash_block_update_plain`,
 :func:`flash_dq_plain`, :func:`flash_dkdv_plain`), which does the same
 math in f32 with whole-matrix ops.  Any other device raises.  The kernels
 take any S and D <= 128 (the ragged tile is masked in the kernel), so
-there is no counterpart of the JAX ``_xla_attention`` fallback.  As in JAX, delta = rowsum(dO * O), the fold, the GQA group-sum of
-the per-q-head dk/dv partials and the zero bias gradient are plain ops.
+there is no counterpart of the JAX ``_xla_attention`` fallback.  Without
+a key mask there is no bias row: ``bias=None`` reaches the kernels as a
+null pointer, and they read none.  As in JAX, delta = rowsum(dO * O),
+the fold, the GQA group-sum of the per-q-head dk/dv partials and the zero
+bias gradient are plain ops.
 """
 import ctypes
 
@@ -157,8 +167,10 @@ _ARGTYPES = {
 }
 
 
-def _library():
-    lib = build.load("flash_attention")
+def _library(defines=()):
+    """The kernels' library; ``defines`` (``-D`` flags) load a variant
+    build, as ``chip_smoke.py --fwd-tiles`` does for the forward's tile."""
+    lib = build.load("flash_attention", defines)
     for name, args in _ARGTYPES.items():
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -203,17 +215,47 @@ def _check(q, k, v, bias, h, group, rows=(), grads=()):
     return bh, sq, sk, d
 
 
-def _launch(name, ptrs, dims, sm_scale, causal, q, offsets=()):
-    lib = _library()
+def _launch(name, ptrs, dims, sm_scale, causal, q, offsets=(), lib=None):
+    """Launch kernel ``name`` on the current stream; a None among ``ptrs``
+    (no bias row) goes as a null pointer."""
+    lib = lib or _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, name)(*[t.data_ptr() for t in ptrs], *dims,
+        err = getattr(lib, name)(*[None if t is None else t.data_ptr() for t in ptrs], *dims,
                                  float(sm_scale), int(bool(causal)),
                                  *[int(x) for x in offsets],
                                  int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1
+
+
+def pad_head_dim(tensors, d):
+    """The bf16 forward's operands (and the carry's o) as TMA reads them:
+    the head dim padded with zero columns to a multiple of 8 and every base
+    16-byte aligned (a misaligned one is copied).  Returns (tensors, padded
+    D)."""
+    d8 = -(-d // 8) * 8
+    out = []
+    for t in tensors:
+        if d8 != d:
+            t = torch.nn.functional.pad(t, (0, d8 - d))
+        elif t.data_ptr() % 16:
+            t = t.clone()
+        out.append(t)
+    return out, d8
+
+
+def positive_scale(q, k, sm_scale):
+    """(q, k, scale) with the same scores and scale > 0, which the bf16
+    forward's exponent (one FFMA on the raw dots) needs: a negative scale
+    flips k's sign, s * c = (-s) * (-c) bit for bit; a zero scale zeroes q,
+    every score 0 as s * 0 is."""
+    if sm_scale < 0:
+        return q, -k, -sm_scale
+    if sm_scale == 0:
+        return torch.zeros_like(q), k, 1.0
+    return q, k, sm_scale
 
 
 def _device_kind(q):
@@ -225,15 +267,19 @@ def _device_kind(q):
 
 def flash_fwd(q, k, v, bias, h, sm_scale, causal, group=1):
     """Forward on folded tensors: q (B*H, Sq, D), k/v (B*H/g, Sk, D),
-    bias (B, Sk) f32 -> (out like q, lse (B*H, Sq) f32)."""
+    bias (B, Sk) f32 or None -> (out like q, lse (B*H, Sq) f32)."""
     if _device_kind(q) == "cpu":
         return flash_fwd_plain(q, k, v, bias, h, sm_scale, causal, group)
     bh, sq, sk, d = _check(q, k, v, bias, h, group)
+    dk = d
+    if q.dtype == torch.bfloat16:
+        q, k, sm_scale = positive_scale(q, k, sm_scale)
+        (q, k, v), dk = pad_head_dim((q, k, v), d)
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", (q, k, v, bias, out, lse), (bh, h, group, sq, sk, d),
+    _launch("flash_fwd", (q, k, v, bias, out, lse), (bh, h, group, sq, sk, dk),
             sm_scale, causal, q)
-    return out, lse
+    return (out if dk == d else out[..., :d].contiguous()), lse
 
 
 def flash_block_update(q, k, v, m, l, o, q_off, k_off, causal=False,
@@ -252,10 +298,14 @@ def flash_block_update(q, k, v, m, l, o, q_off, k_off, causal=False,
             or not o.is_contiguous()):
         raise ValueError(f"flash_block_update: o must be contiguous f32 shaped like q "
                          f"{tuple(q.shape)}, got {o.dtype} {tuple(o.shape)}")
+    dk = d
+    if q.dtype == torch.bfloat16:
+        q, k, sm_scale = positive_scale(q, k, sm_scale)
+        (q, k, v, o), dk = pad_head_dim((q, k, v, o), d)
     m2, l2, o2 = torch.empty_like(m), torch.empty_like(l), torch.empty_like(o)
-    _launch("flash_block_update", (q, k, v, m, l, o, m2, l2, o2), (bh, sq, sk, d),
+    _launch("flash_block_update", (q, k, v, m, l, o, m2, l2, o2), (bh, sq, sk, dk),
             sm_scale, causal, q, offsets=(q_off, k_off))
-    return m2, l2, o2
+    return m2, l2, (o2 if dk == d else o2[..., :d].contiguous())
 
 
 def flash_dq(q, k, v, bias, do, lse, delta, h, sm_scale, causal, group=1,
@@ -316,14 +366,16 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, bias, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_bwd(q, k, v, bias, out, lse, do, *ctx.config)
+        # no gradient for a missing bias row (needs_input_grad is False)
         dbias = torch.zeros_like(bias) if ctx.needs_input_grad[3] else None
         return dq, dk, dv, dbias, None, None, None, None
 
 
 def fold_heads(t):
-    """(B, S, H', D) -> contiguous (B*H', S, D)."""
+    """(B, S, H', D) -> contiguous (B*H', S, D) (at B = 1 ``reshape`` alone
+    can return a strided view)."""
     b, s, hh, d = t.shape
-    return t.transpose(1, 2).reshape(b * hh, s, d)
+    return t.transpose(1, 2).reshape(b * hh, s, d).contiguous()
 
 
 def _prepare(q, k, v, kv_mask, sm_scale):
@@ -333,9 +385,8 @@ def _prepare(q, k, v, kv_mask, sm_scale):
         raise ValueError(f"query heads {h} not a multiple of kv heads {h_kv}")
     if sm_scale is None:
         sm_scale = 1.0 / (d ** 0.5)
-    if kv_mask is None:
-        bias = torch.zeros((b, sk), dtype=torch.float32, device=q.device)
-    else:
+    bias = None   # no key mask: no bias row, which the kernels then do not read
+    if kv_mask is not None:
         bias = torch.where(kv_mask.to(q.device, torch.bool), 0.0, _NEG_INF).float()
     return bias, h, h // h_kv, float(sm_scale)
 

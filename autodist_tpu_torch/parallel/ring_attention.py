@@ -17,7 +17,8 @@ JAX's ``_make_ring_flash``:
 - forward: the ``(m, l, o)`` carry starts at ``(_M_FLOOR, 0, 0)`` and
   takes one :func:`~autodist_tpu_torch.ops.flash_attention.flash_block_update`
   per step, at ``q_off = i * S`` and ``k_off = blk * S`` for the visiting
-  block ``blk = (i - step) mod R``; out is ``o / l`` and lse ``m + log l``;
+  block ``blk = (i - step) mod R``; out is ``o * (1 / l)`` and lse
+  ``m + log l``;
 - backward: a second ring pass in which :func:`flash_dq` and
   :func:`flash_dkdv` take the same offsets; dq accumulates here in f32,
   while each block's dk and dv travel the ring with it and arrive home
@@ -79,7 +80,9 @@ def _ring_forward(qf, kf, vf, scale, causal, axis):
         if step < axis.size - 1:
             k_blk, v_blk = ppermute((k_blk, v_blk), axis.group, perm)
     denom = torch.where(l == 0, torch.ones_like(l), l)
-    return (o / denom[..., None]).to(qf.dtype), m + torch.log(denom)
+    # o * (1 / l), as the bf16 forward kernel normalises: a ring of one
+    # gives flash_attention's bits
+    return (o * (1.0 / denom)[..., None]).to(qf.dtype), m + torch.log(denom)
 
 
 def _ring_backward(qf, kf, vf, out, lse, do, h, scale, causal, axis):
@@ -88,15 +91,15 @@ def _ring_backward(qf, kf, vf, out, lse, do, h, scale, causal, axis):
     perm = ring_perm(axis.size)
     do = do.contiguous()
     delta = (do.float() * out.float()).sum(dim=-1)
-    bias = torch.zeros((bh // h, sq), dtype=torch.float32, device=qf.device)
     dq = torch.zeros((bh, sq, d), dtype=torch.float32, device=qf.device)
     dk, dv = torch.zeros_like(dq), torch.zeros_like(dq)
     k_blk, v_blk = kf, vf
     for step in range(axis.size):
         blk = (axis.index - step) % axis.size
         offsets = dict(q_off=axis.index * sq, k_off=blk * sq)
-        dq_p = flash_dq(qf, k_blk, v_blk, bias, do, lse, delta, h, scale, causal, **offsets)
-        dk_p, dv_p = flash_dkdv(qf, k_blk, v_blk, bias, do, lse, delta, h, scale, causal,
+        # the ring has no key mask: no bias row
+        dq_p = flash_dq(qf, k_blk, v_blk, None, do, lse, delta, h, scale, causal, **offsets)
+        dk_p, dv_p = flash_dkdv(qf, k_blk, v_blk, None, do, lse, delta, h, scale, causal,
                                 **offsets)
         dq += dq_p.float()
         dk += dk_p.float()

@@ -14,10 +14,16 @@ Phases (each failure exits non-zero before the last line):
 3. holds each flash kernel (forward, dq, dkdv) against its plain PyTorch
    version on the same bf16 inputs, the plain version computing in f32, at
    the GPT-2-small attention shape, a GQA case, a key-padding case with
-   fully masked rows and a ragged S = 1000; then times kernel, plain
-   version, ``scaled_dot_product_attention`` (the library yardstick, used
-   nowhere in the port) and computes each kernel's bound at the
-   GPT-2-small shape;
+   fully masked rows and a ragged S = 1000, and at the shapes that test
+   the forward's TMA tiles and wgmma layouts: D = 128 (two 64-column boxes
+   a tile), D = 32 and D = 40 (boxes zero-filled past D), D = 36 (the
+   wrapper's zero padding to a multiple of 8), a grid smaller than the
+   card (B=1, H=2, S=128) and S = 1000 with GQA; every case but key
+   padding has no bias row, as the model's path.  Then times kernel, plain
+   version and the library yardstick (used nowhere in the port) and
+   computes each kernel's bound at the GPT-2-small shape: for the forward
+   ``scaled_dot_product_attention``'s forward, for dq and dkdv its
+   backward alone (the forward's fwd + bwd time is printed beside it);
 4. holds the fused-norm kernels (``bn_fwd``, ``gn_fwd``) against their plain
    versions run in f32 on the same inputs: batch norm in bf16 at the
    ResNet-50 stem site (256, 112, 112, 64) (run twice: the two runs must be
@@ -86,7 +92,8 @@ Phases (each failure exits non-zero before the last line):
    ``flash_block_update`` against its plain version from the (floor, 0, 0)
    carry and from a random one, at the carry tolerances above (the kernels
    line's ``max_abs_err`` is this block's normalised output from the floor
-   carry).  Then (after phase 3's
+   carry), and a D = 128 block (B=2, H=12, 1024 x 1024) from both carries.
+   Then (after phase 3's
    timings) times ``flash_block_update``, its plain version and its bound
    at the ring-of-one block (BH=96, 1024 x 1024, causal, offsets 0; the
    kernels line) and at a ring-of-4 past block (96, 256 x 256, no masked
@@ -101,6 +108,14 @@ Phases (each failure exits non-zero before the last line):
    tokens/s, peak memory and the profile;
 12. prints the ``{"kernels": [...]}`` line (nine kernels), then the
    ``{"ok": true, ...}`` line.
+
+``python3 chip_smoke.py --fwd-tiles`` (not part of the run above) builds
+the flash source once more for each of the bf16 forward's alternatives
+(``FWD_VARIANTS``: 64-key tiles in place of 128, a block per tile in place
+of a block per SM, and, for timing only, no softmax), holds each build's
+forward against the plain version, and times ``flash_fwd`` at the
+GPT-2-small shape and B7 at the ring-of-one block with every build in
+turns.
 
 Tolerances, kernel vs plain version on the same inputs.  Flash, bf16
 inputs (the tensor-core kernels; plain version in f32): out max-abs <= 1e-2
@@ -117,6 +132,7 @@ relative <= 1e-3 (GPT-2 and both ResNets).  Quantization kernels and the
 synced gradients of the int8 codecs: bitwise (both sides divide with IEEE
 division, round half to even and sum the peers in order without FMA).
 """
+import concurrent.futures
 import json
 import math
 import os
@@ -219,8 +235,9 @@ def make_case(torch, b, s, h, h_kv, d, causal, masked, seed, dtype="bfloat16"):
 
     q, do = rand(b * h, s, d), rand(b * h, s, d)
     k, v = rand(b * h_kv, s, d), rand(b * h_kv, s, d)
-    bias = torch.zeros(b, s, device="cuda")
+    bias = None   # no key mask: no bias row, as the model's path
     if masked:
+        bias = torch.zeros(b, s, device="cuda")
         bias[0, s // 3:] = -1e30   # ragged padding
         bias[-1, :] = -1e30        # an example with every key masked
     return dict(q=q, k=k, v=v, do=do, bias=bias, h=h, group=h // h_kv,
@@ -236,6 +253,12 @@ def check_kernels(torch, fa):
         "key padding, fully masked rows B2 S512 H12 D64": (2, 512, 12, 12, 64, False, True),
         "ragged B2 S1000 H12 D64 causal": (2, 1000, 12, 12, 64, True, False),
         "f32 ragged GQA B2 S300 H4/2 D40 causal": (2, 300, 4, 2, 40, True, False, "float32"),
+        "two boxes a tile B2 S1024 H8 D128 causal": (2, 1024, 8, 8, 128, True, False),
+        "zero-filled box B2 S512 H8 D32 causal": (2, 512, 8, 8, 32, True, False),
+        "zero-filled box B2 S512 H8 D40 causal": (2, 512, 8, 8, 40, True, False),
+        "padded to D40 B2 S300 H4 D36 causal": (2, 300, 4, 4, 36, True, False),
+        "small grid B1 S128 H2 D64 causal": (1, 128, 2, 2, 64, True, False),
+        "ragged GQA g3 B2 S1000 H12/4 D64 causal": (2, 1000, 12, 4, 64, True, False),
     }
     worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkdv": 0.0}
     for i, (label, shape) in enumerate(cases.items()):
@@ -285,7 +308,10 @@ def check_kernels(torch, fa):
 
 
 def measure_kernels(torch, fa):
-    """Kernel, plain and library times and the bound at the GPT-2-small shape."""
+    """Kernel, plain and library times and the bound at the GPT-2-small
+    shape (no bias row).  The library yardstick of dq and dkdv is SDPA's
+    backward alone, which computes what they compute together; its
+    forward + backward is printed beside it."""
     import torch.nn.functional as F
 
     b, s, h, d = BATCH, SEQ, 12, 64
@@ -306,26 +332,35 @@ def measure_kernels(torch, fa):
         F.scaled_dot_product_attention(lib["q"], lib["k"], lib["v"],
                                        is_causal=True).backward(lib["do"])
 
+    lib_out = F.scaled_dot_product_attention(lib["q"], lib["k"], lib["v"], is_causal=True)
+    lib_inputs = (lib["q"], lib["k"], lib["v"])
+
+    def sdpa_bwd():   # the gradients returned, not accumulated into .grad
+        torch.autograd.grad(lib_out, lib_inputs, lib["do"], retain_graph=True)
+
     with torch.no_grad():
         timings = {
             "flash_fwd": (lambda: fa.flash_fwd(q, k, v, bias, *cfg),
                           lambda: fa.flash_fwd_plain(q, k, v, bias, *cfg), sdpa_fwd),
             "flash_dq": (lambda: fa.flash_dq(q, k, v, bias, do, lse, delta, *cfg),
                          lambda: fa.flash_dq_plain(q, k, v, bias, do, lse, delta, *cfg),
-                         sdpa_fwd_bwd),
+                         sdpa_bwd),
             "flash_dkdv": (lambda: fa.flash_dkdv(q, k, v, bias, do, lse, delta, *cfg),
                            lambda: fa.flash_dkdv_plain(q, k, v, bias, do, lse, delta, *cfg),
-                           sdpa_fwd_bwd),
+                           sdpa_bwd),
         }
         # (row, key) pairs this run's causal mask leaves, per head
         pairs = float(torch.ones(s, s, device="cuda").tril().sum()) * b * h
         elem = b * h * s * d
         rows = b * h * s
         work = {  # (flops, bytes): each input read once, each output written once
-            "flash_fwd": (4 * d * pairs, 4 * elem * 2 + rows * 4 + b * s * 4),
-            "flash_dq": (6 * d * pairs, 5 * elem * 2 + 2 * rows * 4 + b * s * 4),
-            "flash_dkdv": (8 * d * pairs, 6 * elem * 2 + 2 * rows * 4 + b * s * 4),
+            "flash_fwd": (4 * d * pairs, 4 * elem * 2 + rows * 4),
+            "flash_dq": (6 * d * pairs, 5 * elem * 2 + 2 * rows * 4),
+            "flash_dkdv": (8 * d * pairs, 6 * elem * 2 + 2 * rows * 4),
         }
+        with torch.enable_grad():
+            print(f"timing SDPA forward + backward (is_causal): "
+                  f"{time_ms(sdpa_fwd_bwd, torch, flush):.4f} ms")
         results = {}
         for name, (kern, plain, library) in timings.items():
             flops, nbytes = work[name]
@@ -342,7 +377,8 @@ def measure_kernels(torch, fa):
             }
             r = results[name]
             print(f"timing {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+                  f"library ({'SDPA fwd' if name == 'flash_fwd' else 'SDPA bwd alone'}) "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
                   f"({r['bound_by']}: {r['gflop']:.2f} GFLOP, {r['mbytes']:.2f} MB)")
     return results
 
@@ -432,13 +468,12 @@ def virtual_ring(torch, fa, c, dtype, n):
 
     # backward: every (q block, k block) pair at its offsets, summed
     delta = (do.float() * out.float()).sum(-1)
-    bias_blk = torch.zeros(BATCH, blk, device="cuda")
     dq = [torch.zeros(bh, blk, 64, device="cuda") for _ in range(n)]
     dk = [torch.zeros_like(dq[0]) for _ in range(n)]
     dv = [torch.zeros_like(dq[0]) for _ in range(n)]
     for i in range(n):
         for j in range(n):
-            args = (part(q, i), part(k, j), part(v, j), bias_blk, part(do, i),
+            args = (part(q, i), part(k, j), part(v, j), None, part(do, i),
                     part(lse, i), part(delta, i), h, scale, True)
             dq_p = fa.flash_dq(*args, q_off=i * blk, k_off=j * blk)
             dk_p, dv_p = fa.flash_dkdv(*args, q_off=i * blk, k_off=j * blk)
@@ -467,21 +502,34 @@ def virtual_ring(torch, fa, c, dtype, n):
 def check_ring_of_one_block(torch, fa):
     """``flash_block_update`` against its plain version at the block the
     main path gives it, the ring of one (BH=96, 1024 x 1024, causal,
-    offsets 0, bf16), from the (floor, 0, 0) carry the ring starts with and
-    from a random carry: m max-abs <= 1e-3, l and o relative Frobenius <=
-    1e-2, the normalised output as phase 3's out.  Returns the max-abs
-    error of that output from the floor carry (the kernels line's)."""
+    offsets 0, bf16), and at a D = 128 block (BH=24, 1024 x 1024: two
+    boxes a tile), each from the (floor, 0, 0) carry the ring starts with
+    and from a random carry: m max-abs <= 1e-3, l and o relative Frobenius
+    <= 1e-2, the normalised output as phase 3's out.  Returns the max-abs
+    error of that output from the floor carry at the main path's block
+    (the kernels line's)."""
+    err = None
+    for batch, d in ((BATCH, 64), (2, 128)):
+        e = ring_block_case(torch, fa, batch, d)
+        err = e if err is None else err
+    torch.cuda.empty_cache()
+    return {"flash_block_update": err}
+
+
+def ring_block_case(torch, fa, batch, d):
+    """One block of :func:`check_ring_of_one_block`; returns the floor
+    carry's output error."""
     out_tol = TOLERANCES["bfloat16"][0]
-    c = make_case(torch, BATCH, SEQ, 12, 12, 64, True, False, seed=13)
+    c = make_case(torch, batch, SEQ, 12, 12, d, True, False, seed=13)
     q, k, v = c["q"], c["k"], c["v"]
     bh = q.shape[0]
     g = torch.Generator(device="cuda").manual_seed(14)
     carries = {
         "floor": (torch.full((bh, SEQ), fa._M_FLOOR, device="cuda"),
-                  torch.zeros(bh, SEQ, device="cuda"), torch.zeros(bh, SEQ, 64, device="cuda")),
+                  torch.zeros(bh, SEQ, device="cuda"), torch.zeros(bh, SEQ, d, device="cuda")),
         "random": (torch.rand(bh, SEQ, device="cuda", generator=g),
                    torch.rand(bh, SEQ, device="cuda", generator=g) + 0.5,
-                   torch.randn(bh, SEQ, 64, device="cuda", generator=g)),
+                   torch.randn(bh, SEQ, d, device="cuda", generator=g)),
     }
     err = None
     for label, carry in carries.items():
@@ -493,34 +541,30 @@ def check_ring_of_one_block(torch, fa):
         out, ref = (o / l[..., None]).to(q.dtype), po / pl[..., None]
         e_out = max_abs(out, ref)
         bound = out_tol * max(1.0, float(ref.abs().max()))
-        print(f"ring-of-one block [bf16, {label} carry]: m max-abs {e_m:.3e}, l rel "
+        print(f"ring-of-one block [bf16, BH {bh}, D {d}, {label} carry]: m max-abs {e_m:.3e}, l rel "
               f"{e_l:.3e}, o rel {e_o:.3e}; o / l max-abs {e_out:.3e} (limit {bound:.3e})")
-        check(e_m <= 1e-3, f"ring-of-one block, {label} carry: m error {e_m}")
+        check(e_m <= 1e-3, f"ring-of-one block D {d}, {label} carry: m error {e_m}")
         check(e_l <= 1e-2 and e_o <= 1e-2,
-              f"ring-of-one block, {label} carry: l error {e_l}, o error {e_o}")
-        check(e_out <= bound, f"ring-of-one block, {label} carry: out max-abs {e_out}")
+              f"ring-of-one block D {d}, {label} carry: l error {e_l}, o error {e_o}")
+        check(e_out <= bound, f"ring-of-one block D {d}, {label} carry: out max-abs {e_out}")
         if err is None:
             err = e_out
-    del c, q, k, v, carries
-    torch.cuda.empty_cache()
-    return {"flash_block_update": err}
+    return err
 
 
-def ring_work(bh, sq, sk, d, pairs, batch):
+def ring_work(bh, sq, sk, d, pairs):
     """(flops, bytes) of the ring kernels on one block, bf16 inputs: each
     input read once, each output written once; ``pairs`` unmasked (row,
-    key) pairs."""
+    key) pairs; no bias row (the ring has no key mask)."""
     q_elems, k_elems, rows = bh * sq * d, bh * sk * d, bh * sq
     return {
         # q, k, v; m and l read and written; o (f32) read and written
         "flash_block_update": (4 * d * pairs, (q_elems + 2 * k_elems) * 2 + 4 * rows * 4
                                + 2 * q_elems * 4),
-        # q, dO, dq and k, v (bf16); lse, delta; the zero bias row
-        "flash_dq": (6 * d * pairs, (3 * q_elems + 2 * k_elems) * 2 + 2 * rows * 4
-                     + batch * sk * 4),
-        # q, dO and k, v, dk, dv (bf16); lse, delta; the bias row
-        "flash_dkdv": (8 * d * pairs, (2 * q_elems + 4 * k_elems) * 2 + 2 * rows * 4
-                       + batch * sk * 4),
+        # q, dO, dq and k, v (bf16); lse, delta
+        "flash_dq": (6 * d * pairs, (3 * q_elems + 2 * k_elems) * 2 + 2 * rows * 4),
+        # q, dO and k, v, dk, dv (bf16); lse, delta
+        "flash_dkdv": (8 * d * pairs, (2 * q_elems + 4 * k_elems) * 2 + 2 * rows * 4),
     }
 
 
@@ -547,11 +591,10 @@ def measure_ring_kernels(torch, fa):
         m2, l2, o2 = fa.flash_block_update(q, k, v, m, l, o, *cfg)
         lse = m2 + torch.log(l2)
         delta = (do.float() * (o2 / l2[..., None])).sum(-1)
-        bias = torch.zeros(BATCH, s, device="cuda")
         keep = (q_off + torch.arange(s, device="cuda"))[:, None] >= (
             k_off + torch.arange(s, device="cuda"))[None, :]
         pairs = float(keep.sum()) * bh
-        grads = (bias, do, lse, delta, h, c["scale"], True)
+        grads = (None, do, lse, delta, h, c["scale"], True)
         offsets = dict(q_off=q_off, k_off=k_off)
         fns = {"flash_block_update": (lambda: fa.flash_block_update(q, k, v, m, l, o, *cfg),
                                       lambda: fa.flash_block_update_plain(q, k, v, m, l, o,
@@ -561,7 +604,7 @@ def measure_ring_kernels(torch, fa):
                                lambda: fa.flash_dq_plain(q, k, v, *grads, **offsets))
             fns["flash_dkdv"] = (lambda: fa.flash_dkdv(q, k, v, *grads, **offsets),
                                  lambda: fa.flash_dkdv_plain(q, k, v, *grads, **offsets))
-        work = ring_work(bh, s, s, d, pairs, BATCH)
+        work = ring_work(bh, s, s, d, pairs)
         with torch.no_grad():
             for name, (kern, plain) in fns.items():
                 flops, nbytes = work[name]
@@ -1004,7 +1047,7 @@ KERNEL_CATEGORIES = (   # (category, substrings of a kernel name), first match w
      ("quantize_kernel", "dequant_sum_kernel", "equarx_hop_kernel")),
     ("fused-norm kernels (bn_fwd / gn_fwd)", ("norm_partial_kernel", "norm_stats_kernel",
                                              "norm_apply_kernel")),
-    ("flash kernels", ("mma_fwd_kernel", "mma_dq_kernel", "mma_dkdv_kernel",
+    ("flash kernels", ("wgmma_fwd_kernel", "mma_dq_kernel", "mma_dkdv_kernel",
                        "fma_fwd_kernel", "fma_dq_kernel", "fma_dkdv_kernel")),
     ("convolutions and matmuls (cuDNN, cuBLAS)", ("conv", "cudnn", "xmma", "gemm", "nvjet",
                                                  "cutlass", "implicit", "dgrad", "wgrad")),
@@ -1311,6 +1354,77 @@ def ring_main(flat_loss):
     return 0
 
 
+FWD_VARIANTS = {   # label -> the -D flags of a build of the flash source
+    "default (128-key tiles, a block per SM)": (),
+    "64-key tiles": ("-DFWD_BLOCK_K=64",),
+    "a block per tile": ("-DFWD_PERSISTENT=0",),
+    # the time without the softmax (P = S): what the softmax adds to the
+    # loads, products and stores; its output is not attention
+    "no softmax (timing only)": ("-DFWD_SOFTMAX=0",),
+}
+
+
+def fwd_tiles_main():
+    """``chip_smoke.py --fwd-tiles``: the bf16 forward's design choices,
+    each a build of the flash source (FWD_VARIANTS), held against the plain
+    version and timed on ``flash_fwd`` at the GPT-2-small shape and B7 at
+    the ring-of-one block, in turns (each variant before and after the
+    others)."""
+    import torch
+
+    m = setup(torch)
+    if m is None:
+        return 1
+    fa = m["fa"]
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip())
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(FWD_VARIANTS)) as pool:   # nvcc's at once
+        list(pool.map(lambda defines: m["build"].build(["flash_attention"], defines),
+                      FWD_VARIANTS.values()))
+    print(f"kernel builds: {time.perf_counter() - t0:.1f} s")
+    libs = {label: fa._library(defines) for label, defines in FWD_VARIANTS.items()}
+    c = make_case(torch, BATCH, SEQ, 12, 12, 64, True, False, seed=7)
+    q, k, v, scale = c["q"], c["k"], c["v"], c["scale"]
+    bh = q.shape[0]
+    dims = (bh, 12, 1, SEQ, SEQ, 64)
+    carry = (torch.full((bh, SEQ), fa._M_FLOOR, device="cuda"), torch.zeros(bh, SEQ, device="cuda"),
+             torch.zeros(bh, SEQ, 64, device="cuda"))
+    outs = [torch.empty_like(q), torch.empty(bh, SEQ, device="cuda")]
+    new_carry = [torch.empty_like(t) for t in carry]
+
+    def fwd(lib):
+        fa._launch("flash_fwd", (q, k, v, None, *outs), dims, scale, True, q, lib=lib)
+
+    def update(lib):
+        fa._launch("flash_block_update", (q, k, v, *carry, *new_carry), (bh, SEQ, SEQ, 64),
+                   scale, True, q, offsets=(0, 0), lib=lib)
+
+    ref_out, _ = fa.flash_fwd_plain(q, k, v, None, 12, scale, True)
+    try:
+        for label, lib in libs.items():
+            if "timing only" in label:
+                continue
+            fwd(lib)
+            torch.cuda.synchronize()
+            err = max_abs(outs[0], ref_out)
+            print(f"{label}: flash_fwd out max-abs {err:.3e} vs the plain version")
+            check(err <= TOLERANCES["bfloat16"][0] * max(1.0, float(ref_out.abs().max())),
+                  f"{label}: forward disagrees with the plain version ({err})")
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")   # > the 50 MB L2
+    order = list(libs) + list(libs)[::-1]
+    for name, fn in (("flash_fwd", fwd), ("flash_block_update", update)):
+        times = {label: [] for label in libs}
+        for label in order:
+            times[label].append(time_ms(lambda: fn(libs[label]), torch, flush))
+        for label, ts in times.items():
+            print(f"timing {name} [{label}]: {' / '.join(f'{t:.4f}' for t in ts)} ms")
+    return 0
+
+
 def main():
     try:
         import torch
@@ -1375,4 +1489,6 @@ if __name__ == "__main__":
         sys.exit(codec_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--ring":
         sys.exit(ring_main(sys.argv[2]))
+    if len(sys.argv) == 2 and sys.argv[1] == "--fwd-tiles":
+        sys.exit(fwd_tiles_main())
     sys.exit(main())

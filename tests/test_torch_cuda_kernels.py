@@ -10,7 +10,10 @@ that has only PyTorch (the repo's ``conftest.py`` imports JAX, hence
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Each case runs ``flash_attention`` forward and backward (the three
-kernels) and ``attention_plain`` in f32 on the same inputs.  Tolerance:
+kernels) and ``attention_plain`` in f32 on the same inputs, at shapes that
+test the bf16 forward's TMA boxes and wgmma layouts (D = 128, 40, 36, 32;
+fewer tiles than SMs; a ragged S with GQA); the forward also at a negative
+and a zero scale.  Tolerance:
 relative Frobenius error <= 1e-2 for bf16 inputs (bf16 output and
 operand rounding) and <= 1e-5 for f32 inputs (f32 sums in another order).
 
@@ -50,6 +53,15 @@ CASES = {
     "bf16_gqa_d40": (2, 129, 4, 2, 40, True, False, "bfloat16"),
     "bf16_kv_mask_d128": (2, 96, 2, 2, 128, False, True, "bfloat16"),
     "f32_causal_gqa": (2, 150, 4, 2, 32, True, False, "float32"),
+    # the bf16 forward's TMA boxes and wgmma layouts: two boxes a tile,
+    # boxes zero-filled past D, D padded to a multiple of 8 by the wrapper,
+    # fewer tiles than SMs, a ragged S with GQA
+    "bf16_causal_d128": (2, 384, 4, 4, 128, True, False, "bfloat16"),
+    "bf16_causal_d32": (2, 256, 4, 4, 32, True, False, "bfloat16"),
+    "bf16_full_d40": (2, 256, 4, 4, 40, False, False, "bfloat16"),
+    "bf16_causal_d36_padded": (2, 130, 2, 2, 36, True, False, "bfloat16"),
+    "bf16_small_grid": (1, 128, 2, 2, 64, True, False, "bfloat16"),
+    "bf16_s1000_gqa": (2, 1000, 4, 2, 64, True, False, "bfloat16"),
 }
 REL_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 
@@ -102,6 +114,8 @@ RING_CASES = {
     "bf16_past": (6, 200, 200, 64, True, 400, 0, "bfloat16"),
     "bf16_future": (6, 200, 200, 64, True, 0, 200, "bfloat16"),
     "bf16_full_sk77_d40": (6, 130, 77, 40, False, 0, 0, "bfloat16"),
+    "bf16_past_d128": (4, 256, 256, 128, True, 256, 0, "bfloat16"),
+    "bf16_diagonal_d128": (4, 300, 300, 128, True, 300, 300, "bfloat16"),
     "f32_diagonal_d40": (4, 150, 150, 40, True, 150, 150, "float32"),
     "f32_future": (4, 150, 150, 32, True, 150, 300, "float32"),
 }
@@ -140,8 +154,7 @@ def test_ring_kernels_match_plain_versions(case):
 
     lse = torch.randn(bh, sq, device="cuda", generator=g) + 5.0
     delta = torch.randn(bh, sq, device="cuda", generator=g)
-    bias = torch.zeros(bh // 2, sk, device="cuda")
-    args = (q, k, v, bias, do, lse, delta, 2, scale, causal)
+    args = (q, k, v, None, do, lse, delta, 2, scale, causal)   # the ring: no bias row
     offsets = dict(q_off=q_off, k_off=k_off)
     dq = tfa.flash_dq(*args, **offsets)
     dk, dv = tfa.flash_dkdv(*args, **offsets)
@@ -153,6 +166,23 @@ def test_ring_kernels_match_plain_versions(case):
     ref = (tfa.flash_dq_plain(*args, **offsets), *tfa.flash_dkdv_plain(*args, **offsets))
     for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
         assert bool(torch.isfinite(a.float()).all()) and _rel(a, b) <= REL_TOL[dtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sm_scale", [-0.3, 0.0, 0.25])
+def test_bf16_forward_takes_any_scale(sm_scale):
+    """The kernel's exponent needs a scale > 0; the wrapper turns any other
+    into one with the same scores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(8, 200, 64, device="cuda", generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    out, lse = tfa.flash_fwd(q, k, v, None, 4, sm_scale, True)
+    ref_out, ref_lse = tfa.flash_fwd_plain(q.float(), k.float(), v.float(), None, 4, sm_scale,
+                                           True)
+    assert _rel(out, ref_out) <= REL_TOL["bfloat16"]
+    assert float((lse - ref_lse).abs().max()) <= M_TOL["bfloat16"]
 
 
 @pytest.mark.cuda

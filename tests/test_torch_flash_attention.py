@@ -8,6 +8,12 @@ dq/dk/dv (``jax.grad`` vs ``torch.autograd``) are compared in f32:
 out and lse to atol 1e-5, gradients to atol 1e-4 (f32 sums taken in
 another order).  The CUDA kernels themselves run only on the card
 (``chip_smoke.py`` and ``tests/test_torch_cuda_kernels.py``).
+
+Without a key mask the port passes no bias row (``bias=None``): the plain
+forward, dq and dkdv give the same bits as with a zero row, and
+``flash_attention`` still matches the JAX kernel.  The bf16 forward
+kernel's operand rules have CPU-side stand-ins held here to the bit (a
+scale <= 0 made positive) or to 1e-6 (D padded to a multiple of 8).
 """
 import jax
 import jax.numpy as jnp
@@ -114,3 +120,97 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
     with pytest.raises(RuntimeError, match="cuda"):
         tfa.flash_fwd(q.to("meta"), k.to("meta"), k.to("meta"), bias.to("meta"),
                       4, 0.25, True, group=2)
+
+
+# Without a key mask there is no bias row (``bias=None``): the kernels read
+# none.  A zero row adds exact zeros, so the plain versions give the same
+# bits either way; (causal, group) as the model paths use them.
+NO_BIAS_CASES = [(False, 1), (True, 1), (False, 2), (True, 2)]
+
+
+@pytest.mark.parametrize("causal,group", NO_BIAS_CASES)
+def test_no_bias_row_is_bitwise_a_zero_row(causal, group):
+    b, s, h, d = 2, 24, 4, 16
+    rng = np.random.default_rng(3)
+    q, do = (torch.from_numpy(rng.standard_normal((b * h, s, d)).astype(np.float32))
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((b * h // group, s, d)).astype(np.float32))
+            for _ in range(2))
+    zero = torch.zeros(b, s)
+    cfg = (h, d ** -0.5, causal, group)
+    out, lse = tfa.flash_fwd(q, k, v, None, *cfg)
+    z_out, z_lse = tfa.flash_fwd(q, k, v, zero, *cfg)
+    assert torch.equal(out, z_out) and torch.equal(lse, z_lse)
+    delta = (do * out).sum(-1)
+    grads = tfa.flash_bwd(q, k, v, None, out, lse, do, *cfg)
+    z_grads = tfa.flash_bwd(q, k, v, zero, out, lse, do, *cfg)
+    for name, a, z in zip(("dq", "dk", "dv"), grads, z_grads):
+        assert torch.equal(a, z), name
+    assert torch.equal(tfa.flash_dq(q, k, v, None, do, lse, delta, *cfg),
+                       tfa.flash_dq(q, k, v, zero, do, lse, delta, *cfg))
+
+
+# (B, S, H, H_kv, D, causal): shapes the cases above leave out (D not a
+# multiple of 16, GQA without causality), all without a key mask
+NO_MASK_CASES = {
+    "causal_d24": (2, 40, 2, 2, 24, True),
+    "gqa_g2_full_d24": (2, 40, 4, 2, 24, False),
+    "gqa_g4_causal": (1, 48, 4, 1, 16, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NO_MASK_CASES))
+def test_no_mask_matches_pallas_without_a_bias_row(case):
+    b, s, h, hkv, d, causal = NO_MASK_CASES[case]
+    q, k, v, do, _ = _inputs(b, s, s, h, hkv, d, False, seed=4)
+    bias, _, group, _ = tfa._prepare(*(torch.from_numpy(x) for x in (q, k, v)), None, None)
+    assert bias is None and group == h // hkv
+    j_out, j_grads = _jax_out_and_grads(q, k, v, do, None, causal)
+    t_out, t_grads = _torch_out_and_grads(q, k, v, do, None, causal)
+    np.testing.assert_allclose(t_out, j_out, atol=OUT_ATOL, rtol=0)
+    for name, tg, jg in zip("qkv", t_grads, j_grads):
+        np.testing.assert_allclose(tg, jg, atol=GRAD_ATOL, rtol=0, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("sm_scale", [-0.3, 0.0, 0.25])
+def test_positive_scale_keeps_the_scores(sm_scale):
+    """The bf16 forward kernel takes a scale > 0; the wrapper's stand-in
+    (k negated, or q zeroed) gives the same plain forward to the bit."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((4, 20, 16)).astype(np.float32))
+               for _ in range(3))
+    q2, k2, scale2 = tfa.positive_scale(q, k, sm_scale)
+    assert scale2 > 0
+    for causal in (False, True):
+        want = tfa.flash_fwd_plain(q, k, v, None, 2, sm_scale, causal)
+        got = tfa.flash_fwd_plain(q2, k2, v, None, 2, scale2, causal)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("d", [36, 20, 64])
+def test_padded_head_dim_keeps_the_output(d):
+    """Zero columns appended to q, k, v (D to a multiple of 8, as TMA reads
+    rows) change no score: with the true D's scale the output's first D
+    columns and the logsumexp are the unpadded ones (f32 sums taken over
+    more terms: 1e-6)."""
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal((4, 30, d)).astype(np.float32))
+               for _ in range(3))
+    (qp, kp, vp), d8 = tfa.pad_head_dim((q, k, v), d)
+    assert d8 % 8 == 0 and d8 - d < 8 and qp.shape[-1] == d8
+    assert not qp[..., d:].any() and torch.equal(qp[..., :d], q)
+    out, lse = tfa.flash_fwd_plain(q, k, v, None, 2, d ** -0.5, True)
+    p_out, p_lse = tfa.flash_fwd_plain(qp, kp, vp, None, 2, d ** -0.5, True)
+    np.testing.assert_allclose(p_out[..., :d].numpy(), out.numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(p_lse.numpy(), lse.numpy(), atol=1e-6, rtol=0)
+    assert not p_out[..., d:].any()
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_fold_heads_is_contiguous(b):
+    """The kernels take contiguous folds; at B = 1 a bare reshape of the
+    transpose is a strided view."""
+    t = torch.randn(b, 8, 3, 4)
+    f = tfa.fold_heads(t)
+    assert f.is_contiguous() and f.shape == (b * 3, 8, 4)
+    assert torch.equal(tfa.unfold_heads(f, b, 3), t)
