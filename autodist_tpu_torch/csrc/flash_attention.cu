@@ -81,7 +81,7 @@
 // D must be a multiple of 8 with 16-byte-aligned rows (TMA's stride rule):
 // the wrapper pads other D with zero columns, and turns a scale <= 0 into
 // a positive one.  At D = 128 key tiles are 64 wide (the consumers'
-// registers).  Measured alternatives (chip_smoke.py --fwd-tiles): 64-key
+// registers).  Measured alternatives (PERF.md, "Findings"): 64-key
 // tiles at D = 64 and a block per tile in place of a block per SM were
 // slower; turns between the consumer warpgroups (FlashAttention-3's
 // ping-pong) gained nothing and were taken out.
@@ -892,15 +892,6 @@ mma_dkdv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 // and its shared-memory descriptors, setmaxnreg.
 
 constexpr int kFwdBlockQ = 128;   // rows per block: two consumer warpgroups of 64
-#ifndef FWD_BLOCK_K
-#define FWD_BLOCK_K 128           // keys per tile at D <= 64 (64 builds the narrower variant)
-#endif
-#ifndef FWD_PERSISTENT
-#define FWD_PERSISTENT 1          // a block per SM walking the tiles (0: a block per tile)
-#endif
-#ifndef FWD_SOFTMAX
-#define FWD_SOFTMAX 1             // 0 times the loads and products alone: P = S, wrong output
-#endif
 constexpr int kFwdStages = 3;     // the K/V ring
 constexpr int kFwdThreads = 384;  // producer warpgroup + two consumer warpgroups
 // registers a thread: 65536 / 384 at entry (what setmaxnreg trades), then
@@ -1167,12 +1158,6 @@ __device__ __forceinline__ void softmax_step(float (&s)[BK / 2], uint32_t (&p)[B
                                              const float* __restrict__ bias_row, int causal,
                                              int shift) {
   constexpr bool kRaw = !kBias;
-  if (!FWD_SOFTMAX) {
-#pragma unroll
-    for (int i = 0; i < BK / 4; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
-    corr[0] = corr[1] = 1.f;
-    return;
-  }
   float mx[2];
   if (k0 + BK > Sk || (causal && k0 + BK - 1 > wrow0 + shift))
     scores2<kBias, true, kRaw>(s, mx, row, k0 + 2 * t, Sk, scale_log2, bias_row, causal, shift);
@@ -1207,8 +1192,8 @@ __device__ __forceinline__ void softmax_step(float (&s)[BK / 2], uint32_t (&p)[B
 // update (kUpdate true: the carry in and out, no bias), over tiles of 128
 // query rows of one q head fold bh, the heaviest causal q-tiles first.  A
 // block walks the tiles blockIdx.x, then in snake order one round of
-// gridDim.x further each (one tile a block when the grid has a block per
-// tile).  Warpgroup 0 loads, warpgroups 1 and 2 compute; see the header.
+// gridDim.x further each (one tile a block when there are fewer tiles than
+// SMs).  Warpgroup 0 loads, warpgroups 1 and 2 compute; see the header.
 template <int DP, int BK, bool kUpdate, bool kBias>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -1562,7 +1547,7 @@ cudaError_t launch_wgmma_fwd(const void* q, const void* k, const void* v, const 
                              void* out, float* lse, Carry carry, int BH, int H, int group,
                              int Sq, int Sk, int D, float scale, int causal, int shift,
                              cudaStream_t s) {
-  constexpr int BK = DP == 64 ? FWD_BLOCK_K : 64;
+  constexpr int BK = DP == 64 ? 128 : 64;
   const auto kernel = wgmma_fwd_kernel<DP, BK, kUpdate, kBias>;
   // setmaxnreg trades registers within a pool of 384 x kFwdEntryRegs: a
   // build that allocated fewer at entry could stall the consumers for ever
@@ -1583,7 +1568,7 @@ cudaError_t launch_wgmma_fwd(const void* q, const void* k, const void* v, const 
     return cudaErrorInvalidValue;
   const int tiles = BH * ((Sq + kFwdBlockQ - 1) / kFwdBlockQ);
   static const int sms = sm_count();
-  const dim3 grid(FWD_PERSISTENT ? std::min(tiles, sms) : tiles);
+  const dim3 grid(std::min(tiles, sms));
   return launch(kernel, grid, kFwdThreads, FwdSmem<DP, BK, kUpdate>::kBytes, s, tm_q, tm_k, tm_v,
                 tm_o_in, tm_out, bias, lse, carry, BH, H, group, Sq, Sk, D, scale * kLog2e,
                 causal, shift);

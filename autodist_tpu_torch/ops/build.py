@@ -8,9 +8,6 @@ source is rebuilt at its next use and an unchanged one is loaded as it is.
 The compiler's output, with ``-Xptxas -v``'s register and spill report, is
 kept beside each library as ``<name>.log``.
 
-``defines`` (``-D`` flags) build a variant of a source beside the default
-one, under its own name; the kernels' wrappers load the default.
-
 Nothing here runs at import time: the first kernel call builds.
 """
 import ctypes
@@ -43,25 +40,23 @@ def find_nvcc():
                        "the CUDA kernels build on a machine with the CUDA toolkit")
 
 
-def library_path(name, defines=()):
-    """Where the library of ``csrc/<name>.cu`` (built with ``defines``)
-    lives for the current source."""
-    flags = " ".join((*NVCC_FLAGS, *defines))
+def library_path(name):
+    """Where the library of ``csrc/<name>.cu`` lives for the current source."""
     with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + flags.encode())
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
-def _start(name, nvcc, defines=()):
+def _start(name, nvcc):
     """Start ``nvcc`` for ``csrc/<name>.cu``; None when already built."""
-    out = library_path(name, defines)
+    out = library_path(name)
     if os.path.exists(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    log = open(os.path.join(BUILD_DIR, name + "".join(defines) + ".log"), "w")
+    log = open(os.path.join(BUILD_DIR, name + ".log"), "w")
     proc = subprocess.Popen(
-        [nvcc, *NVCC_FLAGS, *defines, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")],
+        [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")],
         stdout=log, stderr=subprocess.STDOUT)
     return proc, log, tmp, out
 
@@ -77,14 +72,13 @@ def _finish(name, job):
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 
-def build(names, defines=()):
-    """Compile every named source that is not built yet (each with
-    ``defines``), all ``nvcc`` processes started together; returns the
-    library paths."""
-    pending = [n for n in names if not os.path.exists(library_path(n, defines))]
+def build(names):
+    """Compile every named source that is not built yet, all ``nvcc``
+    processes started together; returns the library paths."""
+    pending = [n for n in names if not os.path.exists(library_path(n))]
     if pending:
         nvcc = find_nvcc()
-        jobs = {n: _start(n, nvcc, defines) for n in pending}
+        jobs = {n: _start(n, nvcc) for n in pending}
         errors = []
         for n, job in jobs.items():
             if job is None:
@@ -95,16 +89,14 @@ def build(names, defines=()):
                 errors.append(str(e))
         if errors:
             raise RuntimeError("\n".join(errors))
-    return [library_path(n, defines) for n in names]
+    return [library_path(n) for n in names]
 
 
-def load(name, defines=()):
-    """The ``ctypes`` library of ``csrc/<name>.cu`` (built with
-    ``defines``), built on first use."""
-    key = (name, tuple(defines))
+def load(name):
+    """The ``ctypes`` library of ``csrc/<name>.cu``, built on first use."""
     with _lock:
-        lib = _loaded.get(key)
+        lib = _loaded.get(name)
         if lib is None:
-            (path,) = build([name], defines)
-            lib = _loaded[key] = ctypes.CDLL(path)
+            (path,) = build([name])
+            lib = _loaded[name] = ctypes.CDLL(path)
         return lib

@@ -167,10 +167,8 @@ _ARGTYPES = {
 }
 
 
-def _library(defines=()):
-    """The kernels' library; ``defines`` (``-D`` flags) load a variant
-    build, as ``chip_smoke.py --fwd-tiles`` does for the forward's tile."""
-    lib = build.load("flash_attention", defines)
+def _library():
+    lib = build.load("flash_attention")
     for name, args in _ARGTYPES.items():
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -215,10 +213,10 @@ def _check(q, k, v, bias, h, group, rows=(), grads=()):
     return bh, sq, sk, d
 
 
-def _launch(name, ptrs, dims, sm_scale, causal, q, offsets=(), lib=None):
+def _launch(name, ptrs, dims, sm_scale, causal, q, offsets=()):
     """Launch kernel ``name`` on the current stream; a None among ``ptrs``
     (no bias row) goes as a null pointer."""
-    lib = lib or _library()
+    lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, name)(*[None if t is None else t.data_ptr() for t in ptrs], *dims,

@@ -18,8 +18,9 @@ Phases (each failure exits non-zero before the last line):
    the forward's TMA tiles and wgmma layouts: D = 128 (two 64-column boxes
    a tile), D = 32 and D = 40 (boxes zero-filled past D), D = 36 (the
    wrapper's zero padding to a multiple of 8), a grid smaller than the
-   card (B=1, H=2, S=128) and S = 1000 with GQA; every case but key
-   padding has no bias row, as the model's path.  Then times kernel, plain
+   card (B=1, H=2, S=128), S = 1000 with GQA, and causal key padding at
+   S = 1000 (the bias row beside the diagonal's mask); every case but the
+   two of key padding has no bias row, as the model's path.  Then times kernel, plain
    version and the library yardstick (used nowhere in the port) and
    computes each kernel's bound at the GPT-2-small shape: for the forward
    ``scaled_dot_product_attention``'s forward, for dq and dkdv its
@@ -109,14 +110,6 @@ Phases (each failure exits non-zero before the last line):
 12. prints the ``{"kernels": [...]}`` line (nine kernels), then the
    ``{"ok": true, ...}`` line.
 
-``python3 chip_smoke.py --fwd-tiles`` (not part of the run above) builds
-the flash source once more for each of the bf16 forward's alternatives
-(``FWD_VARIANTS``: 64-key tiles in place of 128, a block per tile in place
-of a block per SM, and, for timing only, no softmax), holds each build's
-forward against the plain version, and times ``flash_fwd`` at the
-GPT-2-small shape and B7 at the ring-of-one block with every build in
-turns.
-
 Tolerances, kernel vs plain version on the same inputs.  Flash, bf16
 inputs (the tensor-core kernels; plain version in f32): out max-abs <= 1e-2
 * max(1, max|out|) (bf16 rounding of the output), lse max-abs <= 1e-3, dq,
@@ -132,7 +125,6 @@ relative <= 1e-3 (GPT-2 and both ResNets).  Quantization kernels and the
 synced gradients of the int8 codecs: bitwise (both sides divide with IEEE
 division, round half to even and sum the peers in order without FMA).
 """
-import concurrent.futures
 import json
 import math
 import os
@@ -259,6 +251,7 @@ def check_kernels(torch, fa):
         "padded to D40 B2 S300 H4 D36 causal": (2, 300, 4, 4, 36, True, False),
         "small grid B1 S128 H2 D64 causal": (1, 128, 2, 2, 64, True, False),
         "ragged GQA g3 B2 S1000 H12/4 D64 causal": (2, 1000, 12, 4, 64, True, False),
+        "causal key padding B2 S1000 H12 D64": (2, 1000, 12, 12, 64, True, True),
     }
     worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkdv": 0.0}
     for i, (label, shape) in enumerate(cases.items()):
@@ -1354,77 +1347,6 @@ def ring_main(flat_loss):
     return 0
 
 
-FWD_VARIANTS = {   # label -> the -D flags of a build of the flash source
-    "default (128-key tiles, a block per SM)": (),
-    "64-key tiles": ("-DFWD_BLOCK_K=64",),
-    "a block per tile": ("-DFWD_PERSISTENT=0",),
-    # the time without the softmax (P = S): what the softmax adds to the
-    # loads, products and stores; its output is not attention
-    "no softmax (timing only)": ("-DFWD_SOFTMAX=0",),
-}
-
-
-def fwd_tiles_main():
-    """``chip_smoke.py --fwd-tiles``: the bf16 forward's design choices,
-    each a build of the flash source (FWD_VARIANTS), held against the plain
-    version and timed on ``flash_fwd`` at the GPT-2-small shape and B7 at
-    the ring-of-one block, in turns (each variant before and after the
-    others)."""
-    import torch
-
-    m = setup(torch)
-    if m is None:
-        return 1
-    fa = m["fa"]
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip())
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(FWD_VARIANTS)) as pool:   # nvcc's at once
-        list(pool.map(lambda defines: m["build"].build(["flash_attention"], defines),
-                      FWD_VARIANTS.values()))
-    print(f"kernel builds: {time.perf_counter() - t0:.1f} s")
-    libs = {label: fa._library(defines) for label, defines in FWD_VARIANTS.items()}
-    c = make_case(torch, BATCH, SEQ, 12, 12, 64, True, False, seed=7)
-    q, k, v, scale = c["q"], c["k"], c["v"], c["scale"]
-    bh = q.shape[0]
-    dims = (bh, 12, 1, SEQ, SEQ, 64)
-    carry = (torch.full((bh, SEQ), fa._M_FLOOR, device="cuda"), torch.zeros(bh, SEQ, device="cuda"),
-             torch.zeros(bh, SEQ, 64, device="cuda"))
-    outs = [torch.empty_like(q), torch.empty(bh, SEQ, device="cuda")]
-    new_carry = [torch.empty_like(t) for t in carry]
-
-    def fwd(lib):
-        fa._launch("flash_fwd", (q, k, v, None, *outs), dims, scale, True, q, lib=lib)
-
-    def update(lib):
-        fa._launch("flash_block_update", (q, k, v, *carry, *new_carry), (bh, SEQ, SEQ, 64),
-                   scale, True, q, offsets=(0, 0), lib=lib)
-
-    ref_out, _ = fa.flash_fwd_plain(q, k, v, None, 12, scale, True)
-    try:
-        for label, lib in libs.items():
-            if "timing only" in label:
-                continue
-            fwd(lib)
-            torch.cuda.synchronize()
-            err = max_abs(outs[0], ref_out)
-            print(f"{label}: flash_fwd out max-abs {err:.3e} vs the plain version")
-            check(err <= TOLERANCES["bfloat16"][0] * max(1.0, float(ref_out.abs().max())),
-                  f"{label}: forward disagrees with the plain version ({err})")
-    except SmokeFailure as e:
-        print(f"FAIL: {e}", file=sys.stderr)
-        return 1
-    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")   # > the 50 MB L2
-    order = list(libs) + list(libs)[::-1]
-    for name, fn in (("flash_fwd", fwd), ("flash_block_update", update)):
-        times = {label: [] for label in libs}
-        for label in order:
-            times[label].append(time_ms(lambda: fn(libs[label]), torch, flush))
-        for label, ts in times.items():
-            print(f"timing {name} [{label}]: {' / '.join(f'{t:.4f}' for t in ts)} ms")
-    return 0
-
-
 def main():
     try:
         import torch
@@ -1489,6 +1411,4 @@ if __name__ == "__main__":
         sys.exit(codec_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--ring":
         sys.exit(ring_main(sys.argv[2]))
-    if len(sys.argv) == 2 and sys.argv[1] == "--fwd-tiles":
-        sys.exit(fwd_tiles_main())
     sys.exit(main())

@@ -62,6 +62,8 @@ CASES = {
     "bf16_causal_d36_padded": (2, 130, 2, 2, 36, True, False, "bfloat16"),
     "bf16_small_grid": (1, 128, 2, 2, 64, True, False, "bfloat16"),
     "bf16_s1000_gqa": (2, 1000, 4, 2, 64, True, False, "bfloat16"),
+    # the bias row read together with the causal diagonal's mask
+    "bf16_kv_mask_causal_d64": (2, 200, 4, 4, 64, True, True, "bfloat16"),
 }
 REL_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 

@@ -33,6 +33,9 @@ CASES = {
     "kv_mask_fully_masked_example": (2, 32, 32, 2, 2, 16, False, True),
     "gqa_g2_causal": (2, 32, 32, 4, 2, 16, True, False),
     "rectangular_sq_ne_sk": (2, 32, 48, 2, 2, 16, False, False),
+    "causal_d24": (2, 40, 40, 2, 2, 24, True, False),
+    "gqa_g2_full_d24": (2, 40, 40, 4, 2, 24, False, False),
+    "gqa_g4_causal": (1, 48, 48, 4, 1, 16, True, False),
 }
 
 
@@ -75,6 +78,8 @@ def _torch_out_and_grads(q, k, v, do, mask, causal):
 def test_forward_and_grads_match_pallas(case):
     b, sq, sk, h, hkv, d, causal, masked = CASES[case]
     q, k, v, do, mask = _inputs(b, sq, sk, h, hkv, d, masked)
+    if not masked:   # no key mask, no bias row
+        assert tfa._prepare(*(torch.from_numpy(x) for x in (q, k, v)), None, None)[0] is None
     j_out, j_grads = _jax_out_and_grads(q, k, v, do, mask, causal)
     t_out, t_grads = _torch_out_and_grads(q, k, v, do, mask, causal)
     np.testing.assert_allclose(t_out, j_out, atol=OUT_ATOL, rtol=0)
@@ -148,28 +153,6 @@ def test_no_bias_row_is_bitwise_a_zero_row(causal, group):
         assert torch.equal(a, z), name
     assert torch.equal(tfa.flash_dq(q, k, v, None, do, lse, delta, *cfg),
                        tfa.flash_dq(q, k, v, zero, do, lse, delta, *cfg))
-
-
-# (B, S, H, H_kv, D, causal): shapes the cases above leave out (D not a
-# multiple of 16, GQA without causality), all without a key mask
-NO_MASK_CASES = {
-    "causal_d24": (2, 40, 2, 2, 24, True),
-    "gqa_g2_full_d24": (2, 40, 4, 2, 24, False),
-    "gqa_g4_causal": (1, 48, 4, 1, 16, True),
-}
-
-
-@pytest.mark.parametrize("case", sorted(NO_MASK_CASES))
-def test_no_mask_matches_pallas_without_a_bias_row(case):
-    b, s, h, hkv, d, causal = NO_MASK_CASES[case]
-    q, k, v, do, _ = _inputs(b, s, s, h, hkv, d, False, seed=4)
-    bias, _, group, _ = tfa._prepare(*(torch.from_numpy(x) for x in (q, k, v)), None, None)
-    assert bias is None and group == h // hkv
-    j_out, j_grads = _jax_out_and_grads(q, k, v, do, None, causal)
-    t_out, t_grads = _torch_out_and_grads(q, k, v, do, None, causal)
-    np.testing.assert_allclose(t_out, j_out, atol=OUT_ATOL, rtol=0)
-    for name, tg, jg in zip("qkv", t_grads, j_grads):
-        np.testing.assert_allclose(tg, jg, atol=GRAD_ATOL, rtol=0, err_msg=f"d{name}")
 
 
 @pytest.mark.parametrize("sm_scale", [-0.3, 0.0, 0.25])
