@@ -732,7 +732,8 @@ mma_dq_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
         const int col = k0 + n * 8 + 2 * t + (e & 1);
         const float x =
             masked_score<kBias>(s[n][e], row[h], col, Sk, scale, bias_row, causal, shift);
-        const float p = row[h] < Sq ? expf(x - row_lse[h]) : 0.f;
+        // rows past Sq get exp(-1e30) = 0: a select, as in mma_dkdv_kernel
+        const float p = expf(row[h] < Sq ? x - row_lse[h] : kNegInf);
         s[n][e] = p * (dp[n][e] - row_delta[h]) * scale;  // ds
       }
 #pragma unroll
@@ -849,7 +850,11 @@ mma_dkdv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
         const int query = q0 + ql;
         const float x =
             masked_score<kBias>(s[n][e], query, key[e >> 1], Sk, scale, bias_row, causal, shift);
-        const float p = query < Sq ? expf(x - Ls[ql]) : 0.f;
+        // rows past Sq get exp(-1e30) = 0: a select on the argument, not a
+        // branch around expf, which ptxas made one branch region an element
+        // in the no-bias copy, the exponentials one after another (dq and
+        // dkdv 14 % and 19 % slower, PERF.md)
+        const float p = expf(query < Sq ? x - Ls[ql] : kNegInf);
         s[n][e] = p;
         dp[n][e] = p * (dp[n][e] - Es[ql]) * scale;  // ds
       }
