@@ -8,9 +8,9 @@
 //   dkdv          <- _dkdv_call         (pallas_call at :367, body _dkdv_kernel :226)
 // Each comes in two designs: bf16 inputs (the model's path) run on the
 // tensor cores, f32 inputs on f32 FMAs (fma_*_kernel), so that f32 keeps f32
-// products.  The bf16 forward and block update are one Hopper kernel
-// (wgmma_fwd_kernel: wgmma fed by a TMA ring); the bf16 dq and dkdv run
-// mma.sync (mma_dq_kernel, mma_dkdv_kernel).
+// products.  In bf16 all three are Hopper kernels, wgmma fed by TMA rings:
+// the forward and block update one (wgmma_fwd_kernel), dq
+// (wgmma_dq_kernel) and dkdv (wgmma_dkdv_kernel).
 //
 // Semantics kept from the TPU kernels:
 //   s = q.k^T * scale + bias[key]; causal keeps rows >= cols, aligned top-left
@@ -86,16 +86,44 @@
 // slower; turns between the consumer warpgroups (FlashAttention-3's
 // ping-pong) gained nothing and were taken out.
 //
-// The bf16 backward (FlashAttention-2's register layout on mma.sync): a
-// block of 4 warps takes a 64-row tile, each warp 16 rows; tiles of 64 keys
-// are staged in shared memory as bf16 (rows padded by 8 elements, so
-// fragment reads are free of bank conflicts).  Both products of each step
-// run as mma.sync.m16n8k16 (bf16 in, f32 accumulate); the score fragments
-// stay in registers, where the masking and the backward's p and ds are
-// computed in f32 and repacked as the bf16 A operand of the second product.
-// It does not reach the bound: tiles load synchronously, mma.sync runs at a
-// fraction of wgmma's rate, and K/V are re-read from L2 by every q-tile.
-//
+// The bf16 backward, dq (replaces _dq_kernel) and dkdv (replaces
+// _dkdv_kernel), is bound by operations: 3 and 4 products of 2 D flops a
+// pair (19.6 and 26.1 us above) against 19.0 and 22.8 us of bytes.  Both
+// take the forward's shape (FlashAttention-3's for the backward): a
+// persistent block of 384 threads per SM walks work items heaviest first
+// in snake order; warpgroup 0 gives up registers and one thread keeps TMA
+// loads in flight into a 3-stage ring under full and empty mbarriers;
+// warpgroups 1 and 2 run every product as wgmma, 64 rows each.  p and ds
+// are recomputed in f32 registers in base 2: one FFMA, s * scale * log2(e)
+// - lse * log2(e) (+ bias * log2(e)), and ex2; there is no max, so any
+// sign of the scale is taken as it is.  A masked score's exponent, and
+// that of a query past Sq, is -1e30 by a select, never a branch around
+// ex2 (a branch made ptxas issue each exponential alone, PERF.md).  p and
+// ds are packed to bf16 register A operands as the forward packs P.  The
+// next tile's scores are issued with this tile's accumulating products,
+// and its p and ds are computed while those run.  Tiles are read and the
+// outputs written through the forward's 128-byte-swizzled tensor maps and
+// staging tiles; no two blocks write the same rows, so there are no
+// atomics and the results repeat bit for bit.
+//   dq: an item is 128 query rows of one q head (two warpgroups of 64);
+//   the producer loads Q and dO once an item and K and V tiles (128 keys
+//   at D <= 64, 64 at D = 128) into the ring.  Per key tile S = Q.K^T and
+//   dP = dO.V^T (both operands in shared memory, K-major), ds from the
+//   row's lse and delta held in registers, dQ += dS.K with K read MN-major
+//   through wgmma's transpose flag (as the forward reads V).
+//   dkdv: an item is 128 keys of one q head (64 a warpgroup); the producer
+//   loads K and V once an item and, from the first q-tile that sees the
+//   keys, each q-tile's Q, dO (64 rows at D <= 64, 32 at D = 128, where dK
+//   and dV hold 128 registers a thread) and its lse and delta rows (a 1-D
+//   tensor map) into the ring.  Per q-tile the transposed products S^T =
+//   K.Q^T and dP^T = V.dO^T (K, V the A operands, Q, dO the B operands),
+//   p and ds with lse and delta of each column from shared memory, dV +=
+//   P^T.dO and dK += dS^T.Q with dO and Q read MN-major.  Under GQA the
+//   outputs are f32 partials of each q head.  K and V are released after
+//   the item's last S^T and dP^T, so the next item's load overlaps the
+//   last products and the epilogue; dV and dK leave through one staging
+//   tile a warpgroup, one after the other.
+
 // The f32 design stages 64x64 tiles in shared memory as f32 and multiplies
 // with FMAs on the CUDA cores: 256 threads, each owning a 4x4 patch of the
 // score tile and a 4 x D/16 patch of the output, odd row strides.
@@ -120,7 +148,6 @@ namespace {
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreads = 256;     // f32 design: 16 x 16 threads (ty, tx)
-constexpr int kMmaThreads = 128;  // bf16 design: 4 warps of 16 rows
 constexpr int kMaxD = 128;
 constexpr int kPld = kBlockK + 1;  // row stride of the score tile in smem
 constexpr float kNegInf = -1e30f;
@@ -200,12 +227,14 @@ __device__ __forceinline__ int key_tiles(int q0, int Sq, int Sk, int causal, int
   return nk;
 }
 
-// First q-tile that sees key k0 (the first key of a k-tile): its last row
-// must reach k0 - shift.  At or past the last tile when no row sees it.
+// First q-tile (of BQ rows) that sees key k0 (the first key of a k-tile):
+// its last row must reach k0 - shift.  At or past the last tile when no
+// row sees it.
+template <int BQ = kBlockQ>
 __device__ __forceinline__ int first_query_tile(int k0, int causal, int shift) {
   if (!causal) return 0;
-  const int need = k0 - shift - (kBlockQ - 1);
-  return need <= 0 ? 0 : (need + kBlockQ - 1) / kBlockQ;
+  const int need = k0 - shift - (BQ - 1);
+  return need <= 0 ? 0 : (need + BQ - 1) / BQ;
 }
 
 // The (m, l, o) carry of the ring block update, (BH, Sq) and (BH, Sq, D)
@@ -551,62 +580,18 @@ fma_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ------------------------------------------------------ bf16: tensor cores --
-// Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A (16x16, row-major): a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
-//   B (16x8, k x n):      b0 (k 2t..2t+1, n g)  b1 (k 2t+8..2t+9, n g)
-//   C (16x8, f32):        c0, c1 (g, 2t..2t+1)  c2, c3 (g+8, 2t..2t+1)
-// Two adjacent C tiles are exactly the A fragment of a 16x16 operand, which
-// is how p and ds feed the second product without leaving registers.
-
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// A warpgroup's wgmma accumulator (64 x N, f32) is four warps' mma.sync
+// C fragments side by side: in warp w (g = lane / 4, t = lane % 4) element
+// i is row 16 w + g + 8 ((i >> 1) & 1), column 8 (i / 4) + 2 t + (i & 1).
+// The A operand that wgmma reads from registers (64 x 16 bf16) is the
+// mma.sync A fragment of each warp's 16 rows: for the k-step of columns
+// [16 c, 16 c + 16), registers 4 c .. 4 c + 3 hold the accumulator's bf16
+// pairs (i, i + 1) at i = 8 c, 8 c + 2, 8 c + 4, 8 c + 6.  So scores
+// computed in f32 feed the next product without leaving registers.
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) is the low half
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment of the row-major smem tile X (row stride L) at (r0, k0).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint16_t* X, int L, int r0, int k0,
-                                       int g, int t) {
-  a[0] = ld_pair(X + (r0 + g) * L + k0 + 2 * t);
-  a[1] = ld_pair(X + (r0 + g + 8) * L + k0 + 2 * t);
-  a[2] = ld_pair(X + (r0 + g) * L + k0 + 8 + 2 * t);
-  a[3] = ld_pair(X + (r0 + g + 8) * L + k0 + 8 + 2 * t);
-}
-
-// B fragment with B[k][n] = Y[n0 + n][k0 + k]: Y's rows are the n index.
-__device__ __forceinline__ void load_b_rows(uint32_t& b0, uint32_t& b1, const uint16_t* Y, int L,
-                                            int n0, int k0, int g, int t) {
-  b0 = ld_pair(Y + (n0 + g) * L + k0 + 2 * t);
-  b1 = ld_pair(Y + (n0 + g) * L + k0 + 8 + 2 * t);
-}
-
-// B fragment with B[k][n] = Y[k0 + k][n0 + n]: Y's rows are the k index.
-__device__ __forceinline__ void load_b_cols(uint32_t& b0, uint32_t& b1, const uint16_t* Y, int L,
-                                            int k0, int n0, int g, int t) {
-  const uint16_t* p = Y + (k0 + 2 * t) * L + n0 + g;
-  b0 = (uint32_t)p[0] | ((uint32_t)p[L] << 16);
-  b1 = (uint32_t)p[8 * L] | ((uint32_t)p[9 * L] << 16);
-}
-
-// Accumulator tiles c0 (columns 0-7) and c1 (8-15) as a bf16 A fragment.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
 }
 
 // the 4 lanes of one fragment row (same g) reduce over t
@@ -618,278 +603,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ uint16_t bf16_bits(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16(x));
-}
-
-// Rows [row0, row0 + 64) of a row-major (rows, D) bf16 matrix into a
-// (64, DP + 8) smem tile, zero past the ends.  vec: D % 8 == 0 and the
-// source is 16-byte aligned, so each thread moves 8 elements at once.
-template <int DP>
-__device__ __forceinline__ void load_tile_bf16(uint16_t* dst, const uint16_t* __restrict__ src,
-                                               int row0, int rows, int D, int vec) {
-  constexpr int L = DP + 8, CH = DP / 8;
-  for (int idx = threadIdx.x; idx < 64 * CH; idx += kMmaThreads) {
-    const int r = idx / CH;
-    const int c = (idx - r * CH) * 8;
-    const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < rows && c < D) {
-      const uint16_t* sp = src + (size_t)gr * D + c;
-      if (vec) {
-        val = *reinterpret_cast<const uint4*>(sp);
-      } else {
-        uint32_t w[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const uint32_t lo = c + 2 * e < D ? sp[2 * e] : 0u;
-          const uint32_t hi = c + 2 * e + 1 < D ? sp[2 * e + 1] : 0u;
-          w[e] = lo | (hi << 16);
-        }
-        val = make_uint4(w[0], w[1], w[2], w[3]);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * L + c) = val;
-  }
-}
-
-template <int DP, bool kBias>
-__global__ void __launch_bounds__(kMmaThreads)
-mma_dq_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-              const uint16_t* __restrict__ v, const float* __restrict__ bias,
-              const uint16_t* __restrict__ dout, const float* __restrict__ lse,
-              const float* __restrict__ delta, uint16_t* __restrict__ dq, int H, int group,
-              int Sq, int Sk, int D, float scale, int causal, int shift, int vec) {
-  constexpr int L = DP + 8, KD = DP / 16, ND = DP / 8, NK = kBlockK / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* Qs = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* Os = Qs + kBlockQ * L;  // dO tile
-  uint16_t* Ks = Os + kBlockQ * L;
-  uint16_t* Vs = Ks + kBlockK * L;
-
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // last (heaviest) q-tiles first
-  const int b = bh / H;
-  const int kvh = b * (H / group) + (bh % H) / group;
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = (threadIdx.x / 32) * 16;
-  const uint16_t* kp = k + (size_t)kvh * Sk * D;
-  const uint16_t* vp = v + (size_t)kvh * Sk * D;
-  const float* bias_row = kBias ? bias + (size_t)b * Sk : nullptr;
-  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-
-  load_tile_bf16<DP>(Qs, q + (size_t)bh * Sq * D, q0, Sq, D, vec);
-  load_tile_bf16<DP>(Os, dout + (size_t)bh * Sq * D, q0, Sq, D, vec);
-  __syncthreads();
-  uint32_t qa[KD][4], oa[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    load_a(qa[kk], Qs, L, r0, kk * 16, g, t);
-    load_a(oa[kk], Os, L, r0, kk * 16, g, t);
-  }
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    row_lse[h] = row[h] < Sq ? lse[(size_t)bh * Sq + row[h]] : 0.f;
-    row_delta[h] = row[h] < Sq ? delta[(size_t)bh * Sq + row[h]] : 0.f;
-  }
-  float acc[ND][4];
-#pragma unroll
-  for (int dn = 0; dn < ND; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
-
-  const int nk = key_tiles(q0, Sq, Sk, causal, shift);  // 0: the rows get zeros
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * kBlockK;
-    __syncthreads();
-    load_tile_bf16<DP>(Ks, kp, k0, Sk, D, vec);
-    load_tile_bf16<DP>(Vs, vp, k0, Sk, D, vec);
-    __syncthreads();
-
-    float s[NK][4], dp[NK][4];
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
-#pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        uint32_t b0, b1;
-        load_b_rows(b0, b1, Ks, L, n * 8, kk * 16, g, t);
-        mma16816(s[n], qa[kk], b0, b1);
-        load_b_rows(b0, b1, Vs, L, n * 8, kk * 16, g, t);
-        mma16816(dp[n], oa[kk], b0, b1);
-      }
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const float x =
-            masked_score<kBias>(s[n][e], row[h], col, Sk, scale, bias_row, causal, shift);
-        // rows past Sq get exp(-1e30) = 0: a select, as in mma_dkdv_kernel
-        const float p = expf(row[h] < Sq ? x - row_lse[h] : kNegInf);
-        s[n][e] = p * (dp[n][e] - row_delta[h]) * scale;  // ds
-      }
-#pragma unroll
-    for (int kc = 0; kc < NK / 2; ++kc) {
-      uint32_t da[4];
-      acc_to_a(da, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-      for (int dn = 0; dn < ND; ++dn) {
-        uint32_t b0, b1;
-        load_b_cols(b0, b1, Ks, L, kc * 16, dn * 8, g, t);
-        mma16816(acc[dn], da, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (row[h] >= Sq) continue;
-    uint16_t* drow = dq + ((size_t)bh * Sq + row[h]) * D;
-#pragma unroll
-    for (int dn = 0; dn < ND; ++dn)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = dn * 8 + 2 * t + e;
-        if (col < D) drow[col] = bf16_bits(acc[dn][2 * h + e]);
-      }
-  }
-}
-
-__device__ __forceinline__ void store_out(uint16_t* p, float x) { *p = bf16_bits(x); }
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-
-// One block per (q head fold bh, k-tile), each warp 16 keys; loops over
-// q-tiles with the transposed products s^T = k.q^T and dp^T = v.dO^T, then
-// dv += p^T.dO and dk += ds^T.q.  TO = float for the GQA partials.
-template <int DP, typename TO, bool kBias>
-__global__ void __launch_bounds__(kMmaThreads)
-mma_dkdv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                const uint16_t* __restrict__ v, const float* __restrict__ bias,
-                const uint16_t* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, TO* __restrict__ dk, TO* __restrict__ dv, int H,
-                int group, int Sq, int Sk, int D, float scale, int causal, int shift, int vec) {
-  constexpr int L = DP + 8, KD = DP / 16, ND = DP / 8, NQ = kBlockQ / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* Ks = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* Vs = Ks + kBlockK * L;
-  uint16_t* Qs = Vs + kBlockK * L;
-  uint16_t* Os = Qs + kBlockQ * L;  // dO tile
-  float* Ls = reinterpret_cast<float*>(Os + kBlockQ * L);  // lse of the q-tile
-  float* Es = Ls + kBlockQ;                                 // delta of the q-tile
-
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kBlockK;
-  const int b = bh / H;
-  const int kvh = b * (H / group) + (bh % H) / group;
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = (threadIdx.x / 32) * 16;
-  const uint16_t* qp = q + (size_t)bh * Sq * D;
-  const uint16_t* op = dout + (size_t)bh * Sq * D;
-  const float* bias_row = kBias ? bias + (size_t)b * Sk : nullptr;
-  const int key[2] = {k0 + r0 + g, k0 + r0 + g + 8};
-
-  load_tile_bf16<DP>(Ks, k + (size_t)kvh * Sk * D, k0, Sk, D, vec);
-  load_tile_bf16<DP>(Vs, v + (size_t)kvh * Sk * D, k0, Sk, D, vec);
-  __syncthreads();
-  uint32_t ka[KD][4], va[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    load_a(ka[kk], Ks, L, r0, kk * 16, g, t);
-    load_a(va[kk], Vs, L, r0, kk * 16, g, t);
-  }
-  float acc_k[ND][4], acc_v[ND][4];
-#pragma unroll
-  for (int dn = 0; dn < ND; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[dn][e] = acc_v[dn][e] = 0.f;
-
-  const int nq = (Sq + kBlockQ - 1) / kBlockQ;
-  // causal: q-tiles whose last row lies before this k-tile see none of it;
-  // when no tile sees it the loop is empty and the rows get zeros
-  const int i0 = first_query_tile(k0, causal, shift);
-  for (int it = i0; it < nq; ++it) {
-    const int q0 = it * kBlockQ;
-    __syncthreads();
-    load_tile_bf16<DP>(Qs, qp, q0, Sq, D, vec);
-    load_tile_bf16<DP>(Os, op, q0, Sq, D, vec);
-    if (threadIdx.x < kBlockQ) {
-      const int r = q0 + threadIdx.x;
-      Ls[threadIdx.x] = r < Sq ? lse[(size_t)bh * Sq + r] : 0.f;
-      Es[threadIdx.x] = r < Sq ? delta[(size_t)bh * Sq + r] : 0.f;
-    }
-    __syncthreads();
-
-    float s[NQ][4], dp[NQ][4];  // rows: this warp's keys, cols: queries
-#pragma unroll
-    for (int n = 0; n < NQ; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
-#pragma unroll
-      for (int n = 0; n < NQ; ++n) {
-        uint32_t b0, b1;
-        load_b_rows(b0, b1, Qs, L, n * 8, kk * 16, g, t);
-        mma16816(s[n], ka[kk], b0, b1);
-        load_b_rows(b0, b1, Os, L, n * 8, kk * 16, g, t);
-        mma16816(dp[n], va[kk], b0, b1);
-      }
-#pragma unroll
-    for (int n = 0; n < NQ; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = n * 8 + 2 * t + (e & 1);
-        const int query = q0 + ql;
-        const float x =
-            masked_score<kBias>(s[n][e], query, key[e >> 1], Sk, scale, bias_row, causal, shift);
-        // rows past Sq get exp(-1e30) = 0: a select on the argument, not a
-        // branch around expf, which ptxas made one branch region an element
-        // in the no-bias copy, the exponentials one after another (dq and
-        // dkdv 14 % and 19 % slower, PERF.md)
-        const float p = expf(query < Sq ? x - Ls[ql] : kNegInf);
-        s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - Es[ql]) * scale;  // ds
-      }
-#pragma unroll
-    for (int kc = 0; kc < NQ / 2; ++kc) {
-      uint32_t pa[4], da[4];
-      acc_to_a(pa, s[2 * kc], s[2 * kc + 1]);
-      acc_to_a(da, dp[2 * kc], dp[2 * kc + 1]);
-#pragma unroll
-      for (int dn = 0; dn < ND; ++dn) {
-        uint32_t b0, b1;
-        load_b_cols(b0, b1, Os, L, kc * 16, dn * 8, g, t);
-        mma16816(acc_v[dn], pa, b0, b1);
-        load_b_cols(b0, b1, Qs, L, kc * 16, dn * 8, g, t);
-        mma16816(acc_k[dn], da, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (key[h] >= Sk) continue;
-    TO* krow = dk + ((size_t)bh * Sk + key[h]) * D;
-    TO* vrow = dv + ((size_t)bh * Sk + key[h]) * D;
-#pragma unroll
-    for (int dn = 0; dn < ND; ++dn)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = dn * 8 + 2 * t + e;
-        if (col < D) {
-          store_out(krow + col, acc_k[dn][2 * h + e]);
-          store_out(vrow + col, acc_v[dn][2 * h + e]);
-        }
-      }
-  }
 }
 
 // ------------------------------------------------------ bf16 forward: wgmma --
@@ -953,6 +666,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Box of c0.. of a 1-D tensor map (f32 rows: lse, delta) into shared memory.
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
       : "memory");
 }
 
@@ -1021,6 +744,18 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 // memory, both K-major; scale_d 0 overwrites d.
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a, uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : WG_F16(0)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b,
@@ -1455,6 +1190,568 @@ wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ------------------------------------------------------ bf16 backward: wgmma --
+// Both backward kernels have the forward's shape: a persistent block of 384
+// threads per SM walks work items heaviest first, warpgroup 0 loads through
+// TMA into rings under mbarriers, warpgroups 1 and 2 each own 64 rows of
+// the wgmma M.  See the header.
+
+constexpr int kBwdStages = 3;   // the ring of q-tiles (dkdv) or of K/V tiles (dq)
+constexpr int kBwdKeys = 128;   // dkdv: keys a work item, 64 for each consumer warpgroup
+
+// A warpgroup's 64 x DP f32 accumulator (DP / 64 arrays of 32 registers, in
+// the layout of wgmma_fwd_kernel's o) through its staging tile as TO (bf16,
+// or the f32 GQA partials) and one TMA store to rows [row0, row0 + 64) of
+// head `head` of `map`.  The leader first waits until the warpgroup's last
+// store has read the tile.
+template <int DP, typename TO>
+__device__ __forceinline__ void store_rows(const float (&acc)[DP / kBox][32], unsigned char* tile,
+                                           uint32_t tile_addr, const CUtensorMap* map, int row0,
+                                           int head, int warp, int g, int t, bool leader,
+                                           int wbar) {
+  constexpr int kElem = sizeof(TO);
+  if (leader) tma_store_wait_read();
+  named_sync(wbar, 128);
+#pragma unroll
+  for (int x = 0; x < DP / kBox; ++x)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float a = acc[x][4 * n + 2 * h], b = acc[x][4 * n + 2 * h + 1];
+        unsigned char* dst =
+            tile + staged_offset(warp * 16 + g + 8 * h, x * kBox + n * 8 + 2 * t, kElem);
+        if constexpr (kElem == 4)
+          *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+        else
+          *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
+      }
+  fence_async_smem();
+  named_sync(wbar, 128);
+  if (leader)
+#pragma unroll
+    for (int x = 0; x < DP * kElem / 128; ++x)
+      tma_store(map, tile_addr + x * 64 * 128, x * (128 / kElem), row0, head);
+}
+
+// dq of one key tile: on the S = Q.K^T and dP = dO.V^T accumulators (row
+// row[(i >> 1) & 1], key c0 + 8 (i / 4) + (i & 1) at element i), ds = p *
+// (dp - delta) * scale into dp, p = exp2(s * scale * log2(e) (+ bias *
+// log2(e)) - lse * log2(e)): one FFMA and ex2, so any sign of the scale.
+// nl is -lse * log2(e) of each row, -1e30 past Sq.  kEdge: the tile crosses
+// the diagonal or the end of the keys; a masked score's exponent becomes
+// -1e30 by a select (a branch around ex2 costs, PERF.md).
+template <bool kBias, bool kEdge, int N>
+__device__ __forceinline__ void dq_grads(const float (&s)[N], float (&dp)[N], const int (&row)[2],
+                                         int c0, int Sk, const float (&nl)[2],
+                                         const float (&de)[2], float scale_log2, float scale,
+                                         const float* __restrict__ bias_row, int causal,
+                                         int shift) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int h = (i >> 1) & 1, c = c0 + (i / 4) * 8 + (i & 1);
+    float arg;
+    if (kBias) {
+      const float b = !kEdge || c < Sk ? bias_row[c] : 0.f;
+      arg = fmaf(s[i], scale_log2, fmaf(b, kLog2e, nl[h]));
+    } else {
+      arg = fmaf(s[i], scale_log2, nl[h]);
+    }
+    if (kEdge && (c >= Sk || (causal && row[h] + shift < c))) arg = kNegInf;
+    dp[i] = ex2(arg) * (dp[i] - de[h]) * scale;
+  }
+}
+
+// dkdv of one q-tile, transposed: on the S^T = K.Q^T and dP^T = V.dO^T
+// accumulators (key key[(i >> 1) & 1], query q0 + 8 (i / 4) + 2 t + (i &
+// 1) at element i), p into s and ds into dp, as dq_grads.  lse and delta
+// of the tile's BQ queries lie in shared memory; a query past Sq takes
+// -1e30 for -lse * log2(e), so p = 0 there whatever the box read.  kEdge:
+// the tile crosses the causal diagonal.
+template <bool kBias, bool kEdge, int BQ>
+__device__ __forceinline__ void dkdv_grads(float (&s)[BQ / 2], float (&dp)[BQ / 2],
+                                           const float* lse, const float* delta, int q0, int t,
+                                           int Sq, const int (&key)[2], const float (&bias2)[2],
+                                           float scale_log2, float scale, int shift) {
+#pragma unroll
+  for (int n = 0; n < BQ / 8; ++n) {
+    const int c = 8 * n + 2 * t;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int q = q0 + c + e;
+      const float nl = q < Sq ? -lse[c + e] * kLog2e : kNegInf;
+      const float de = delta[c + e];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * n + 2 * h + e;
+        float arg = fmaf(s[i], scale_log2, kBias ? nl + bias2[h] : nl);
+        if (kEdge && q + shift < key[h]) arg = kNegInf;
+        const float p = ex2(arg);
+        s[i] = p;
+        dp[i] = p * (dp[i] - de) * scale;
+      }
+    }
+  }
+}
+
+// The accumulator x (64 x N f32) as bf16 register A fragments, 4 a k-step.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 2], const float (&x)[N]) {
+#pragma unroll
+  for (int n = 0; n < N / 4; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) a[2 * n + h] = pack_bf16(x[4 * n + 2 * h], x[4 * n + 2 * h + 1]);
+}
+
+// The r-th work item of this block, or -1 past the end: blockIdx.x, then in
+// snake order one round of gridDim.x further each (the forward's walk).
+__device__ __forceinline__ int item_at(int r, int items) {
+  const int i = r * gridDim.x + (r % 2 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+  return i < items ? i : -1;
+}
+
+// Shared memory of dq: Q and dO (128 rows each), the ring's K and V stages
+// (BK rows each), each in DP / 64 boxes of 128 bytes a row; each consumer
+// warpgroup's dq tile, staged for a TMA store; the mbarriers.
+template <int DP, int BK>
+struct DqSmem {
+  static constexpr int kQBytes = kFwdBlockQ * DP * 2;   // Q, or dO
+  static constexpr int kTileBytes = BK * DP * 2;        // a K or a V tile
+  static constexpr int kDo = kQBytes;
+  static constexpr int kK = 2 * kQBytes;
+  static constexpr int kV = kK + kBwdStages * kTileBytes;
+  static constexpr int kOutBytes = 64 * DP * 2;         // a warpgroup's dq
+  static constexpr int kOut = kV + kBwdStages * kTileBytes;
+  // q_full, q_empty, then full[] (K and V) and empty[] of each stage
+  static constexpr int kBar = kOut + 2 * kOutBytes;
+  static constexpr int kBytes = kBar + 8 * (2 + 2 * kBwdStages) + 1024;  // + alignment
+};
+
+// The bf16 dq over tiles of 128 query rows of one q head fold bh, the
+// heaviest causal tiles first; the forward's shape with other products.
+// Warpgroup 0 loads Q and dO once a tile and K and V tiles into a ring;
+// warpgroups 1 and 2 take 64 rows each.  Per key tile: S = Q.K^T and dP =
+// dO.V^T (wgmma, both operands in shared memory), ds in registers, dQ +=
+// dS.K (dS the register A operand, K read MN-major through the transpose
+// flag); S and dP of key tile j are issued with the dQ product of tile
+// j - 1, and tile j's ds is computed while that product runs.
+template <int DP, int BK, bool kBias>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+wgmma_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_do,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                const __grid_constant__ CUtensorMap tm_dq, const float* __restrict__ bias,
+                const float* __restrict__ lse, const float* __restrict__ delta, int BH, int H,
+                int group, int Sq, int Sk, float scale_log2, float scale, int causal,
+                int shift) {
+  using L = DqSmem<DP, BK>;
+  constexpr int kBoxes = DP / kBox;
+  constexpr int S = kBwdStages;
+  extern __shared__ __align__(16) unsigned char dq_smem[];
+  const uint32_t base = (smem_addr(dq_smem) + 1023u) & ~1023u;  // the swizzle's alignment
+  unsigned char* const smem = dq_smem + (base - smem_addr(dq_smem));
+  const uint32_t q_full = base + L::kBar, q_empty = q_full + 8;
+  const uint32_t full = q_empty + 8, empty = full + 8 * S;
+  const int nq = (Sq + kFwdBlockQ - 1) / kFwdBlockQ;
+  const int tiles = BH * nq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, kFwdThreads - 128);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, kFwdThreads - 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread loads each tile's Q and dO, and the K/V ring
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int it = 0, qn = 0;
+      for (int r = 0, tile; (tile = item_at(r, tiles)) >= 0; ++r) {
+        const int bh = tile % BH, q0 = (nq - 1 - tile / BH) * kFwdBlockQ;
+        const int nk = key_tiles<kFwdBlockQ, BK>(q0, Sq, Sk, causal, shift);
+        if (nk == 0) continue;   // nothing to read: the rows get zeros
+        const int kvh = (bh / H) * (H / group) + (bh % H) / group;
+        if (qn > 0) mbar_wait(q_empty, (qn - 1) & 1);
+        mbar_expect_tx(q_full, 2 * L::kQBytes);
+#pragma unroll
+        for (int x = 0; x < kBoxes; ++x) {
+          tma_load(base + x * kFwdBlockQ * 128, &tm_q, q_full, x * kBox, q0, bh);
+          tma_load(base + L::kDo + x * kFwdBlockQ * 128, &tm_do, q_full, x * kBox, q0, bh);
+        }
+        ++qn;
+        for (int j = 0; j < nk; ++j, ++it) {
+          const int st = it % S;
+          if (it >= S) mbar_wait(empty + 8 * st, (it / S - 1) & 1);
+          const uint32_t bar = full + 8 * st;
+          mbar_expect_tx(bar, 2 * L::kTileBytes);
+#pragma unroll
+          for (int x = 0; x < kBoxes; ++x) {
+            tma_load(base + L::kK + st * L::kTileBytes + x * BK * 128, &tm_k, bar, x * kBox,
+                     j * BK, kvh);
+            tma_load(base + L::kV + st * L::kTileBytes + x * BK * 128, &tm_v, bar, x * kBox,
+                     j * BK, kvh);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup cw takes rows [q0 + 64 cw, q0 + 64 cw + 64)
+    setmaxnreg_inc<kConsumerRegs>();
+    const int tid = threadIdx.x - 128;
+    const int cw = tid / 128;
+    const int warp = (tid % 128) / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const uint32_t q_addr = base + cw * 64 * 128, do_addr = base + L::kDo + cw * 64 * 128;
+    const uint32_t staged = base + L::kOut + cw * L::kOutBytes;
+    const bool leader = tid % 128 == 0;
+    const int wbar = 1 + cw;
+    int it = 0, qn = 0;
+    for (int r = 0, tile; (tile = item_at(r, tiles)) >= 0; ++r) {
+      const int bh = tile % BH, q0 = (nq - 1 - tile / BH) * kFwdBlockQ;
+      const int nk = key_tiles<kFwdBlockQ, BK>(q0, Sq, Sk, causal, shift);
+      const int wrow0 = q0 + cw * 64;
+      const int row[2] = {wrow0 + warp * 16 + g, wrow0 + warp * 16 + g + 8};
+      const float* bias_row = kBias ? bias + (size_t)(bh / H) * Sk : nullptr;
+      float nl[2], de[2];   // -lse * log2(e) (-1e30 past Sq: p = 0) and delta
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool in = row[h] < Sq;
+        const size_t rr = (size_t)bh * Sq + row[h];
+        nl[h] = in ? -lse[rr] * kLog2e : kNegInf;
+        de[h] = in ? delta[rr] : 0.f;
+      }
+      float dq[kBoxes][32];
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dq[x][i] = 0.f;
+
+      if (nk > 0) {
+        float s[BK / 2], dp[BK / 2];
+        uint32_t da[BK / 4];
+        // S = Q.K^T and dP = dO.V^T of the key tile at ring position `at`
+        auto issue_sdp = [&](int at) {
+          const uint32_t k_addr = base + L::kK + (at % S) * L::kTileBytes;
+          const uint32_t v_addr = base + L::kV + (at % S) * L::kTileBytes;
+#pragma unroll
+          for (int kk = 0; kk < DP / 16; ++kk) {
+            const int x = kk / 4, in = (kk % 4) * 32;  // box, byte offset in its 128-byte row
+            wgmma_ss<BK>(s, sw128_desc(q_addr + x * kFwdBlockQ * 128 + in),
+                         sw128_desc(k_addr + x * BK * 128 + in), kk);
+          }
+#pragma unroll
+          for (int kk = 0; kk < DP / 16; ++kk) {
+            const int x = kk / 4, in = (kk % 4) * 32;
+            wgmma_ss<BK>(dp, sw128_desc(do_addr + x * kFwdBlockQ * 128 + in),
+                         sw128_desc(v_addr + x * BK * 128 + in), kk);
+          }
+          wgmma_commit();
+        };
+        // dQ += dS.K of the key tile at `at` (K MN-major: the transpose flag)
+        auto issue_dq = [&](int at) {
+          const uint32_t k_addr = base + L::kK + (at % S) * L::kTileBytes;
+#pragma unroll
+          for (int c = 0; c < BK / 16; ++c)
+#pragma unroll
+            for (int x = 0; x < kBoxes; ++x)
+              wgmma_rs_tn64(dq[x], da + 4 * c, sw128_desc(k_addr + x * BK * 128 + c * 16 * 128));
+          wgmma_commit();
+        };
+        auto grads = [&](int j) {   // ds of key tile j into dp
+          const int k0 = j * BK;
+          if (k0 + BK > Sk || (causal && k0 + BK - 1 > wrow0 + shift))
+            dq_grads<kBias, true>(s, dp, row, k0 + 2 * t, Sk, nl, de, scale_log2, scale,
+                                  bias_row, causal, shift);
+          else
+            dq_grads<kBias, false>(s, dp, row, k0 + 2 * t, Sk, nl, de, scale_log2, scale,
+                                   bias_row, causal, shift);
+        };
+        auto fence_dq = [&] {
+#pragma unroll
+          for (int x = 0; x < kBoxes; ++x) fence_regs(dq[x]);
+          fence_regs(da);
+        };
+
+        mbar_wait(q_full, qn & 1);
+        mbar_wait(full + 8 * (it % S), (it / S) & 1);
+        wgmma_fence();
+        issue_sdp(it);
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        if (nk == 1) mbar_arrive(q_empty);   // Q and dO read for the last time
+        grads(0);
+        pack_a(da, dp);
+        for (int j = 1; j < nk; ++j) {
+          const int prev = it++;   // the tile whose dQ product is pending
+          mbar_wait(full + 8 * (it % S), (it / S) & 1);
+          fence_dq();
+          wgmma_fence();
+          issue_sdp(it);
+          issue_dq(prev);
+          wgmma_wait<1>();   // S and dP of tile j (the older group) are ready
+          fence_regs(s);
+          fence_regs(dp);
+          if (j == nk - 1) mbar_arrive(q_empty);
+          grads(j);
+          wgmma_wait<0>();   // dQ of tile j - 1 is done: its stage is free
+          fence_dq();
+          mbar_arrive(empty + 8 * (prev % S));
+          pack_a(da, dp);
+        }
+        fence_dq();
+        wgmma_fence();
+        issue_dq(it);
+        wgmma_wait<0>();
+        fence_dq();
+        mbar_arrive(empty + 8 * (it % S));
+        ++it;
+        ++qn;
+      }
+      store_rows<DP, uint16_t>(dq, smem + (staged - base), staged, &tm_dq, wrow0, bh, warp, g,
+                               t, leader, wbar);
+    }
+    if (leader) tma_store_wait_read();   // shared memory outlives the last store's reads
+  }
+}
+
+// Shared memory of dkdv: the item's K and V (128 rows each), the ring's
+// stages (each a q-tile's Q and dO, BQ rows, then its lse and its delta
+// boxes), each consumer warpgroup's staging tile for dK and dV in turn,
+// the mbarriers.  A row box holds BQ + 4 f32 from the 16-byte boundary at
+// or before the tile's first row (TMA reads a 1-D box from a 16-byte-
+// aligned address); the tile's rows start (bh * Sq + q0) % 4 into it.
+template <int DP, int BQ, typename TO>
+struct DkdvSmem {
+  static constexpr int kKVBytes = kBwdKeys * DP * 2;   // K, or V
+  static constexpr int kQBytes = BQ * DP * 2;          // a q-tile's Q, or dO
+  static constexpr int kRowBox = BQ + 4;               // f32 a row box
+  static constexpr int kRowBytes = (kRowBox * 4 + 127) / 128 * 128;
+  static constexpr int kRows = 2 * kQBytes;            // lse, then delta, in a stage
+  static constexpr int kStageBytes = (2 * kQBytes + 2 * kRowBytes + 1023) / 1024 * 1024;
+  static constexpr int kV = kKVBytes;
+  static constexpr int kStages = 2 * kKVBytes;
+  static constexpr int kOutBytes = 64 * DP * (int)sizeof(TO);   // a warpgroup's dK or dV
+  static constexpr int kOut = kStages + kBwdStages * kStageBytes;
+  // kv_full, kv_empty, then full[] and empty[] of each stage
+  static constexpr int kBar = kOut + 2 * kOutBytes;
+  static constexpr int kBytes = kBar + 8 * (2 + 2 * kBwdStages) + 1024;  // + alignment
+};
+
+// The bf16 dkdv over items of 128 keys of one q head fold bh (keys that no
+// query sees first: the causal heaviest), dK and dV per q head (TO =
+// float: the GQA partials).  Warpgroup 0 loads the item's K and V once and
+// a ring of q-tiles (Q, dO, lse, delta); warpgroups 1 and 2 take 64 keys
+// each.  Per q-tile: S^T = K.Q^T and dP^T = V.dO^T (wgmma, K and V the A
+// operands, Q and dO the B operands, all K-major in shared memory), p and
+// ds in registers, dV += P^T.dO and dK += dS^T.Q (register A operands, dO
+// and Q read MN-major through the transpose flag); S^T and dP^T of q-tile
+// j are issued with the dV and dK products of tile j - 1, and tile j's p
+// and ds are computed while those run.
+template <int DP, int BQ, typename TO, bool kBias>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_do,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_lse,
+                  const __grid_constant__ CUtensorMap tm_delta,
+                  const __grid_constant__ CUtensorMap tm_dk,
+                  const __grid_constant__ CUtensorMap tm_dv, const float* __restrict__ bias,
+                  int BH, int H, int group, int Sq, int Sk, float scale_log2, float scale,
+                  int causal, int shift) {
+  using L = DkdvSmem<DP, BQ, TO>;
+  constexpr int kBoxes = DP / kBox;
+  constexpr int S = kBwdStages;
+  extern __shared__ __align__(16) unsigned char dkdv_smem[];
+  const uint32_t base = (smem_addr(dkdv_smem) + 1023u) & ~1023u;  // the swizzle's alignment
+  unsigned char* const smem = dkdv_smem + (base - smem_addr(dkdv_smem));
+  const uint32_t kv_full = base + L::kBar, kv_empty = kv_full + 8;
+  const uint32_t full = kv_empty + 8, empty = full + 8 * S;
+  const int nkt = (Sk + kBwdKeys - 1) / kBwdKeys;
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int items = BH * nkt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, kFwdThreads - 128);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, kFwdThreads - 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread loads each item's K and V, and the q-tile ring
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int it = 0, kvn = 0;
+      for (int r = 0, item; (item = item_at(r, items)) >= 0; ++r) {
+        const int bh = item % BH, k0 = item / BH * kBwdKeys;
+        const int i0 = first_query_tile<BQ>(k0, causal, shift);
+        if (i0 >= nq) continue;   // no query sees these keys: they get zeros
+        const int kvh = (bh / H) * (H / group) + (bh % H) / group;
+        if (kvn > 0) mbar_wait(kv_empty, (kvn - 1) & 1);
+        mbar_expect_tx(kv_full, 2 * L::kKVBytes);
+#pragma unroll
+        for (int x = 0; x < kBoxes; ++x) {
+          tma_load(base + x * kBwdKeys * 128, &tm_k, kv_full, x * kBox, k0, kvh);
+          tma_load(base + L::kV + x * kBwdKeys * 128, &tm_v, kv_full, x * kBox, k0, kvh);
+        }
+        ++kvn;
+        for (int i = i0; i < nq; ++i, ++it) {
+          const int st = it % S;
+          if (it >= S) mbar_wait(empty + 8 * st, (it / S - 1) & 1);
+          const uint32_t dst = base + L::kStages + st * L::kStageBytes;
+          const uint32_t bar = full + 8 * st;
+          mbar_expect_tx(bar, 2 * L::kQBytes + 2 * L::kRowBox * 4);
+#pragma unroll
+          for (int x = 0; x < kBoxes; ++x) {
+            tma_load(dst + x * BQ * 128, &tm_q, bar, x * kBox, i * BQ, bh);
+            tma_load(dst + L::kQBytes + x * BQ * 128, &tm_do, bar, x * kBox, i * BQ, bh);
+          }
+          // rows past Sq read the next head's (or zeros): their p is 0
+          const int row0 = (bh * Sq + i * BQ) & ~3;
+          tma_load_1d(dst + L::kRows, &tm_lse, bar, row0);
+          tma_load_1d(dst + L::kRows + L::kRowBytes, &tm_delta, bar, row0);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup cw takes keys [k0 + 64 cw, k0 + 64 cw + 64)
+    setmaxnreg_inc<kConsumerRegs>();
+    const int tid = threadIdx.x - 128;
+    const int cw = tid / 128;
+    const int warp = (tid % 128) / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const uint32_t k_addr = base + cw * 64 * 128, v_addr = base + L::kV + cw * 64 * 128;
+    const uint32_t staged = base + L::kOut + cw * L::kOutBytes;
+    const bool leader = tid % 128 == 0;
+    const int wbar = 1 + cw;
+    int it = 0, kvn = 0;
+    for (int r = 0, item; (item = item_at(r, items)) >= 0; ++r) {
+      const int bh = item % BH, k0 = item / BH * kBwdKeys, kw0 = k0 + cw * 64;
+      const int i0 = first_query_tile<BQ>(k0, causal, shift);
+      const int key[2] = {kw0 + warp * 16 + g, kw0 + warp * 16 + g + 8};
+      float bias2[2];   // bias * log2(e) of the thread's keys (rows past Sk: 0)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        bias2[h] = kBias && key[h] < Sk ? bias[(size_t)(bh / H) * Sk + key[h]] * kLog2e : 0.f;
+      float dv[kBoxes][32], dk[kBoxes][32];
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dv[x][i] = dk[x][i] = 0.f;
+
+      if (i0 < nq) {
+        const int n = nq - i0;
+        float s[BQ / 2], dp[BQ / 2];
+        uint32_t pa[BQ / 4], da[BQ / 4];
+        auto stage = [&](int at) { return base + L::kStages + (at % S) * L::kStageBytes; };
+        // S^T = K.Q^T and dP^T = V.dO^T of the q-tile at ring position `at`
+        auto issue_sdp = [&](int at) {
+          const uint32_t q_addr = stage(at), do_addr = q_addr + L::kQBytes;
+#pragma unroll
+          for (int kk = 0; kk < DP / 16; ++kk) {
+            const int x = kk / 4, in = (kk % 4) * 32;  // box, byte offset in its 128-byte row
+            wgmma_ss<BQ>(s, sw128_desc(k_addr + x * kBwdKeys * 128 + in),
+                         sw128_desc(q_addr + x * BQ * 128 + in), kk);
+          }
+#pragma unroll
+          for (int kk = 0; kk < DP / 16; ++kk) {
+            const int x = kk / 4, in = (kk % 4) * 32;
+            wgmma_ss<BQ>(dp, sw128_desc(v_addr + x * kBwdKeys * 128 + in),
+                         sw128_desc(do_addr + x * BQ * 128 + in), kk);
+          }
+          wgmma_commit();
+        };
+        // dV += P^T.dO and dK += dS^T.Q of the q-tile at `at` (dO and Q
+        // MN-major: the transpose flag)
+        auto issue_dkdv = [&](int at) {
+          const uint32_t q_addr = stage(at), do_addr = q_addr + L::kQBytes;
+#pragma unroll
+          for (int c = 0; c < BQ / 16; ++c)
+#pragma unroll
+            for (int x = 0; x < kBoxes; ++x) {
+              wgmma_rs_tn64(dv[x], pa + 4 * c, sw128_desc(do_addr + x * BQ * 128 + c * 16 * 128));
+              wgmma_rs_tn64(dk[x], da + 4 * c, sw128_desc(q_addr + x * BQ * 128 + c * 16 * 128));
+            }
+          wgmma_commit();
+        };
+        auto grads = [&](int at, int i) {   // p into s, ds into dp, of q-tile i at `at`
+          const int q0 = i * BQ;
+          const float* lse = reinterpret_cast<const float*>(smem + (stage(at) - base) + L::kRows) +
+                             (bh * Sq + q0) % 4;
+          const float* delta = lse + L::kRowBytes / 4;
+          if (causal && q0 + shift < kw0 + 63)
+            dkdv_grads<kBias, true, BQ>(s, dp, lse, delta, q0, t, Sq, key, bias2, scale_log2,
+                                        scale, shift);
+          else
+            dkdv_grads<kBias, false, BQ>(s, dp, lse, delta, q0, t, Sq, key, bias2, scale_log2,
+                                         scale, shift);
+        };
+        auto fence_dkdv = [&] {
+#pragma unroll
+          for (int x = 0; x < kBoxes; ++x) {
+            fence_regs(dv[x]);
+            fence_regs(dk[x]);
+          }
+          fence_regs(pa);
+          fence_regs(da);
+        };
+
+        mbar_wait(kv_full, kvn & 1);
+        mbar_wait(full + 8 * (it % S), (it / S) & 1);
+        wgmma_fence();
+        issue_sdp(it);
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        if (n == 1) mbar_arrive(kv_empty);   // K and V read for the last time
+        grads(it, i0);
+        pack_a(pa, s);
+        pack_a(da, dp);
+        for (int j = 1; j < n; ++j) {
+          const int prev = it++;   // the q-tile whose dV and dK products are pending
+          mbar_wait(full + 8 * (it % S), (it / S) & 1);
+          fence_dkdv();
+          wgmma_fence();
+          issue_sdp(it);
+          issue_dkdv(prev);
+          wgmma_wait<1>();   // S^T and dP^T of q-tile j (the older group) are ready
+          fence_regs(s);
+          fence_regs(dp);
+          if (j == n - 1) mbar_arrive(kv_empty);
+          grads(it, i0 + j);
+          wgmma_wait<0>();   // dV and dK of q-tile j - 1 are done: its stage is free
+          fence_dkdv();
+          mbar_arrive(empty + 8 * (prev % S));
+          pack_a(pa, s);
+          pack_a(da, dp);
+        }
+        fence_dkdv();
+        wgmma_fence();
+        issue_dkdv(it);
+        wgmma_wait<0>();
+        fence_dkdv();
+        mbar_arrive(empty + 8 * (it % S));
+        ++it;
+        ++kvn;
+      }
+      unsigned char* const tile = smem + (staged - base);
+      store_rows<DP, TO>(dv, tile, staged, &tm_dv, kw0, bh, warp, g, t, leader, wbar);
+      store_rows<DP, TO>(dk, tile, staged, &tm_dk, kw0, bh, warp, g, t, leader, wbar);
+    }
+    if (leader) tma_store_wait_read();   // shared memory outlives the last store's reads
+  }
+}
+
 // ------------------------------------------------------------- launchers --
 
 template <typename Kernel, typename... Args>
@@ -1472,16 +1769,8 @@ size_t fma_smem(int D, int tiles, int score_tiles, int rows) {
   return (size_t)(tiles * 64 * (D | 1) + score_tiles * kBlockQ * kPld + rows) * sizeof(float);
 }
 
-// bf16 design: tiles of (64, DP + 8) bf16 plus f32 rows
-size_t mma_smem(int DP, int tiles, int rows) {
-  return (size_t)tiles * 64 * (DP + 8) * sizeof(uint16_t) + (size_t)rows * sizeof(float);
-}
-
 // D -> columns per thread of the f32 design (16 each): 1, 2, 4 or 8.
 int column_chunks(int D) { return D <= 16 ? 1 : D <= 32 ? 2 : D <= 64 ? 4 : 8; }
-
-// D -> the bf16 design's padded width: 16, 32, 64 or 128.
-int padded_width(int D) { return 16 * column_chunks(D); }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
@@ -1533,6 +1822,22 @@ bool rows_map(CUtensorMap* map, const void* ptr, bool f32, int D, int rows, int 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The 1-D tensor map of n f32 at ptr (the (BH, Sq) lse and delta rows as
+// one run), in boxes of `box`, each loaded from a 16-byte-aligned
+// coordinate; a box past the end reads as zeros.
+bool vec_map(CUtensorMap* map, const float* ptr, long long n, int box) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 4};   // rank 1 reads none
+  const cuuint32_t boxes[1] = {(cuuint32_t)box};
+  const cuuint32_t steps[1] = {1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(ptr), dims, strides,
+                boxes, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // SMs of the current device (the persistent grid's size).
 int sm_count() {
   int dev = 0, n = 0;
@@ -1579,6 +1884,70 @@ cudaError_t launch_wgmma_fwd(const void* q, const void* k, const void* v, const 
                 causal, shift);
 }
 
+// Registers a thread at entry of a kernel, -1 if unknown: setmaxnreg
+// trades registers within a pool of 384 x kFwdEntryRegs, and a build that
+// allocated fewer at entry could stall the consumers for ever.
+template <typename Kernel>
+int entry_registers(Kernel kernel) {
+  cudaFuncAttributes attr;
+  return cudaFuncGetAttributes(&attr, kernel) == cudaSuccess ? attr.numRegs : -1;
+}
+
+// The bf16 dq on wgmma (see wgmma_dq_kernel).  D % 8 == 0 and 16-byte-
+// aligned q, k, v, dout, dq (TMA's rule).  Keys per tile: 128 at D <= 64,
+// 64 at D = 128 (the consumers' registers), as the forward.
+template <int DP, bool kBias>
+cudaError_t launch_wgmma_dq(const void* q, const void* k, const void* v, const float* bias,
+                            const void* dout, const float* lse, const float* delta, void* dq,
+                            int BH, int H, int group, int Sq, int Sk, int D, float scale,
+                            int causal, int shift, cudaStream_t s) {
+  constexpr int BK = DP == 64 ? 128 : 64;
+  const auto kernel = wgmma_dq_kernel<DP, BK, kBias>;
+  static const int entry_regs = entry_registers(kernel);
+  if (entry_regs != kFwdEntryRegs) return cudaErrorInvalidKernelImage;
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dq;
+  if (!rows_map(&tm_q, q, false, D, Sq, BH, kFwdBlockQ) ||
+      !rows_map(&tm_do, dout, false, D, Sq, BH, kFwdBlockQ) ||
+      !rows_map(&tm_k, k, false, D, Sk, BH / group, BK) ||
+      !rows_map(&tm_v, v, false, D, Sk, BH / group, BK) ||
+      !rows_map(&tm_dq, dq, false, D, Sq, BH, 64))
+    return cudaErrorInvalidValue;
+  const int tiles = BH * ((Sq + kFwdBlockQ - 1) / kFwdBlockQ);
+  static const int sms = sm_count();
+  return launch(kernel, dim3(std::min(tiles, sms)), kFwdThreads, DqSmem<DP, BK>::kBytes, s,
+                tm_q, tm_do, tm_k, tm_v, tm_dq, bias, lse, delta, BH, H, group, Sq, Sk,
+                scale * kLog2e, scale, causal, shift);
+}
+
+// The bf16 dkdv on wgmma (see wgmma_dkdv_kernel), TO = float for the GQA
+// partials.  Alignment as launch_wgmma_dq, and lse, delta 16-byte-aligned
+// (TMA reads them too).  q-tiles of 64 rows at D <= 64, 32 at D = 128,
+// where dK and dV take 128 of the consumers' registers.
+template <int DP, typename TO, bool kBias>
+cudaError_t launch_wgmma_dkdv(const void* q, const void* k, const void* v, const float* bias,
+                              const void* dout, const float* lse, const float* delta, void* dk,
+                              void* dv, int BH, int H, int group, int Sq, int Sk, int D,
+                              float scale, int causal, int shift, cudaStream_t s) {
+  constexpr int BQ = DP == 64 ? 64 : 32;
+  constexpr bool kF32 = sizeof(TO) == 4;
+  const auto kernel = wgmma_dkdv_kernel<DP, BQ, TO, kBias>;
+  static const int entry_regs = entry_registers(kernel);
+  if (entry_regs != kFwdEntryRegs) return cudaErrorInvalidKernelImage;
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_lse, tm_delta, tm_dk, tm_dv;
+  if (!rows_map(&tm_q, q, false, D, Sq, BH, BQ) || !rows_map(&tm_do, dout, false, D, Sq, BH, BQ) ||
+      !rows_map(&tm_k, k, false, D, Sk, BH / group, kBwdKeys) ||
+      !rows_map(&tm_v, v, false, D, Sk, BH / group, kBwdKeys) ||
+      !vec_map(&tm_lse, lse, (long long)BH * Sq, DkdvSmem<DP, BQ, TO>::kRowBox) ||
+      !vec_map(&tm_delta, delta, (long long)BH * Sq, DkdvSmem<DP, BQ, TO>::kRowBox) ||
+      !rows_map(&tm_dk, dk, kF32, D, Sk, BH, 64) || !rows_map(&tm_dv, dv, kF32, D, Sk, BH, 64))
+    return cudaErrorInvalidValue;
+  const int items = BH * ((Sk + kBwdKeys - 1) / kBwdKeys);
+  static const int sms = sm_count();
+  return launch(kernel, dim3(std::min(items, sms)), kFwdThreads, DkdvSmem<DP, BQ, TO>::kBytes, s,
+                tm_q, tm_do, tm_k, tm_v, tm_lse, tm_delta, tm_dk, tm_dv, bias, BH, H, group, Sq,
+                Sk, scale * kLog2e, scale, causal, shift);
+}
+
 // The forward kernels, as the forward (kUpdate false: bias or none, out,
 // lse) or as the ring block update (kUpdate true: the carry, offsets).
 template <bool kUpdate, bool kBias>
@@ -1615,23 +1984,16 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const float* 
                       const void* dout, const float* lse, const float* delta, void* dq, int BH,
                       int H, int group, int Sq, int Sk, int D, float scale, int causal,
                       int shift, int is_bf16, cudaStream_t s) {
-  const dim3 grid(BH, (Sq + kBlockQ - 1) / kBlockQ);
   if (is_bf16) {
-    using P = const uint16_t*;
-    const int vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
-                    aligned16(dout);
-    const int DP = padded_width(D);
-    const size_t smem = mma_smem(DP, 4, 0);
-#define DQ_ARGS grid, kMmaThreads, smem, s, (P)q, (P)k, (P)v, bias, (P)dout, lse, delta, \
-                (uint16_t*)dq, H, group, Sq, Sk, D, scale, causal, shift, vec
-    switch (DP) {
-      case 16: return launch(mma_dq_kernel<16, kBias>, DQ_ARGS);
-      case 32: return launch(mma_dq_kernel<32, kBias>, DQ_ARGS);
-      case 64: return launch(mma_dq_kernel<64, kBias>, DQ_ARGS);
-      default: return launch(mma_dq_kernel<128, kBias>, DQ_ARGS);
-    }
+    const bool aligned =
+        aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) && aligned16(dq);
+    if (D % 8 || !aligned) return cudaErrorInvalidValue;
+#define DQ_ARGS q, k, v, bias, dout, lse, delta, dq, BH, H, group, Sq, Sk, D, scale, causal, \
+                shift, s
+    return D <= 64 ? launch_wgmma_dq<64, kBias>(DQ_ARGS) : launch_wgmma_dq<128, kBias>(DQ_ARGS);
 #undef DQ_ARGS
   }
+  const dim3 grid(BH, (Sq + kBlockQ - 1) / kBlockQ);
   using P = const float*;
   const size_t smem = fma_smem(D, 4, 1, 0);
 #define DQ_ARGS grid, kThreads, smem, s, (P)q, (P)k, (P)v, bias, (P)dout, lse, delta, \
@@ -1650,31 +2012,20 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const float
                         const void* dout, const float* lse, const float* delta, void* dk,
                         void* dv, int BH, int H, int group, int Sq, int Sk, int D, float scale,
                         int causal, int shift, int is_bf16, cudaStream_t s) {
-  const dim3 grid(BH, (Sk + kBlockK - 1) / kBlockK);
   if (is_bf16) {
-    using P = const uint16_t*;
-    const int vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
-                    aligned16(dout);
-    const int DP = padded_width(D);
-    const size_t smem = mma_smem(DP, 4, 2 * kBlockQ);
-#define DKDV_ARGS(TO) grid, kMmaThreads, smem, s, (P)q, (P)k, (P)v, bias, (P)dout, lse, delta, \
-                      (TO*)dk, (TO*)dv, H, group, Sq, Sk, D, scale, causal, shift, vec
-    if (group > 1) {
-      switch (DP) {
-        case 16: return launch(mma_dkdv_kernel<16, float, kBias>, DKDV_ARGS(float));
-        case 32: return launch(mma_dkdv_kernel<32, float, kBias>, DKDV_ARGS(float));
-        case 64: return launch(mma_dkdv_kernel<64, float, kBias>, DKDV_ARGS(float));
-        default: return launch(mma_dkdv_kernel<128, float, kBias>, DKDV_ARGS(float));
-      }
-    }
-    switch (DP) {
-      case 16: return launch(mma_dkdv_kernel<16, uint16_t, kBias>, DKDV_ARGS(uint16_t));
-      case 32: return launch(mma_dkdv_kernel<32, uint16_t, kBias>, DKDV_ARGS(uint16_t));
-      case 64: return launch(mma_dkdv_kernel<64, uint16_t, kBias>, DKDV_ARGS(uint16_t));
-      default: return launch(mma_dkdv_kernel<128, uint16_t, kBias>, DKDV_ARGS(uint16_t));
-    }
+    const bool aligned = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) &&
+                         aligned16(lse) && aligned16(delta) && aligned16(dk) && aligned16(dv);
+    if (D % 8 || !aligned) return cudaErrorInvalidValue;
+#define DKDV_ARGS q, k, v, bias, dout, lse, delta, dk, dv, BH, H, group, Sq, Sk, D, scale, \
+                  causal, shift, s
+    if (group > 1)   // f32 per-q-head partials
+      return D <= 64 ? launch_wgmma_dkdv<64, float, kBias>(DKDV_ARGS)
+                     : launch_wgmma_dkdv<128, float, kBias>(DKDV_ARGS);
+    return D <= 64 ? launch_wgmma_dkdv<64, uint16_t, kBias>(DKDV_ARGS)
+                   : launch_wgmma_dkdv<128, uint16_t, kBias>(DKDV_ARGS);
 #undef DKDV_ARGS
   }
+  const dim3 grid(BH, (Sk + kBlockK - 1) / kBlockK);
   using P = const float*;
   const size_t smem = fma_smem(D, 4, 2, 2 * kBlockQ);
 #define DKDV_ARGS grid, kThreads, smem, s, (P)q, (P)k, (P)v, bias, (P)dout, lse, delta, \
@@ -1725,7 +2076,8 @@ int flash_block_update(const void* q, const void* k, const void* v, const void* 
 
 // dout like q; lse, delta (BH, Sq) f32; dq like q; bias as flash_fwd.
 // q_off, k_off: the global positions of the q and k blocks (0, 0 outside
-// the ring).
+// the ring).  bf16 takes D % 8 == 0 and 16-byte-aligned q, k, v, dout, dq
+// and any scale.
 int flash_dq(const void* q, const void* k, const void* v, const void* bias, const void* dout,
              const void* lse, const void* delta, void* dq, int BH, int H, int group, int Sq,
              int Sk, int D, float scale, int causal, int q_off, int k_off, int is_bf16,
@@ -1739,8 +2091,8 @@ int flash_dq(const void* q, const void* k, const void* v, const void* bias, cons
 }
 
 // dk, dv (BH, Sk, D) per q head: like k when group == 1, f32 partials when
-// group > 1 (the caller sums each group of q heads).  Bias and offsets as
-// flash_dq.
+// group > 1 (the caller sums each group of q heads).  Bias, offsets and
+// bf16 as flash_dq, and 16-byte-aligned lse, delta, dk, dv.
 int flash_dkdv(const void* q, const void* k, const void* v, const void* bias, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int BH, int H, int group,
                int Sq, int Sk, int D, float scale, int causal, int q_off, int k_off,

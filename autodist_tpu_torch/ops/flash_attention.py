@@ -17,13 +17,15 @@ It and the backward kernels take the blocks' global positions ``q_off``
 and ``k_off``; causal keeps ``q_off + row >= k_off + col``.
 
 Each kernel takes bf16 (tensor-core products) or f32 (f32 FMAs) inputs.
-In bf16 the forward and the block update are one Hopper kernel, ``wgmma``
-fed by TMA tile loads; TMA reads rows whose stride is a multiple of 16
-bytes, so for a D that is not a multiple of 8 the wrappers append zero
-columns to q, k, v (and the carry's o), which change no q.k, keep the
-scale 1/sqrt(D) of the true D, and cut the extra output columns off; and
-the kernel takes a positive scale, so a scale <= 0 is turned into one
-with the same scores (:func:`positive_scale`).
+In bf16 every kernel is a Hopper kernel, ``wgmma`` fed by TMA tile loads
+(the forward and the block update one, dq and dkdv one each); TMA reads
+rows whose stride is a multiple of 16 bytes, so for a D that is not a
+multiple of 8 the wrappers append zero columns to q, k, v (and dO, and
+the carry's o), which change no q.k and no dO.v, keep the scale
+1/sqrt(D) of the true D, and cut the extra output columns off.  The
+forward's exponent takes a positive scale, so a scale <= 0 is turned
+into one with the same scores (:func:`positive_scale`); dq and dkdv take
+the scale as it is (flipping k's sign would flip dk).
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 ``LAUNCHES``; for CPU tensors it runs the plain version beside it
 (:func:`flash_fwd_plain`, :func:`flash_block_update_plain`,
@@ -229,7 +231,7 @@ def _launch(name, ptrs, dims, sm_scale, causal, q, offsets=()):
 
 
 def pad_head_dim(tensors, d):
-    """The bf16 forward's operands (and the carry's o) as TMA reads them:
+    """The bf16 kernels' operands (and the carry's o) as TMA reads them:
     the head dim padded with zero columns to a multiple of 8 and every base
     16-byte aligned (a misaligned one is copied).  Returns (tensors, padded
     D)."""
@@ -315,10 +317,13 @@ def flash_dq(q, k, v, bias, do, lse, delta, h, sm_scale, causal, group=1,
         return flash_dq_plain(q, k, v, bias, do, lse, delta, h, sm_scale,
                               causal, group, q_off, k_off)
     bh, sq, sk, d = _check(q, k, v, bias, h, group, rows=(lse, delta), grads=(do,))
+    d8 = d
+    if q.dtype == torch.bfloat16:
+        (q, k, v, do), d8 = pad_head_dim((q, k, v, do), d)
     dq = torch.empty_like(q)
     _launch("flash_dq", (q, k, v, bias, do, lse, delta, dq),
-            (bh, h, group, sq, sk, d), sm_scale, causal, q, offsets=(q_off, k_off))
-    return dq
+            (bh, h, group, sq, sk, d8), sm_scale, causal, q, offsets=(q_off, k_off))
+    return dq if d8 == d else dq[..., :d].contiguous()
 
 
 def flash_dkdv(q, k, v, bias, do, lse, delta, h, sm_scale, causal, group=1,
@@ -330,11 +335,17 @@ def flash_dkdv(q, k, v, bias, do, lse, delta, h, sm_scale, causal, group=1,
         return flash_dkdv_plain(q, k, v, bias, do, lse, delta, h, sm_scale,
                                 causal, group, q_off, k_off)
     bh, sq, sk, d = _check(q, k, v, bias, h, group, rows=(lse, delta), grads=(do,))
+    d8 = d
+    if q.dtype == torch.bfloat16:   # TMA reads lse and delta too
+        (q, k, v, do), d8 = pad_head_dim((q, k, v, do), d)
+        lse, delta = (t.clone() if t.data_ptr() % 16 else t for t in (lse, delta))
     out_dtype = torch.float32 if group > 1 else k.dtype
-    dk = torch.empty((bh, sk, d), dtype=out_dtype, device=q.device)
-    dv = torch.empty((bh, sk, d), dtype=out_dtype, device=q.device)
+    dk = torch.empty((bh, sk, d8), dtype=out_dtype, device=q.device)
+    dv = torch.empty((bh, sk, d8), dtype=out_dtype, device=q.device)
     _launch("flash_dkdv", (q, k, v, bias, do, lse, delta, dk, dv),
-            (bh, h, group, sq, sk, d), sm_scale, causal, q, offsets=(q_off, k_off))
+            (bh, h, group, sq, sk, d8), sm_scale, causal, q, offsets=(q_off, k_off))
+    if d8 != d:
+        dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
 
 

@@ -10,7 +10,9 @@ Phases (each failure exits non-zero before the last line):
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the kernels from ``autodist_tpu_torch/csrc`` (flash attention,
    fused norm and quantize, one ``nvcc`` each, started together) and prints
-   the time;
+   the time, and each instantiation of the bf16 backward kernels
+   (``wgmma_dq_kernel``, ``wgmma_dkdv_kernel``) with its registers and
+   spills from ``-Xptxas -v``;
 3. holds each flash kernel (forward, dq, dkdv) against its plain PyTorch
    version on the same bf16 inputs, the plain version computing in f32, at
    the GPT-2-small attention shape, a GQA case, a key-padding case with
@@ -1040,7 +1042,7 @@ KERNEL_CATEGORIES = (   # (category, substrings of a kernel name), first match w
      ("quantize_kernel", "dequant_sum_kernel", "equarx_hop_kernel")),
     ("fused-norm kernels (bn_fwd / gn_fwd)", ("norm_partial_kernel", "norm_stats_kernel",
                                              "norm_apply_kernel")),
-    ("flash kernels", ("wgmma_fwd_kernel", "mma_dq_kernel", "mma_dkdv_kernel",
+    ("flash kernels", ("wgmma_fwd_kernel", "wgmma_dq_kernel", "wgmma_dkdv_kernel",
                        "fma_fwd_kernel", "fma_dq_kernel", "fma_dkdv_kernel")),
     ("convolutions and matmuls (cuDNN, cuBLAS)", ("conv", "cudnn", "xmma", "gemm", "nvjet",
                                                  "cutlass", "implicit", "dgrad", "wgrad")),
@@ -1282,6 +1284,36 @@ def run_child(args, marker):
     return result
 
 
+def report_registers(build, kernels=("wgmma_dq_kernel", "wgmma_dkdv_kernel")):
+    """Each instantiation of ``kernels`` with its registers and spills, as
+    ``-Xptxas -v`` reported them in the build log of flash_attention.cu."""
+    path = os.path.join(build.BUILD_DIR, "flash_attention.log")
+    if not os.path.exists(path):
+        print(f"ptxas: no build log at {path}")
+        return
+    with open(path) as f:
+        lines = f.read().splitlines()
+    entry, found = None, {}
+    for line in lines:
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = name if any(k in name for k in kernels) else None
+        elif entry and "spill" in line:
+            found[entry] = [line.strip()]
+        elif entry and "Used" in line and entry in found:
+            found[entry].append(line.split(":", 1)[1].strip())
+            entry = None
+    names = list(found)
+    try:   # demangled names, where the host has c++filt
+        names = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True, timeout=30).stdout.splitlines() or names
+    except OSError:
+        pass
+    for name, lines in zip(names, found.values()):
+        short = next((w.split("(")[0] for w in name.split("::") if w.startswith(kernels)), name)
+        print(f"ptxas [{short}]: {'; '.join(lines)}")
+
+
 def setup(torch):
     """The checks every process of the script makes first; returns the
     port's modules, or None after printing why it cannot run."""
@@ -1368,6 +1400,7 @@ def main():
         t0 = time.perf_counter()
         m["build"].build(list(SOURCES))
         print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+        report_registers(m["build"])
         errors = check_kernels(torch, fa)
         check_ring_kernels(torch, fa)
         errors.update(check_ring_of_one_block(torch, fa))

@@ -190,6 +190,22 @@ def test_value_exact_sync_over_four_ranks(gloo, chunk, opt):
         np.testing.assert_allclose(got["params"]["b"], exp["b"], atol=2e-5)
 
 
+def test_bare_array_batch_over_four_ranks(gloo):
+    """The bare ndarray batch, as ``tests/test_end_to_end.py`` passes it:
+    each rank's slice and its 3 sgd steps are bitwise the ``{"x": ...}``
+    form's."""
+    inputs, _, results = gloo
+    per = inputs["linear_batch"].shape[0] // ranks.WORLD
+    for r, res in enumerate(results):
+        bare, in_dict = res["linear_bare_slices"]
+        assert np.array_equal(bare, in_dict)
+        assert np.array_equal(bare, inputs["linear_batch"][r * per:(r + 1) * per])
+        got, want = res["linear_bare"], res["linear", 1, "sgd"]
+        assert got["step"] == 3 and got["loss"] == want["loss"]
+        for name in ("w", "b"):
+            assert np.array_equal(got["params"][name], want["params"][name]), name
+
+
 @pytest.mark.parametrize("comp", sorted(ranks.COMPRESSOR_CASES))
 def test_compressors_over_four_ranks(gloo, comp):
     inputs, _, results = gloo

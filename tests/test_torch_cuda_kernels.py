@@ -12,8 +12,9 @@ that has only PyTorch (the repo's ``conftest.py`` imports JAX, hence
 Each case runs ``flash_attention`` forward and backward (the three
 kernels) and ``attention_plain`` in f32 on the same inputs, at shapes that
 test the bf16 forward's TMA boxes and wgmma layouts (D = 128, 40, 36, 32;
-fewer tiles than SMs; a ragged S with GQA); the forward also at a negative
-and a zero scale.  Tolerance:
+fewer tiles than SMs; a ragged S with GQA; GQA at D = 128, where dkdv
+writes f32 partials in two boxes a row); the forward, dq and dkdv also at
+a negative and a zero scale.  Tolerance:
 relative Frobenius error <= 1e-2 for bf16 inputs (bf16 output and
 operand rounding) and <= 1e-5 for f32 inputs (f32 sums in another order).
 
@@ -64,6 +65,8 @@ CASES = {
     "bf16_s1000_gqa": (2, 1000, 4, 2, 64, True, False, "bfloat16"),
     # the bias row read together with the causal diagonal's mask
     "bf16_kv_mask_causal_d64": (2, 200, 4, 4, 64, True, True, "bfloat16"),
+    # dkdv's f32 GQA partials at two boxes a row
+    "bf16_gqa_d128": (2, 300, 4, 2, 128, True, False, "bfloat16"),
 }
 REL_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 
@@ -185,6 +188,32 @@ def test_bf16_forward_takes_any_scale(sm_scale):
                                            True)
     assert _rel(out, ref_out) <= REL_TOL["bfloat16"]
     assert float((lse - ref_lse).abs().max()) <= M_TOL["bfloat16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sm_scale", [-0.3, 0.0, 0.25])
+def test_bf16_backward_takes_any_scale(sm_scale):
+    """dq and dkdv take the scale as it is, of any sign: their exponent
+    needs no max."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, do = (torch.randn(8, 200, 64, device="cuda", generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    f32 = [t.float() for t in (q, k, v, do)]
+    out, lse = tfa.flash_fwd_plain(*f32[:3], None, 4, sm_scale, True)
+    delta = (f32[3] * out).sum(-1)
+    args = (None, do, lse, delta, 4, sm_scale, True)
+    got = (tfa.flash_dq(q, k, v, *args), *tfa.flash_dkdv(q, k, v, *args))
+    f32_args = (None, f32[3], lse, delta, 4, sm_scale, True)
+    want = (tfa.flash_dq_plain(*f32[:3], *f32_args), *tfa.flash_dkdv_plain(*f32[:3], *f32_args))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(a.float()).all()), name
+        if sm_scale == 0 and name != "dv":   # ds = p (dp - delta) * 0: zeros
+            assert not a.any(), name
+        else:
+            assert _rel(a, b) <= REL_TOL["bfloat16"], (name, _rel(a, b))
 
 
 @pytest.mark.cuda

@@ -10,6 +10,12 @@
   rounding-level gradient difference into up to an lr-sized step, the bound
   ``tests/test_mixed_precision.py`` uses) and to atol 1e-5 for sgd.
 - ``optim.adamw``/``optim.sgd`` against optax on random leaves (atol 1e-6).
+- ``DistributedSession.shard_batch`` takes a bare array, a tuple and a
+  dict nested two deep, as the reference's ``_shard_batch`` maps over any
+  pytree: 3 sgd steps of ``tests/test_end_to_end.py``'s linear model with
+  a loss that reads its leaves from that structure match the JAX
+  ``AutoDist`` session's parameters to atol 2e-5 (that test's tolerance);
+  a leaf that is no array raises ``TypeError`` naming its path.
 - The package imports no JAX, flax, optax, protobuf or ``autodist_tpu``,
   and its entry points (``gpt_capture`` and ``classifier_capture`` too)
   raise without a GPU unless given ``device="cpu"``.
@@ -129,6 +135,68 @@ def test_three_steps_match_jax_autodist(opt):
     for path, leaf in jax.tree_util.tree_leaves_with_path(final):
         np.testing.assert_allclose(leaf, np.asarray(j_final[path]), atol=params_atol,
                                    rtol=0, err_msg=jax.tree_util.keystr(path))
+
+
+# tests/test_end_to_end.py's linear model: its BATCH and weights, plus targets
+_LINEAR_X = np.random.RandomState(0).randn(16, 12).astype(np.float32)
+_LINEAR_Y = np.random.RandomState(1).randn(16, 3).astype(np.float32)
+_LINEAR_W = np.random.RandomState(7).randn(12, 3).astype(np.float32)
+# structure -> (build the batch from x, y; read (x, y or None) back from it)
+_NESTED = {
+    "bare_array": (lambda x, y: x, lambda b: (b, None)),
+    "tuple": (lambda x, y: (x, y), lambda b: b),
+    "dict_two_deep": (lambda x, y: {"inputs": {"x": x}, "targets": {"y": y}},
+                      lambda b: (b["inputs"]["x"], b["targets"]["y"])),
+}
+
+
+def _linear_loss(read, mean):
+    def loss(p, batch):
+        x, y = read(batch)
+        r = x @ p["w"] + p["b"]
+        return mean((r if y is None else r - y) ** 2)
+    return loss
+
+
+def _linear_session(read):
+    params = {"w": torch.from_numpy(_LINEAR_W.copy()), "b": torch.zeros(3)}
+    return AutoDist(resource_spec=ResourceSpec(resource_info=CPU_SPEC),
+                    strategy_builder=AllReduce(), device="cpu").distribute(
+        _linear_loss(read, torch.mean), params, optim.sgd(0.1))
+
+
+@pytest.mark.parametrize("structure", sorted(_NESTED))
+def test_shard_batch_takes_nested_batches(structure):
+    make, read = _NESTED[structure]
+    batch = make(_LINEAR_X, _LINEAR_Y)
+    j_sess = JAutoDist(resource_spec=JResourceSpec.from_num_chips(1),
+                       strategy_builder=JAllReduce()).distribute(
+        _linear_loss(read, jnp.mean), {"w": jnp.asarray(_LINEAR_W), "b": jnp.zeros(3)},
+        optax.sgd(0.1))
+    t_sess = _linear_session(read)
+    for _ in range(STEPS):
+        j_sess.run(batch)
+        t_sess.run(batch)
+    assert t_sess.step == STEPS
+    want, got = j_sess.params(), t_sess.params()
+    for name in ("w", "b"):
+        np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]), atol=2e-5,
+                                   rtol=0, err_msg=name)
+    sharded = t_sess.shard_batch(batch)
+    x, y = read(sharded)
+    leaf = isinstance(batch, np.ndarray)
+    assert type(sharded) is (torch.Tensor if leaf else type(batch))
+    assert torch.equal(x, torch.from_numpy(_LINEAR_X))
+    assert y is None or torch.equal(y, torch.from_numpy(_LINEAR_Y))
+
+
+def test_shard_batch_names_a_leaf_that_is_no_array():
+    sess = _linear_session(_NESTED["dict_two_deep"][1])
+    batch = {"inputs": {"x": _LINEAR_X, "count": 3}, "targets": {"y": _LINEAR_Y}}
+    with pytest.raises(TypeError, match=r"batch\['inputs'\]\['count'\].*int"):
+        sess.shard_batch(batch)
+    with pytest.raises(TypeError, match=r"batch\[1\].*str"):
+        sess.shard_batch((_LINEAR_X, "labels"))
 
 
 @pytest.mark.parametrize("opt", ["adamw", "sgd_momentum"])

@@ -13,7 +13,8 @@ Without a key mask the port passes no bias row (``bias=None``): the plain
 forward, dq and dkdv give the same bits as with a zero row, and
 ``flash_attention`` still matches the JAX kernel.  The bf16 forward
 kernel's operand rules have CPU-side stand-ins held here to the bit (a
-scale <= 0 made positive) or to 1e-6 (D padded to a multiple of 8).
+scale <= 0 made positive) or to 1e-6 (D padded to a multiple of 8: the
+forward's output and the backward's dq, dk and dv).
 """
 import jax
 import jax.numpy as jnp
@@ -187,6 +188,31 @@ def test_padded_head_dim_keeps_the_output(d):
     np.testing.assert_allclose(p_out[..., :d].numpy(), out.numpy(), atol=1e-6, rtol=0)
     np.testing.assert_allclose(p_lse.numpy(), lse.numpy(), atol=1e-6, rtol=0)
     assert not p_out[..., d:].any()
+
+
+@pytest.mark.parametrize("d", [36, 20, 64])
+def test_padded_head_dim_keeps_the_gradients(d):
+    """The bf16 dq and dkdv take the forward's padded operands: zero
+    columns appended to q, k, v and dO change no score and no dp, so dq,
+    dk and dv of the padded operands, sliced to D, are the unpadded ones
+    and their extra columns are zero (f32 sums over more terms: 1e-6).
+    The scale goes as it is, negative too (no ``positive_scale``)."""
+    rng = np.random.default_rng(8)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((4, 30, d)).astype(np.float32))
+                   for _ in range(4))
+    (qp, kp, vp, dop), d8 = tfa.pad_head_dim((q, k, v, do), d)
+    for scale in (d ** -0.5, -0.3):
+        out, lse = tfa.flash_fwd_plain(q, k, v, None, 2, scale, True)
+        delta = (do * out).sum(-1)
+        args = (None, do, lse, delta, 2, scale, True)
+        p_args = (None, dop, lse, delta, 2, scale, True)
+        want = (tfa.flash_dq_plain(q, k, v, *args), *tfa.flash_dkdv_plain(q, k, v, *args))
+        got = (tfa.flash_dq_plain(qp, kp, vp, *p_args),
+               *tfa.flash_dkdv_plain(qp, kp, vp, *p_args))
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.shape[-1] == d8 and not g[..., d:].any(), name
+            np.testing.assert_allclose(g[..., :d].numpy(), w.numpy(), atol=1e-6, rtol=0,
+                                       err_msg=name)
 
 
 @pytest.mark.parametrize("b", [1, 2])

@@ -18,6 +18,9 @@ the CPU), runs the cases below and writes ``DIR/rank<r>.pkl``:
   the error-feedback codecs, its residual state);
 - ``linear``: ``tests/test_end_to_end.py::test_value_exact_sync``'s linear
   model, 3 steps under ``AllReduce(chunk_size=1 | 128)`` x sgd/adam;
+- ``linear_bare``: the same at chunk 1 under sgd on the bare ndarray batch,
+  as that test passes it, and this rank's slice of it from ``shard_batch``
+  beside the slice of the ``{"x": ...}`` form;
 - ``compressors``: ``test_compressors``' one sgd step under each codec;
 - ``gpt``: 3 GPT-tiny adamw steps under ``Int8Compressor`` and
   ``EquarxInt8Compressor``;
@@ -210,6 +213,16 @@ def main(workdir):
         for _ in range(3):
             metrics = sess.run({"x": inputs["linear_batch"]})
         results["linear", chunk, opt] = _session_result(sess, metrics)
+
+    params = {k: torch.from_numpy(v) for k, v in inputs["linear_params"].items()}
+    sess = autodist(AllReduce(chunk_size=1)).distribute(
+        lambda p, x: torch.mean((x @ p["w"] + p["b"]) ** 2), params, optim.sgd(0.1))
+    results["linear_bare_slices"] = (
+        sess.shard_batch(inputs["linear_batch"]).numpy(),
+        sess.shard_batch({"x": inputs["linear_batch"]})["x"].numpy())
+    for _ in range(3):
+        metrics = sess.run(inputs["linear_batch"])
+    results["linear_bare"] = _session_result(sess, metrics)
 
     for comp in COMPRESSOR_CASES:
         sess = autodist(AllReduce(compressor=comp)).distribute(
