@@ -1335,7 +1335,7 @@ struct DqSmem {
 // dS.K (dS the register A operand, K read MN-major through the transpose
 // flag); S and dP of key tile j are issued with the dQ product of tile
 // j - 1, and tile j's ds is computed while that product runs.
-template <int DP, int BK, bool kBias, bool kTiming = false>
+template <int DP, int BK, bool kBias>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 wgmma_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_do,
@@ -1464,7 +1464,6 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         };
         auto grads = [&](int j) {   // ds of key tile j into dp
           const int k0 = j * BK;
-          if (kTiming) return;
           if (k0 + BK > Sk || (causal && k0 + BK - 1 > wrow0 + shift))
             dq_grads<kBias, true>(s, dp, row, k0 + 2 * t, Sk, nl, de, scale_log2, scale,
                                   bias_row, causal, shift);
@@ -1554,7 +1553,7 @@ struct DkdvSmem {
 // and Q read MN-major through the transpose flag); S^T and dP^T of q-tile
 // j are issued with the dV and dK products of tile j - 1, and tile j's p
 // and ds are computed while those run.
-template <int DP, int BQ, typename TO, bool kBias, bool kTiming = false>
+template <int DP, int BQ, typename TO, bool kBias>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_do,
@@ -1687,7 +1686,6 @@ wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
         };
         auto grads = [&](int at, int i) {   // p into s, ds into dp, of q-tile i at `at`
           const int q0 = i * BQ;
-          if (kTiming) return;
           const float* lse = reinterpret_cast<const float*>(smem + (stage(at) - base) + L::kRows) +
                              (bh * Sq + q0) % 4;
           const float* delta = lse + L::kRowBytes / 4;
@@ -1898,12 +1896,13 @@ int entry_registers(Kernel kernel) {
 // The bf16 dq on wgmma (see wgmma_dq_kernel).  D % 8 == 0 and 16-byte-
 // aligned q, k, v, dout, dq (TMA's rule).  Keys per tile: 128 at D <= 64,
 // 64 at D = 128 (the consumers' registers), as the forward.
-template <int DP, bool kBias, int BK = DP == 64 ? 128 : 64, bool kTiming = false>
+template <int DP, bool kBias>
 cudaError_t launch_wgmma_dq(const void* q, const void* k, const void* v, const float* bias,
                             const void* dout, const float* lse, const float* delta, void* dq,
                             int BH, int H, int group, int Sq, int Sk, int D, float scale,
                             int causal, int shift, cudaStream_t s) {
-  const auto kernel = wgmma_dq_kernel<DP, BK, kBias, kTiming>;
+  constexpr int BK = DP == 64 ? 128 : 64;
+  const auto kernel = wgmma_dq_kernel<DP, BK, kBias>;
   static const int entry_regs = entry_registers(kernel);
   if (entry_regs != kFwdEntryRegs) return cudaErrorInvalidKernelImage;
   CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dq;
@@ -1924,14 +1923,14 @@ cudaError_t launch_wgmma_dq(const void* q, const void* k, const void* v, const f
 // partials.  Alignment as launch_wgmma_dq, and lse, delta 16-byte-aligned
 // (TMA reads them too).  q-tiles of 64 rows at D <= 64, 32 at D = 128,
 // where dK and dV take 128 of the consumers' registers.
-template <int DP, typename TO, bool kBias, bool kTiming = false>
+template <int DP, typename TO, bool kBias>
 cudaError_t launch_wgmma_dkdv(const void* q, const void* k, const void* v, const float* bias,
                               const void* dout, const float* lse, const float* delta, void* dk,
                               void* dv, int BH, int H, int group, int Sq, int Sk, int D,
                               float scale, int causal, int shift, cudaStream_t s) {
   constexpr int BQ = DP == 64 ? 64 : 32;
   constexpr bool kF32 = sizeof(TO) == 4;
-  const auto kernel = wgmma_dkdv_kernel<DP, BQ, TO, kBias, kTiming>;
+  const auto kernel = wgmma_dkdv_kernel<DP, BQ, TO, kBias>;
   static const int entry_regs = entry_registers(kernel);
   if (entry_regs != kFwdEntryRegs) return cudaErrorInvalidKernelImage;
   CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_lse, tm_delta, tm_dk, tm_dv;
@@ -2089,32 +2088,6 @@ int flash_dq(const void* q, const void* k, const void* v, const void* bias, cons
                 (cudaStream_t)stream
   return (int)(bias ? launch_dq<true>(DQ_ARGS) : launch_dq<false>(DQ_ARGS));
 #undef DQ_ARGS
-}
-
-// Design experiment: bf16 dq at D <= 64 with 64-key tiles, no bias row.
-int flash_dq_bk64(const void* q, const void* k, const void* v, const void* dout,
-                  const void* lse, const void* delta, void* dq, int BH, int Sq, int Sk, int D,
-                  float scale, int causal, void* stream) {
-  return (int)launch_wgmma_dq<64, false, 64>(q, k, v, nullptr, dout, (const float*)lse,
-                                             (const float*)delta, dq, BH, 1, 1, Sq, Sk, D, scale,
-                                             causal, 0, (cudaStream_t)stream);
-}
-
-// Design experiment: dq and dkdv (bf16, D <= 64, no bias, group 1) with
-// the elementwise part of p and ds skipped (timing only).
-int flash_dq_timing(const void* q, const void* k, const void* v, const void* dout,
-                    const void* lse, const void* delta, void* dq, int BH, int Sq, int Sk, int D,
-                    float scale, int causal, void* stream) {
-  return (int)launch_wgmma_dq<64, false, 128, true>(
-      q, k, v, nullptr, dout, (const float*)lse, (const float*)delta, dq, BH, 1, 1, Sq, Sk, D,
-      scale, causal, 0, (cudaStream_t)stream);
-}
-int flash_dkdv_timing(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dk, void* dv, int BH, int Sq,
-                      int Sk, int D, float scale, int causal, void* stream) {
-  return (int)launch_wgmma_dkdv<64, uint16_t, false, true>(
-      q, k, v, nullptr, dout, (const float*)lse, (const float*)delta, dk, dv, BH, 1, 1, Sq, Sk,
-      D, scale, causal, 0, (cudaStream_t)stream);
 }
 
 // dk, dv (BH, Sk, D) per q head: like k when group == 1, f32 partials when
