@@ -1234,16 +1234,17 @@ __device__ __forceinline__ void store_rows(const float (&acc)[DP / kBox][32], un
       tma_store(map, tile_addr + x * 64 * 128, x * (128 / kElem), row0, head);
 }
 
-// p of one key tile of dq, into the S = Q.K^T accumulator (row row[(i >>
-// 1) & 1], key c0 + 8 (i / 4) + (i & 1) at element i): p = exp2(s * scale *
-// log2(e) (+ bias * log2(e)) - lse * log2(e)), one FFMA and ex2, so any
-// sign of the scale.  nl is -lse * log2(e) of each row, -1e30 past Sq.
-// kEdge: the tile crosses the diagonal or the end of the keys; a masked
-// score's exponent becomes -1e30 by a select (a branch around ex2 costs,
-// PERF.md).
+// dq of one key tile: on the S = Q.K^T and dP = dO.V^T accumulators (row
+// row[(i >> 1) & 1], key c0 + 8 (i / 4) + (i & 1) at element i), ds = p *
+// (dp - delta) * scale into dp, p = exp2(s * scale * log2(e) (+ bias *
+// log2(e)) - lse * log2(e)): one FFMA and ex2, so any sign of the scale.
+// nl is -lse * log2(e) of each row, -1e30 past Sq.  kEdge: the tile crosses
+// the diagonal or the end of the keys; a masked score's exponent becomes
+// -1e30 by a select (a branch around ex2 costs, PERF.md).
 template <bool kBias, bool kEdge, int N>
-__device__ __forceinline__ void dq_probs(float (&s)[N], const int (&row)[2], int c0, int Sk,
-                                         const float (&nl)[2], float scale_log2,
+__device__ __forceinline__ void dq_grads(const float (&s)[N], float (&dp)[N], const int (&row)[2],
+                                         int c0, int Sk, const float (&nl)[2],
+                                         const float (&de)[2], float scale_log2, float scale,
                                          const float* __restrict__ bias_row, int causal,
                                          int shift) {
 #pragma unroll
@@ -1257,33 +1258,40 @@ __device__ __forceinline__ void dq_probs(float (&s)[N], const int (&row)[2], int
       arg = fmaf(s[i], scale_log2, nl[h]);
     }
     if (kEdge && (c >= Sk || (causal && row[h] + shift < c))) arg = kNegInf;
-    s[i] = ex2(arg);
+    dp[i] = ex2(arg) * (dp[i] - de[h]) * scale;
   }
 }
 
-// p of one q-tile of dkdv, transposed, into the S^T = K.Q^T accumulator
-// (key key[(i >> 1) & 1], query q0 + 8 (i / 4) + 2 t + (i & 1) at element
-// i), as dq_probs.  lse of the tile's BQ queries lies in shared memory; a
-// query past Sq takes -1e30 for -lse * log2(e), so p = 0 there whatever
-// the box read.  kEdge: the tile crosses the causal diagonal.
+// dkdv of one q-tile, transposed: on the S^T = K.Q^T and dP^T = V.dO^T
+// accumulators (key key[(i >> 1) & 1], query q0 + 8 (i / 4) + 2 t + (i &
+// 1) at element i), p into s and ds into dp, as dq_grads.  lse and delta
+// of the tile's BQ queries lie in shared memory; a query past Sq takes
+// -1e30 for -lse * log2(e), so p = 0 there whatever the box read.  kEdge:
+// the tile crosses the causal diagonal.
 template <bool kBias, bool kEdge, int BQ>
-__device__ __forceinline__ void dkdv_probs(float (&s)[BQ / 2], const float* lse, int q0, int t,
+__device__ __forceinline__ void dkdv_grads(float (&s)[BQ / 2], float (&dp)[BQ / 2],
+                                           const float* lse, const float* delta, int q0, int t,
                                            int Sq, const int (&key)[2], const float (&bias2)[2],
-                                           float scale_log2, int shift) {
+                                           float scale_log2, float scale, int shift) {
 #pragma unroll
-  for (int n = 0; n < BQ / 8; ++n)
+  for (int n = 0; n < BQ / 8; ++n) {
+    const int c = 8 * n + 2 * t;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int c = 8 * n + 2 * t + e, q = q0 + c;
-      const float nl = q < Sq ? -lse[c] * kLog2e : kNegInf;
+      const int q = q0 + c + e;
+      const float nl = q < Sq ? -lse[c + e] * kLog2e : kNegInf;
+      const float de = delta[c + e];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int i = 4 * n + 2 * h + e;
         float arg = fmaf(s[i], scale_log2, kBias ? nl + bias2[h] : nl);
         if (kEdge && q + shift < key[h]) arg = kNegInf;
-        s[i] = ex2(arg);
+        const float p = ex2(arg);
+        s[i] = p;
+        dp[i] = p * (dp[i] - de) * scale;
       }
     }
+  }
 }
 
 // The accumulator x (64 x N f32) as bf16 register A fragments, 4 a k-step.
@@ -1427,7 +1435,6 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         float s[BK / 2], dp[BK / 2];
         uint32_t da[BK / 4];
         // S = Q.K^T and dP = dO.V^T of the key tile at ring position `at`
-        // (a commit group each)
         auto issue_sdp = [&](int at) {
           const uint32_t k_addr = base + L::kK + (at % S) * L::kTileBytes;
           const uint32_t v_addr = base + L::kV + (at % S) * L::kTileBytes;
@@ -1437,7 +1444,6 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
             wgmma_ss<BK>(s, sw128_desc(q_addr + x * kFwdBlockQ * 128 + in),
                          sw128_desc(k_addr + x * BK * 128 + in), kk);
           }
-          wgmma_commit();
 #pragma unroll
           for (int kk = 0; kk < DP / 16; ++kk) {
             const int x = kk / 4, in = (kk % 4) * 32;
@@ -1456,18 +1462,14 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
               wgmma_rs_tn64(dq[x], da + 4 * c, sw128_desc(k_addr + x * BK * 128 + c * 16 * 128));
           wgmma_commit();
         };
-        auto probs = [&](int j) {   // p of key tile j into s
+        auto grads = [&](int j) {   // ds of key tile j into dp
           const int k0 = j * BK;
           if (k0 + BK > Sk || (causal && k0 + BK - 1 > wrow0 + shift))
-            dq_probs<kBias, true>(s, row, k0 + 2 * t, Sk, nl, scale_log2, bias_row, causal,
-                                  shift);
+            dq_grads<kBias, true>(s, dp, row, k0 + 2 * t, Sk, nl, de, scale_log2, scale,
+                                  bias_row, causal, shift);
           else
-            dq_probs<kBias, false>(s, row, k0 + 2 * t, Sk, nl, scale_log2, bias_row, causal,
-                                   shift);
-        };
-        auto dscores = [&] {   // ds = p (dp - delta) scale into dp
-#pragma unroll
-          for (int i = 0; i < BK / 2; ++i) dp[i] = s[i] * (dp[i] - de[(i >> 1) & 1]) * scale;
+            dq_grads<kBias, false>(s, dp, row, k0 + 2 * t, Sk, nl, de, scale_log2, scale,
+                                   bias_row, causal, shift);
         };
         auto fence_dq = [&] {
 #pragma unroll
@@ -1479,13 +1481,11 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_wait(full + 8 * (it % S), (it / S) & 1);
         wgmma_fence();
         issue_sdp(it);
-        wgmma_wait<1>();
-        fence_regs(s);
-        probs(0);
         wgmma_wait<0>();
+        fence_regs(s);
         fence_regs(dp);
         if (nk == 1) mbar_arrive(q_empty);   // Q and dO read for the last time
-        dscores();
+        grads(0);
         pack_a(da, dp);
         for (int j = 1; j < nk; ++j) {
           const int prev = it++;   // the tile whose dQ product is pending
@@ -1494,13 +1494,11 @@ wgmma_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
           wgmma_fence();
           issue_sdp(it);
           issue_dq(prev);
-          wgmma_wait<2>();   // S of tile j (the oldest group) is ready
+          wgmma_wait<1>();   // S and dP of tile j (the older group) are ready
           fence_regs(s);
-          probs(j);          // while dP of tile j and dQ of tile j - 1 run
-          wgmma_wait<1>();   // dP of tile j is ready
           fence_regs(dp);
           if (j == nk - 1) mbar_arrive(q_empty);
-          dscores();
+          grads(j);
           wgmma_wait<0>();   // dQ of tile j - 1 is done: its stage is free
           fence_dq();
           mbar_arrive(empty + 8 * (prev % S));
@@ -1657,7 +1655,6 @@ wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
         uint32_t pa[BQ / 4], da[BQ / 4];
         auto stage = [&](int at) { return base + L::kStages + (at % S) * L::kStageBytes; };
         // S^T = K.Q^T and dP^T = V.dO^T of the q-tile at ring position `at`
-        // (a commit group each)
         auto issue_sdp = [&](int at) {
           const uint32_t q_addr = stage(at), do_addr = q_addr + L::kQBytes;
 #pragma unroll
@@ -1666,7 +1663,6 @@ wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
             wgmma_ss<BQ>(s, sw128_desc(k_addr + x * kBwdKeys * 128 + in),
                          sw128_desc(q_addr + x * BQ * 128 + in), kk);
           }
-          wgmma_commit();
 #pragma unroll
           for (int kk = 0; kk < DP / 16; ++kk) {
             const int x = kk / 4, in = (kk % 4) * 32;
@@ -1688,31 +1684,17 @@ wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
             }
           wgmma_commit();
         };
-        // lse (then, kRowBytes on, delta) of q-tile i at ring position `at`
-        auto rows = [&](int at, int i) {
-          return reinterpret_cast<const float*>(smem + (stage(at) - base) + L::kRows) +
-                 (bh * Sq + i * BQ) % 4;
-        };
-        auto probs = [&](int at, int i) {   // p of q-tile i at `at` into s
+        auto grads = [&](int at, int i) {   // p into s, ds into dp, of q-tile i at `at`
           const int q0 = i * BQ;
+          const float* lse = reinterpret_cast<const float*>(smem + (stage(at) - base) + L::kRows) +
+                             (bh * Sq + q0) % 4;
+          const float* delta = lse + L::kRowBytes / 4;
           if (causal && q0 + shift < kw0 + 63)
-            dkdv_probs<kBias, true, BQ>(s, rows(at, i), q0, t, Sq, key, bias2, scale_log2, shift);
+            dkdv_grads<kBias, true, BQ>(s, dp, lse, delta, q0, t, Sq, key, bias2, scale_log2,
+                                        scale, shift);
           else
-            dkdv_probs<kBias, false, BQ>(s, rows(at, i), q0, t, Sq, key, bias2, scale_log2, shift);
-        };
-        auto dscores = [&](int at, int i) {   // ds = p (dp - delta) scale into dp
-          const float* delta = rows(at, i) + L::kRowBytes / 4;
-#pragma unroll
-          for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float de = delta[8 * n + 2 * t + e];
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const int x = 4 * n + 2 * h + e;
-                dp[x] = s[x] * (dp[x] - de) * scale;
-              }
-            }
+            dkdv_grads<kBias, false, BQ>(s, dp, lse, delta, q0, t, Sq, key, bias2, scale_log2,
+                                         scale, shift);
         };
         auto fence_dkdv = [&] {
 #pragma unroll
@@ -1728,13 +1710,11 @@ wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_wait(full + 8 * (it % S), (it / S) & 1);
         wgmma_fence();
         issue_sdp(it);
-        wgmma_wait<1>();
-        fence_regs(s);
-        probs(it, i0);
         wgmma_wait<0>();
+        fence_regs(s);
         fence_regs(dp);
         if (n == 1) mbar_arrive(kv_empty);   // K and V read for the last time
-        dscores(it, i0);
+        grads(it, i0);
         pack_a(pa, s);
         pack_a(da, dp);
         for (int j = 1; j < n; ++j) {
@@ -1744,13 +1724,11 @@ wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
           wgmma_fence();
           issue_sdp(it);
           issue_dkdv(prev);
-          wgmma_wait<2>();   // S^T of q-tile j (the oldest group) is ready
+          wgmma_wait<1>();   // S^T and dP^T of q-tile j (the older group) are ready
           fence_regs(s);
-          probs(it, i0 + j);   // while dP^T of q-tile j and the products of j - 1 run
-          wgmma_wait<1>();   // dP^T of q-tile j is ready
           fence_regs(dp);
           if (j == n - 1) mbar_arrive(kv_empty);
-          dscores(it, i0 + j);
+          grads(it, i0 + j);
           wgmma_wait<0>();   // dV and dK of q-tile j - 1 are done: its stage is free
           fence_dkdv();
           mbar_arrive(empty + 8 * (prev % S));
