@@ -1847,6 +1847,15 @@ int sm_count() {
   return n;
 }
 
+// Registers a thread at entry of a kernel, -1 if unknown: setmaxnreg
+// trades registers within a pool of 384 x kFwdEntryRegs, and a build that
+// allocated fewer at entry could stall the consumers for ever.
+template <typename Kernel>
+int entry_registers(Kernel kernel) {
+  cudaFuncAttributes attr;
+  return cudaFuncGetAttributes(&attr, kernel) == cudaSuccess ? attr.numRegs : -1;
+}
+
 // The bf16 forward on wgmma (see wgmma_fwd_kernel).  D % 8 == 0 and
 // 16-byte-aligned q, k, v, out (or o_in, o_out): TMA's rule for the row
 // stride and the base.
@@ -1859,14 +1868,7 @@ cudaError_t launch_wgmma_fwd(const void* q, const void* k, const void* v, const 
                              cudaStream_t s) {
   constexpr int BK = DP == 64 ? 128 : 64;
   const auto kernel = wgmma_fwd_kernel<DP, BK, kUpdate, kBias>;
-  // setmaxnreg trades registers within a pool of 384 x kFwdEntryRegs: a
-  // build that allocated fewer at entry could stall the consumers for ever
-  static const int entry_regs = [] {
-    cudaFuncAttributes attr;
-    return cudaFuncGetAttributes(&attr, wgmma_fwd_kernel<DP, BK, kUpdate, kBias>) == cudaSuccess
-               ? attr.numRegs
-               : -1;
-  }();
+  static const int entry_regs = entry_registers(kernel);
   if (entry_regs != kFwdEntryRegs) return cudaErrorInvalidKernelImage;
   // out (or the carry's o) in boxes of a warpgroup's 64 rows
   CUtensorMap tm_q, tm_k, tm_v, tm_o_in, tm_out;
@@ -1882,15 +1884,6 @@ cudaError_t launch_wgmma_fwd(const void* q, const void* k, const void* v, const 
   return launch(kernel, grid, kFwdThreads, FwdSmem<DP, BK, kUpdate>::kBytes, s, tm_q, tm_k, tm_v,
                 tm_o_in, tm_out, bias, lse, carry, BH, H, group, Sq, Sk, D, scale * kLog2e,
                 causal, shift);
-}
-
-// Registers a thread at entry of a kernel, -1 if unknown: setmaxnreg
-// trades registers within a pool of 384 x kFwdEntryRegs, and a build that
-// allocated fewer at entry could stall the consumers for ever.
-template <typename Kernel>
-int entry_registers(Kernel kernel) {
-  cudaFuncAttributes attr;
-  return cudaFuncGetAttributes(&attr, kernel) == cudaSuccess ? attr.numRegs : -1;
 }
 
 // The bf16 dq on wgmma (see wgmma_dq_kernel).  D % 8 == 0 and 16-byte-

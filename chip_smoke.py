@@ -17,8 +17,8 @@ Phases (each failure exits non-zero before the last line):
    version on the same bf16 inputs, the plain version computing in f32, at
    the GPT-2-small attention shape, a GQA case, a key-padding case with
    fully masked rows and a ragged S = 1000, and at the shapes that test
-   the forward's TMA tiles and wgmma layouts: D = 128 (two 64-column boxes
-   a tile), D = 32 and D = 40 (boxes zero-filled past D), D = 36 (the
+   the bf16 kernels' TMA tiles and wgmma layouts: D = 128 (two 64-column
+   boxes a tile), D = 32 and D = 40 (boxes zero-filled past D), D = 36 (the
    wrapper's zero padding to a multiple of 8), a grid smaller than the
    card (B=1, H=2, S=128), S = 1000 with GQA, and causal key padding at
    S = 1000 (the bias row beside the diagonal's mask); every case but the
@@ -1309,9 +1309,9 @@ def report_registers(build, kernels=("wgmma_dq_kernel", "wgmma_dkdv_kernel")):
                                text=True, timeout=30).stdout.splitlines() or names
     except OSError:
         pass
-    for name, lines in zip(names, found.values()):
+    for name, info in zip(names, found.values()):
         short = next((w.split("(")[0] for w in name.split("::") if w.startswith(kernels)), name)
-        print(f"ptxas [{short}]: {'; '.join(lines)}")
+        print(f"ptxas [{short}]: {'; '.join(info)}")
 
 
 def setup(torch):
