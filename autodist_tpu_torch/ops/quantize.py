@@ -35,6 +35,7 @@ way, so every real element of a bucket falls in the same block, with the
 same scale, under both paddings.
 """
 import ctypes
+import math
 
 import torch
 
@@ -100,7 +101,7 @@ _PTR, _INT, _LL, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctyp
 _ARGTYPES = {
     "quantize_int8": [_PTR, _PTR, _PTR, _LL, _PTR],
     "dequant_sum": [_PTR, _PTR, _PTR, _INT, _LL, _PTR],
-    "equarx_hop": [_PTR, _PTR, _PTR, _PTR, _INT, _LL, _FLOAT, _PTR],
+    "equarx_hop": [_PTR, _PTR, _PTR, _PTR, _INT, _LL, _INT, _FLOAT, _PTR],
 }
 
 
@@ -133,14 +134,29 @@ def _check(name, t, dtype, shape, align=4):
         raise ValueError(f"{name}: the kernel takes {align}-byte aligned tensors")
 
 
-def _check_peers(q, s):
+def mean_mode(n_dev):
+    """How the hop kernel takes the peer mean ``x / n_dev``, bitwise as
+    :func:`true_divide`: ``(0, 1.0)`` for ``n_dev = 1`` (no operation), ``(1,
+    2^-k)`` for ``n_dev = 2^k`` (a multiply by the exact reciprocal gives the
+    same correctly rounded value, subnormals included), else ``(2, n_dev)``
+    (IEEE division).  ``n_dev`` is taken as the f32 the division uses."""
+    n = ctypes.c_float(float(n_dev)).value
+    if n == 1.0:
+        return 0, 1.0
+    mantissa, exponent = math.frexp(n)
+    if mantissa == 0.5 and -125 <= exponent <= 127:   # 2^-126 <= n <= 2^126
+        return 1, 1.0 / n
+    return 2, n
+
+
+def _check_peers(q, s, align=4):
     if q.dim() != 3 or q.shape[0] < 1 or q.shape[1] < 1 or q.shape[2] != BLOCK:
         raise ValueError(f"expected q of shape (D, N, {BLOCK}) with D, N >= 1, "
                          f"got {tuple(q.shape)}")
     if s.device != q.device:
         raise ValueError("q and s must be on one device")
     d, n, _ = q.shape
-    _check("q", q, torch.int8, (d, n, BLOCK))
+    _check("q", q, torch.int8, (d, n, BLOCK), align)
     _check("s", s, torch.float32, (d, n, 1))
     return d, n
 
@@ -187,9 +203,9 @@ def equarx_hop(q, s, n_dev, impl=None):
     ``((D, N, BLOCK) int8, (D, N, 1) f32) -> ((N, BLOCK) int8, (N, 1) f32)``."""
     if not _use_kernel(q, impl):
         return equarx_hop_plain(q, s, n_dev)
-    d, n = _check_peers(q, s)
+    d, n = _check_peers(q, s, align=16)   # the hop loads 16 bytes a lane
     qo = torch.empty((n, BLOCK), dtype=torch.int8, device=q.device)
     so = torch.empty((n, 1), dtype=torch.float32, device=q.device)
     _launch("equarx_hop", q.device, q.data_ptr(), s.data_ptr(), qo.data_ptr(),
-            so.data_ptr(), d, n, float(n_dev))
+            so.data_ptr(), d, n, *mean_mode(n_dev))
     return qo, so

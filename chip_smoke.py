@@ -165,7 +165,9 @@ SLEEP_CYCLES = 200_000_000   # ~0.1 s of the SM clock: time to queue the timed r
 # GPT-2 small's two gradient buckets under an int8 codec (plan_buckets), in
 # 256-element blocks: 73,244,160 and 51,195,648 f32 elements
 GPT2_BUCKET_BLOCKS = (286_110, 199_983)
+GPT2_R4_CHUNK_BLOCKS = 71_528   # the first bucket's chunk at R = 4 (EQuARX's hop over 4 GPUs)
 PEER_COUNTS = (1, 2, 4, 8)
+HOP_PEER_COUNTS = (1, 2, 3, 4, 8)
 CODECS = {   # codec -> its quantization launches per GPT-2 small step (2 buckets)
     "Int8Compressor": {"quantize_int8": 4, "dequant_sum": 2, "equarx_hop": 0},
     "Int8CompressorEF": {"quantize_int8": 6, "dequant_sum": 2, "equarx_hop": 0},
@@ -766,13 +768,92 @@ def bitwise_error(label, got, want):
     return err
 
 
+HOP_EDGE_ROWS = ("ties at scale 1", "ties at scale 2^-20", "subnormal scale",
+                 "subnormal scale, clamped", "scale below 2^-96", "+-inf", "NaN",
+                 "inf and NaN", "zero", "-0")
+HOP_NAN_ROWS = (6, 7)   # rows whose requantized scale is NaN
+HOP_MEAN_MODES = {0: "none", 1: "times 2^-k", 2: "IEEE division"}
+
+
+def hop_case(torch, tq, d, n, seed):
+    """Peers ``(q (d, n, 256) int8, s (d, n, 1) f32)`` for ``equarx_hop``:
+    ``quantize_int8`` of spread gradients, rows 0-9 overwritten with the
+    edge blocks of ``HOP_EDGE_ROWS``.  Ties: every peer's scale 63.5 d 2^j,
+    peer 0's q in {-2..2} (2 at element 0), later peers in pairs of q and -q,
+    so the mean is 63.5 2^j k exactly, the requantized scale 2^j and x / s
+    = 63.5 k, half-steps at k = +-1 (the reciprocal path).  Subnormal: every
+    peer's scale 2^-149 (element 0 at 127 on every peer: scale 2^-149) or
+    2^-148 (element 0 at 95: absmax 190 2^-149, scale 2^-149, so x / s
+    reaches 190 and clamps).  Below 2^-96: peer scales 2^-110.  The rest:
+    peer 0's scale 3e38 with q in {-1, 0, 1} and +-127 at elements 7, 8
+    (+-inf among finite values), a NaN scale, an inf scale times a q of 0,
+    all q 0, and all q 0 with scale -1 (a block of -0)."""
+    q, s = tq.quantize_int8(make_quant_blocks(torch, d * n, seed))
+    q, s = q.view(d, n, 256), s.view(d, n, 1)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand_q(lo, hi):
+        return torch.randint(lo, hi + 1, (256,), device="cuda", generator=g,
+                             dtype=torch.int8)
+
+    q[:, :10] = 0
+    for row, j in ((0, 0), (1, -20)):
+        s[:, row] = 63.5 * d * 2.0 ** j
+        k = rand_q(-2, 2)
+        k[0] = 2
+        q[0, row] = k
+        for a in range(1, d - 1, 2):
+            x = rand_q(-127, 127)
+            q[a, row], q[a + 1, row] = x, -x
+    for row, scale, top in ((2, 2.0 ** -149, 127), (3, 2.0 ** -148, 95)):
+        s[:, row] = scale
+        for a in range(d):
+            q[a, row] = rand_q(-top, top)
+        q[:, row, 0] = top
+    s[:, 4] = 2.0 ** -110
+    for a in range(d):
+        q[a, 4] = rand_q(-127, 127)
+    s[:, 5] = 3e38
+    q[0, 5] = rand_q(-1, 1)
+    q[0, 5, 7], q[0, 5, 8] = 127, -127
+    s[0, 6] = float("nan")
+    q[0, 6] = rand_q(1, 127)
+    s[0, 7] = float("inf")
+    q[0, 7] = rand_q(1, 127)
+    q[0, 7, 3] = 0
+    s[:, 8] = 1.0
+    s[:, 9] = -1.0
+    return q, s
+
+
+def hop_bitwise(label, got, want):
+    """``bitwise_error`` for hop outputs ``(q, s)``: the NaN-scale rows must
+    be NaN in both, their q 0, and everything else bitwise equal."""
+    (q, s), (wq, ws) = got, want
+    rows = list(HOP_NAN_ROWS)
+    check(bool(s[rows].isnan().all() and ws[rows].isnan().all()),
+          f"{label}: a NaN did not poison its block's scale")
+    check(not q[rows].any(), f"{label}: a NaN block's q is not 0")
+    keep = rows_except(s, rows)
+    return bitwise_error(label, (q, s[keep]), (wq, ws[keep]))
+
+
+def rows_except(s, rows):
+    """A mask of ``s``'s rows, False at ``rows``."""
+    keep = s.new_ones(s.shape[0], dtype=bool)
+    keep[list(rows)] = False
+    return keep
+
+
 def check_quantize_kernels(torch, tq):
     """Each quantization kernel against its plain version, bitwise: at the
     two GPT-2 small bucket sizes, at N = 1001 blocks with an all-zero block,
-    a block of half-step ties and a NaN block, with D in {1, 2, 4, 8} peers
-    (and D = 3 at N = 1001), and the EQuARX contract (the fused hop equals
-    the unfused kernels); returns each kernel's max-abs error (0 when
-    bitwise equal)."""
+    a block of half-step ties and a NaN block; ``dequant_sum`` and
+    ``equarx_hop`` with D in {1, 2, 3, 4, 8} peers at the first bucket's
+    size, D = 4 at the 4-GPU path's chunk and D = 3 at N = 1001, each with
+    the edge blocks of ``hop_case``; and the EQuARX contract (the fused hop
+    equals the unfused kernels).  Returns each kernel's max-abs error (0
+    when bitwise equal)."""
     worst = {"quantize_int8": 0.0, "dequant_sum": 0.0, "equarx_hop": 0.0}
     for i, n in enumerate(GPT2_BUCKET_BLOCKS + (1001,)):
         x = make_quant_blocks(torch, n, 200 + i)
@@ -794,17 +875,16 @@ def check_quantize_kernels(torch, tq):
             check(not q[1].any() and float(s[1]) == 1.0, f"{label}: zero block")
             check(torch.equal(q[2].cpu(), torch.round(x[2].cpu()).to(torch.int8)),
                   f"{label}: ties do not round half to even")
-            keep = torch.ones(n, dtype=torch.bool, device="cuda")
-            keep[3] = False   # the NaN scales, compared above
+            keep = rows_except(s, (3,))   # the NaN scales, compared above
             s, ps = s[keep], ps[keep]
         err = bitwise_error(label, (q, s), (pq, ps))
         worst["quantize_int8"] = max(worst["quantize_int8"], err)
         print(f"quantize check [{label}]: bitwise equal to the plain version")
         del x, q, s, pq, ps
-    cases = [(d, GPT2_BUCKET_BLOCKS[0]) for d in PEER_COUNTS] + [(3, 1001)]
+    cases = [(d, GPT2_BUCKET_BLOCKS[0]) for d in HOP_PEER_COUNTS] + [
+        (4, GPT2_R4_CHUNK_BLOCKS), (3, 1001)]
     for d, n in cases:
-        q, s = tq.quantize_int8(make_quant_blocks(torch, d * n, 300 + d))
-        q, s = q.view(d, n, 256), s.view(d, n, 1)
+        q, s = hop_case(torch, tq, d, n, 300 + d)
         total = tq.dequant_sum(q, s)
         q2, s2 = tq.equarx_hop(q, s, d)
         uq, us = tq.quantize_int8(tq.true_divide(total, d))
@@ -812,14 +892,20 @@ def check_quantize_kernels(torch, tq):
         pq2, ps2 = tq.equarx_hop(q, s, d, impl="plain")
         torch.cuda.synchronize()
         label = f"D={d} N={n}"
+        ok = ~(total.isnan() | plain_total.isnan())
+        check(torch.equal(total.isnan(), plain_total.isnan()),
+              f"dequant_sum {label}: NaNs differ from the plain version's")
         worst["dequant_sum"] = max(worst["dequant_sum"], bitwise_error(
-            f"dequant_sum {label}", (total,), (plain_total,)))
-        worst["equarx_hop"] = max(worst["equarx_hop"], bitwise_error(
+            f"dequant_sum {label}", (total[ok],), (plain_total[ok],)))
+        worst["equarx_hop"] = max(worst["equarx_hop"], hop_bitwise(
             f"equarx_hop {label}", (q2, s2), (pq2, ps2)))
-        bitwise_error(f"EQuARX contract {label}", (q2, s2), (uq, us))
-        print(f"quantize check [{label}]: dequant_sum and equarx_hop bitwise equal to "
-              f"their plain versions; equarx_hop bitwise equal to quantize_int8("
-              f"dequant_sum / {d})")
+        hop_bitwise(f"EQuARX contract {label}", (q2, s2), (uq, us))
+        fast = int(((s2 >= 2.0 ** -96) & (s2 < float("inf"))).sum())
+        print(f"quantize check [{label}, mean {HOP_MEAN_MODES[tq.mean_mode(d)[0]]}, edge "
+              f"blocks {', '.join(HOP_EDGE_ROWS)}]: dequant_sum and equarx_hop bitwise equal "
+              f"to their plain versions; equarx_hop bitwise equal to quantize_int8("
+              f"dequant_sum / {d}); {fast} of {n} blocks on the reciprocal path, "
+              f"{n - fast} on IEEE division")
         del q, s, total, q2, s2, uq, us, plain_total, pq2, ps2
     torch.cuda.empty_cache()
     return worst
@@ -838,23 +924,25 @@ def quantize_work(name, n, d=1):
 
 def measure_quantize_kernels(torch, tq):
     """Kernel and plain times and the bound at GPT-2 small's first bucket
-    (286,110 blocks), the peer sums at D = 1 (the one-card path's shape;
-    reported in the kernels line) and D = 8.  No single PyTorch call
-    computes these functions, so there is no library time."""
+    (286,110 blocks): ``quantize_int8``, ``dequant_sum`` at D = 1 and 8, and
+    ``equarx_hop`` at D = 1 (the one-card path's shape; reported in the
+    kernels line), 2, 4 and 8, and at D = 4 over the 4-GPU path's chunk
+    (71,528 blocks).  No single PyTorch call computes these functions, so
+    there is no library time."""
     flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")   # > the 50 MB L2
-    n = GPT2_BUCKET_BLOCKS[0]
-    x = make_quant_blocks(torch, n, 7)
+    n0 = GPT2_BUCKET_BLOCKS[0]
+    x = make_quant_blocks(torch, n0, 7)
     results = {}
-    shapes = [("quantize_int8", 1), ("dequant_sum", 1), ("equarx_hop", 1),
-              ("dequant_sum", 8), ("equarx_hop", 8)]
-    for name, d in shapes:
+    shapes = [("quantize_int8", 1, n0), ("dequant_sum", 1, n0), ("dequant_sum", 8, n0)] + [
+        ("equarx_hop", d, n0) for d in PEER_COUNTS] + [("equarx_hop", 4, GPT2_R4_CHUNK_BLOCKS)]
+    for name, d, n in shapes:
         if name == "quantize_int8":
             fns = (lambda: tq.quantize_int8(x), lambda: tq.quantize_int8(x, impl="plain"))
         else:
             q, s = tq.quantize_int8(make_quant_blocks(torch, d * n, 8 + d))
             q, s = q.view(d, n, 256), s.view(d, n, 1)
             fn = tq.dequant_sum if name == "dequant_sum" else (
-                lambda q_, s_, impl=None: tq.equarx_hop(q_, s_, d, impl=impl))
+                lambda q_, s_, impl=None, d=d: tq.equarx_hop(q_, s_, d, impl=impl))
             fns = (lambda: fn(q, s), lambda: fn(q, s, impl="plain"))
         ops, nbytes = quantize_work(name, n, d)
         t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
