@@ -10,6 +10,8 @@
 //   3  design (b): a ring of peer tiles in shared memory filled by 1-D bulk
 //      copies (cp.async.bulk) under mbarriers, one producer warp, eight
 //      consumer warps; (a)'s arithmetic, stores straight to global memory
+//   4  (a) with two pairs a warp an iteration (twice the loads in flight)
+//   5  (a) with streaming cache hints on the peers' loads (ld.global.cs)
 #include "quantize.cu"
 
 namespace {
@@ -186,6 +188,95 @@ int launch_ring(const int8_t* q, const float* s, int8_t* qo, float* so, int D, l
   return static_cast<int>(cudaGetLastError());
 }
 
+// (a) with kPairs pairs a warp an iteration, each stride apart, and
+// optionally streaming cache hints on the peers' loads.
+template <int K, int kPairs, bool kStream>
+__global__ void __launch_bounds__(kHopThreads)
+hop_a2_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
+              int8_t* __restrict__ qo, float* __restrict__ so, int D, long long n,
+              int mean_mode, float mean_arg) {
+  const int lane = threadIdx.x & 31, half = lane >> 4, part = lane & 15;
+  const long long pairs = (n + 1) / 2;
+  const long long stride = static_cast<long long>(gridDim.x) * kHopWarps;
+  long long p = static_cast<long long>(blockIdx.x) * kHopWarps + (threadIdx.x >> 5);
+  if (p >= pairs) return;
+  uint4 w[kPairs][K];
+  float sc[kPairs][K];
+  auto load = [&](long long base, uint4 (&wo)[kPairs][K], float (&so_)[kPairs][K]) {
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      const long long pj = base + j * stride;
+      if (pj < pairs) {
+        const long long row = min(2 * pj + half, n - 1);
+#pragma unroll
+        for (int d = 0; d < K; ++d) {
+          const long long r = d * n + row;
+          const uint4* src = reinterpret_cast<const uint4*>(q + r * kBlock) + part;
+          wo[j][d] = kStream ? __ldcs(src) : *src;
+          so_[j][d] = s[r];
+        }
+      }
+    }
+  };
+  load(p, w, sc);
+  while (true) {
+    const long long next = p + kPairs * stride;
+    uint4 wn[kPairs][K];
+    float scn[kPairs][K];
+    if (next < pairs) load(next, wn, scn);
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      const long long pj = p + j * stride;
+      if (pj < pairs) {
+        float acc[16];
+#pragma unroll
+        for (int d = 0; d < K; ++d) accumulate16(w[j][d], sc[j][d], d == 0, acc);
+        take_mean(acc, mean_mode, mean_arg);
+        requantize16(acc, qo, so, 2 * pj + half, n, part);
+      }
+    }
+    if (next >= pairs) break;
+    p = next;
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j)
+#pragma unroll
+      for (int d = 0; d < K; ++d) {
+        w[j][d] = wn[j][d];
+        sc[j][d] = scn[j][d];
+      }
+  }
+}
+
+template <int K, int kPairs, bool kStream>
+int launch_a2(const int8_t* q, const float* s, int8_t* qo, float* so, int D, long long n,
+              int mean_mode, float mean_arg, cudaStream_t stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, hop_a2_kernel<K, kPairs, kStream>,
+                                                        kHopThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long need = ((n + 1) / 2 + kHopWarps - 1) / kHopWarps;
+  const long long fit = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const unsigned grid = static_cast<unsigned>(need < fit ? need : fit);
+  hop_a2_kernel<K, kPairs, kStream><<<grid, kHopThreads, 0, stream>>>(q, s, qo, so, D, n,
+                                                                      mean_mode, mean_arg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kPairs, bool kStream>
+int dispatch_a2(const int8_t* q, const float* s, int8_t* qo, float* so, int D, long long n,
+                int mean_mode, float mean_arg, cudaStream_t st) {
+  switch (D) {
+    case 1: return launch_a2<1, kPairs, kStream>(q, s, qo, so, D, n, mean_mode, mean_arg, st);
+    case 2: return launch_a2<2, kPairs, kStream>(q, s, qo, so, D, n, mean_mode, mean_arg, st);
+    case 4: return launch_a2<4, kPairs, kStream>(q, s, qo, so, D, n, mean_mode, mean_arg, st);
+    case 8: return launch_a2<8, kPairs, kStream>(q, s, qo, so, D, n, mean_mode, mean_arg, st);
+    default: return launch_hop<0>(q, s, qo, so, D, n, mean_mode, mean_arg, st);
+  }
+}
+
 }  // namespace
 
 extern "C" int hop_variant(int variant, const int8_t* q, const float* s, int8_t* qo, float* so,
@@ -199,6 +290,8 @@ extern "C" int hop_variant(int variant, const int8_t* q, const float* s, int8_t*
     case 1: return equarx_hop(q, s, qo, so, D, n, mean_mode, mean_arg, stream);
     case 2: return launch_hop<0>(q, s, qo, so, D, n, mean_mode, mean_arg, st);
     case 3: return launch_ring(q, s, qo, so, D, n, mean_mode, mean_arg, st);
+    case 4: return dispatch_a2<2, false>(q, s, qo, so, D, n, mean_mode, mean_arg, st);
+    case 5: return dispatch_a2<1, true>(q, s, qo, so, D, n, mean_mode, mean_arg, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

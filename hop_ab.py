@@ -2,9 +2,9 @@
 """Design experiments for ``equarx_hop`` on one GPU: the variants of
 ``autodist_tpu_torch/csrc/hop_experiments.cu`` (0: the previous kernel,
 1: design (a) as shipped, 2: (a) without the prefetch, 3: design (b), the
-bulk-copy ring), each held bitwise against the plain version on the
-edge-block peers of ``chip_smoke.hop_case``, then timed in turns (0, 1, 2,
-3, 3, 2, 1, 0) at GPT-2 small's first bucket for D = 1, 2, 4, 8 and at the
+bulk-copy ring, 4 and 5: tunings of (a)), each held bitwise against the plain version on the
+edge-block peers of ``chip_smoke.hop_case``, then timed in turns (0..5, then
+5..0) at GPT-2 small's first bucket for D = 1, 2, 4, 8 and at the
 4-GPU chunk (D = 4, 71,528 blocks), against the byte bound.
 
     python3 hop_ab.py
@@ -19,7 +19,8 @@ import time
 import chip_smoke as cs
 
 VARIANTS = {0: "previous kernel", 1: "(a) persistent + prefetch", 2: "(a) no prefetch",
-            3: "(b) bulk-copy ring"}
+            3: "(b) bulk-copy ring", 4: "(a), two pairs an iteration",
+            5: "(a), streaming loads"}
 
 
 def main():
@@ -75,6 +76,10 @@ def main():
             for v in order:
                 times[v].append(cs.time_ms(lambda v=v: run(v, q, s, d), torch, flush, reps=25))
             print(f"timing D={d} N={n} (bound {bound:.5f} ms, {nbytes / 1e6:.2f} MB):")
+            if d == 1:   # a plain device copy of the same int8 bytes, for scale
+                out = torch.empty_like(q[0])
+                times["copy"] = [cs.time_ms(lambda: out.copy_(q[0]), torch, flush, reps=25)]
+                VARIANTS["copy"] = "torch copy_ of q[0] (int8, yardstick)"
             for v, ts in times.items():
                 print(f"  {v} {VARIANTS[v]}: {', '.join(f'{t:.4f}' for t in ts)} ms "
                       f"(mean {statistics.mean(ts):.4f}, {100 * bound / statistics.mean(ts):.1f} "
