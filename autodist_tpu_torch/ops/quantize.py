@@ -19,10 +19,13 @@ launch in ``LAUNCHES``, and runs its plain version (``*_plain``) for CPU
 tensors; any other device raises.  ``impl="plain"`` runs the plain version
 on any device (the tests and ``chip_smoke.py``'s checks).
 
-The kernels and the plain versions agree to the bit: both divide with
-IEEE division (:func:`true_divide`: PyTorch's CUDA ``tensor / python_float``
-multiplies by the reciprocal), round half to even, sum the peers in order
-d = 0..D-1 without fusing a multiply into the add, and let a NaN poison its
+The kernels and the plain versions agree to the bit: both take IEEE
+quotients (:func:`true_divide`: PyTorch's CUDA ``tensor / python_float``
+multiplies by the reciprocal; the hop kernel gets the same quotients from
+a correctly rounded reciprocal a block and one FMA correction an element,
+and its peer mean as :func:`mean_mode` says), round half to even, sum the
+peers in order d = 0..D-1 without fusing a multiply into the add, and let
+a NaN poison its
 block's scale as ``jnp.max`` does (the block's q is then 0).  The JAX
 reference on the CPU differs in one place: XLA folds ``/ 127.0`` and ``/
 n_dev`` into a multiply by the reciprocal, so a scale can differ from it

@@ -61,11 +61,17 @@ Phases (each failure exits non-zero before the last line):
    ``quantize_int8`` at GPT-2 small's two bucket sizes (286,110 and 199,983
    blocks of 256) and at N = 1001 blocks with an all-zero block, a block of
    half-step ties and a NaN block (its scale NaN and its q 0 in both);
-   ``dequant_sum`` and ``equarx_hop`` with D = 1, 2, 4, 8 peers at the
-   first bucket's size and D = 3 at N = 1001, and the EQuARX contract
+   ``dequant_sum`` and ``equarx_hop`` with D = 1, 2, 3, 4, 8 peers at the
+   first bucket's size (the hop's three mean modes: none, times 2^-k, IEEE
+   division), D = 4 at the 4-GPU path's chunk (71,528 blocks) and D = 3 at
+   N = 1001, each with ``hop_case``'s edge blocks, which reach both of the
+   hop's division paths (ties of the mean, subnormal and tiny requantized
+   scales, +-inf, NaN, zeros and -0), and the EQuARX contract
    (``equarx_hop(q, s, D)`` bitwise equal to ``quantize_int8(dequant_sum(q,
    s) / D)``, kernels on both sides).  Then times kernel and plain version
-   at the first bucket's size (peer sums at D = 1 and 8) against the bound;
+   against the bound at the first bucket's size: ``quantize_int8``,
+   ``dequant_sum`` at D = 1 and 8, ``equarx_hop`` at D = 1, 2, 4 and 8, and
+   ``equarx_hop`` at D = 4 over the 4-GPU chunk;
 9. trains GPT-2 small as in phase 5 under ``AllReduce(compressor=...)`` for
    each of ``Int8Compressor``, ``Int8CompressorEF`` and
    ``EquarxInt8Compressor``, 5 steps each, each in a process of its own

@@ -36,8 +36,12 @@ the gradients (plain closed form on both sides) relative Frobenius error
 The quantization kernels (``quantize_int8``, ``dequant_sum``,
 ``equarx_hop``) are held bitwise against their plain versions (q, scales
 and f32 sums equal to the last bit), on blocks with spread magnitudes, an
-all-zero block, values on half-step ties and a NaN; ``equarx_hop`` also
-against the unfused kernels ``quantize_int8(dequant_sum(q, s) / n)``.
+all-zero block, values on half-step ties and a NaN; ``dequant_sum`` and
+``equarx_hop`` at D = 1, 2, 3, 4 and 8 peers (the hop's three mean modes)
+with edge blocks that reach both of the hop's division paths (ties of the
+mean, subnormal and tiny requantized scales, +-inf, NaN, zeros and -0);
+``equarx_hop`` also against the unfused kernels ``quantize_int8(
+dequant_sum(q, s) / n)``.
 """
 import pytest
 import torch
@@ -333,21 +337,74 @@ def test_quantize_kernel_matches_plain_version(n):
     assert torch.equal(q[2].cpu(), torch.round(x[2].cpu()).to(torch.int8))   # half to even
 
 
+def _hop_peers(d, n, g):
+    """Peers (q, s) for the hop: quantized spread blocks, rows 0-9 the edge
+    blocks (as ``chip_smoke.hop_case``): half-step ties of the mean at
+    requantized scales 1 and 2^-20 (the reciprocal path), subnormal
+    requantized scales (one where x / s reaches 190 and clamps), a normal
+    scale below 2^-96, +-inf among finite values, a NaN, an inf times a q of
+    0 (NaN), all zeros and all -0 (rows 6 and 7 have NaN scales)."""
+    q, s = tq.quantize_int8(_quant_blocks(d * n, g))
+    q, s = q.view(d, n, tq.BLOCK), s.view(d, n, 1)
+
+    def rand_q(lo, hi):
+        return torch.randint(lo, hi + 1, (tq.BLOCK,), device="cuda", generator=g,
+                             dtype=torch.int8)
+
+    q[:, :10] = 0
+    for row, j in ((0, 0), (1, -20)):   # mean = 63.5 * 2^j * k, scale 2^j
+        s[:, row] = 63.5 * d * 2.0 ** j
+        q[0, row] = rand_q(-2, 2)
+        q[0, row, 0] = 2
+        for a in range(1, d - 1, 2):
+            x = rand_q(-127, 127)
+            q[a, row], q[a + 1, row] = x, -x
+    for row, scale, top in ((2, 2.0 ** -149, 127), (3, 2.0 ** -148, 95)):
+        s[:, row] = scale
+        for a in range(d):
+            q[a, row] = rand_q(-top, top)
+        q[:, row, 0] = top
+    s[:, 4] = 2.0 ** -110
+    for a in range(d):
+        q[a, 4] = rand_q(-127, 127)
+    s[:, 5] = 3e38
+    q[0, 5] = rand_q(-1, 1)
+    q[0, 5, 7], q[0, 5, 8] = 127, -127
+    s[0, 6] = float("nan")
+    q[0, 6] = rand_q(1, 127)
+    s[0, 7] = float("inf")
+    q[0, 7] = rand_q(1, 127)
+    q[0, 7, 3] = 0
+    s[:, 8] = 1.0
+    s[:, 9] = -1.0
+    return q, s
+
+
+def _assert_hop_equal(got, want):
+    (q, s), (wq, ws) = got, want
+    assert torch.isnan(s[6:8]).all() and torch.isnan(ws[6:8]).all()   # NaN poisons its block
+    assert torch.equal(q, wq) and not q[6:8].any()
+    keep = torch.ones(s.shape[0], dtype=torch.bool, device=s.device)
+    keep[6:8] = False
+    assert torch.equal(s[keep], ws[keep])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [1, 2, 3, 8])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 8])
 def test_dequant_sum_and_equarx_hop_kernels_match_plain_versions(d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     g = torch.Generator(device="cuda").manual_seed(d)
-    q, s = tq.quantize_int8(_quant_blocks(d * 1001, g))
-    q, s = q.view(d, 1001, tq.BLOCK), s.view(d, 1001, 1)
+    q, s = _hop_peers(d, 1001, g)
     tq.reset_launches()
     total = tq.dequant_sum(q, s)
     q2, s2 = tq.equarx_hop(q, s, d)
     uq, us = tq.quantize_int8(tq.true_divide(total, d))
     torch.cuda.synchronize()
     assert tq.LAUNCHES == {"quantize_int8": 1, "dequant_sum": 1, "equarx_hop": 1}
-    assert torch.equal(total, tq.dequant_sum(q, s, impl="plain"))
-    pq, ps = tq.equarx_hop(q, s, d, impl="plain")
-    assert torch.equal(q2, pq) and torch.equal(s2, ps)
-    assert torch.equal(q2, uq) and torch.equal(s2, us)     # the EQuARX contract
+    want = tq.dequant_sum(q, s, impl="plain")
+    assert torch.equal(total.isnan(), want.isnan())
+    assert torch.equal(total.nan_to_num(), want.nan_to_num())
+    _assert_hop_equal((q2, s2), tq.equarx_hop(q, s, d, impl="plain"))
+    _assert_hop_equal((q2, s2), (uq, us))     # the EQuARX contract
+    assert torch.equal(q2[0].cpu(), torch.round(total[0].cpu() / d).to(torch.int8))  # ties

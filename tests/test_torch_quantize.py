@@ -137,3 +137,105 @@ def test_pad_to_blocks_and_dispatch():
     # IEEE division: not the reciprocal multiply where the two differ
     v = torch.tensor([1.0, 3.0, 100.0, 7.0e-3])
     assert torch.equal(tq.true_divide(v, 127.0), torch.from_numpy(v.numpy() / np.float32(127)))
+
+
+# The hop kernel's arithmetic (csrc/quantize.cu), pinned on the CPU: the
+# mean by a power of two as a multiply, and the requantize's quotient from a
+# per-block reciprocal and one FMA correction, each bitwise the IEEE
+# division the plain versions do.
+
+@pytest.mark.parametrize("n_dev, want", [
+    (1, (0, 1.0)), (2, (1, 0.5)), (4, (1, 0.25)), (8, (1, 0.125)), (1024, (1, 2.0 ** -10)),
+    (3, (2, 3.0)), (6, (2, 6.0)), (2.0 ** 127, (2, 2.0 ** 127))])
+def test_hop_mean_mode_from_n_dev(n_dev, want):
+    assert tq.mean_mode(n_dev) == want
+
+
+def _all_f32(seed, n=1 << 16):
+    """Seeded f32 over every bit pattern (subnormals, inf and NaN among
+    them) and the special values themselves."""
+    bits = np.random.RandomState(seed).randint(0, 1 << 32, n, dtype=np.uint64)
+    x = bits.astype(np.uint32).view(np.float32)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.4e-45, -1.4e-45, 1.1754942e-38,
+                        1.17549435e-38, 3.4028235e38, -3.4028235e38], np.float32)
+    return np.concatenate([x, special])
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 10])
+def test_power_of_two_mean_is_ieee_division(k):
+    x = torch.from_numpy(_all_f32(seed=k))
+    mode, arg = tq.mean_mode(2 ** k)
+    assert mode == 1 and arg == 2.0 ** -k
+    got = x * torch.tensor(arg, dtype=torch.float32)
+    want = tq.true_divide(x, 2 ** k)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))   # -0 too
+
+
+def _fma32(a, b, c):
+    """``RN32(a * b + c)`` of f32 arrays, exactly: ``a * b`` is exact in f64,
+    TwoSum recovers the f64 sum's rounding error, and that error decides
+    the one case where rounding the f64 sum to f32 could differ (a sum on an
+    f32 midpoint)."""
+    a, b, c = (np.asarray(t, np.float32).astype(np.float64) for t in (a, b, c))
+    p = a * b
+    hi = p + c
+    bv = hi - p
+    lo = (p - (hi - bv)) + (c - bv)
+    r = hi.astype(np.float32)
+    other = np.where(hi > r, np.nextafter(r, np.float32(np.inf)),
+                     np.nextafter(r, np.float32(-np.inf)))
+    fix = (hi == (r.astype(np.float64) + other.astype(np.float64)) / 2) & (lo != 0)
+    return np.where(fix, np.where(lo > 0, np.maximum(r, other), np.minimum(r, other)), r)
+
+
+def _reciprocal_quotient(x, s):
+    """The kernel's x / s: y = RN(1/s), t = RN(x y), t + RN(x - s t) y by FMAs."""
+    y = np.float32(1.0) / s
+    t = x * y
+    return _fma32(_fma32(-t, s, x), y, t)
+
+
+def _near_midpoint_pairs(n, seed):
+    """(x, s) whose exact quotient lies 2^-47 / s' from a midpoint of two
+    f32 (A 2^24 - B M = +-1 for significands A, B and the midpoint's M), at
+    exponents that keep s in [2^-90, 2^90] and x / s below 128."""
+    rng = np.random.RandomState(seed)
+    xs, ss = [], []
+    while len(xs) < n:
+        b = int(rng.randint(1 << 23, 1 << 24)) | 1
+        k = int(rng.choice([-1, 1]))
+        m = (-k * pow(b, -1, 1 << 24)) % (1 << 24)
+        for mm in (m, m + (1 << 24)):
+            a, rem = divmod(b * mm + k, 1 << 24)
+            if rem == 0 and mm % 2 and (1 << 23) <= a < (1 << 24):
+                e = int(rng.randint(-90, 90))
+                xs.append(np.ldexp(np.float64(a), e + int(rng.randint(0, 7)) - 23))
+                ss.append(np.ldexp(np.float64(b), e - 23))
+                break
+    return np.array(xs, np.float32), np.array(ss, np.float32)
+
+
+@pytest.mark.parametrize("case", ["spread", "ties", "near_midpoints"])
+def test_requantize_by_reciprocal_is_ieee_division(case):
+    if case == "near_midpoints":
+        x, s = _near_midpoint_pairs(3000, seed=5)
+        assert np.array_equal(_reciprocal_quotient(x, s).view(np.int32), (x / s).view(np.int32))
+        return
+    r = np.random.RandomState(7)
+    if case == "spread":   # magnitudes from 2^-60 to 2^60, scales far above 2^-96
+        x = (r.randn(512, tq.BLOCK) * np.exp2(r.randint(-60, 60, (512, 1)))).astype(np.float32)
+    else:                  # x / s on half steps k + 1/2 at scale 2^e
+        e = np.exp2(r.randint(-80, 80, (512, 1)))
+        x = ((r.randint(-127, 127, (512, tq.BLOCK)) + 0.5) * e).astype(np.float32)
+        x[:, 0] = 127 * e[:, 0]   # absmax 127 2^e: the scale is 2^e
+        assert (np.abs(x[:, 1:] / e) % 1 == 0.5).all()
+    want_q, s = tq.quantize_int8_plain(torch.from_numpy(x))
+    s = s.numpy()
+    assert (s >= 2.0 ** -96).all() and np.isfinite(s).all()   # the reciprocal path
+    t = _reciprocal_quotient(x, s)
+    assert np.array_equal(t.view(np.int32), (x / s).view(np.int32))
+    # the rounding by the 1.5 * 2^23 shifter: the low byte is rint(t)
+    q = ((t + np.float32(12582912.0)).view(np.uint32) & 0xFF).astype(np.uint8).view(np.int8)
+    np.testing.assert_array_equal(q, want_q.numpy())
