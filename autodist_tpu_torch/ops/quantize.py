@@ -25,8 +25,8 @@ multiplies by the reciprocal; the hop kernel gets the same quotients from
 a correctly rounded reciprocal a block and one FMA correction an element,
 and its peer mean as :func:`mean_mode` says), round half to even, sum the
 peers in order d = 0..D-1 without fusing a multiply into the add, and let
-a NaN poison its
-block's scale as ``jnp.max`` does (the block's q is then 0).  The JAX
+a NaN poison its block's scale as ``jnp.max`` does (the block's q is then
+0).  The JAX
 reference on the CPU differs in one place: XLA folds ``/ 127.0`` and ``/
 n_dev`` into a multiply by the reciprocal, so a scale can differ from it
 by one ulp, and a q by one step where ``x / s`` lies on a rounding tie.
