@@ -26,10 +26,10 @@ a correctly rounded reciprocal a block and one FMA correction an element,
 and its peer mean as :func:`mean_mode` says), round half to even, sum the
 peers in order d = 0..D-1 without fusing a multiply into the add, and let
 a NaN poison its block's scale as ``jnp.max`` does (the block's q is then
-0).  The JAX
-reference on the CPU differs in one place: XLA folds ``/ 127.0`` and ``/
-n_dev`` into a multiply by the reciprocal, so a scale can differ from it
-by one ulp, and a q by one step where ``x / s`` lies on a rounding tie.
+0).  The JAX reference on the CPU differs in one place: XLA folds ``/
+127.0`` and ``/ n_dev`` into a multiply by the reciprocal, so a scale can
+differ from it by one ulp, and a q by one step where ``x / s`` lies on a
+rounding tie.
 
 ``ROWS = 128`` is the TPU kernels' row tile: they need N to be a multiple
 of it, and the JAX codec pads chunks to ``ROWS * BLOCK`` on TPU only.  The
