@@ -82,7 +82,8 @@ Phases (each failure exits non-zero before the last line):
    checks finite losses whose last three average below the first, and the
    launches per step (Int8: 4 ``quantize_int8`` + 2 ``dequant_sum``; EF: 6 +
    2; EQuARX: 2 ``quantize_int8`` + 2 ``equarx_hop``; 12 of each flash
-   kernel); prints step ms, tokens/s, peak memory, and the Int8 profile;
+   kernel); prints step ms, tokens/s, peak memory, and the Int8 and EQuARX
+   profiles;
 10. (after phase 3) holds the ring-attention kernels on one card as a
    "virtual ring": at the GPT-2 shape (B=8, H=12, S=1024, D=64, causal)
    S splits into n = 4 blocks of 256 (and again into n = 2 blocks of 512,
@@ -1278,7 +1279,7 @@ def train_gpt2_codec(torch, ad, codec, kernel_modules):
         check(same_on_every_rank(torch, list(sess.state["params"].values()), t.group),
               f"{codec}: the ranks hold different parameters")
         print(f"{codec}: all {t.world.size} ranks hold the same parameters")
-    if codec == "Int8Compressor":
+    if codec in ("Int8Compressor", "EquarxInt8Compressor"):
         profile_steps(torch, sess, batch)
     return {"codec": codec, "launches": {k: launches[k] for k in CODECS[codec]},
             "sync_max_abs_err": err, "step_ms": steady, "losses": losses, "rows": rows,
