@@ -46,9 +46,10 @@
 // 0.0444 on one H100 80GB HBM3 at 700 W): a warp loaded 256 bytes, then
 // spent ~30 instructions an element (two IEEE divisions, each a div.rn
 // sequence with a range check, and three conversions, int8 -> f32,
-// rintf and f32 -> int, on the SM's quarter-rate conversion pipe) before
-// its next load.  Neither enough bytes were in flight nor enough
-// instructions issued to move 2 bytes an element at 3.35 TB/s.  So:
+// rintf and f32 -> int, on the conversion pipe: 16 results a clock an SM
+// against 128 f32 adds) before its next load.  Neither enough bytes were
+// in flight nor enough instructions issued to move 2 bytes an element at
+// 3.35 TB/s.  So:
 //   - a persistent grid (as many CTAs as fit on the SMs) walks pairs of
 //     blocks with a grid stride; a half-warp owns a block, a lane 16
 //     elements as one 16-byte load a peer, and the next pair's loads are
@@ -63,13 +64,16 @@
 //     The caller picks the mode (mean_mode, mean_arg) from n_dev;
 //   - the requantize: x / s over a block has one divisor, so y = 1/s is
 //     taken once a block, correctly rounded (__frcp_rn), and each element
-//     costs t = x*y, r = fma(-t, s, x), t' = fma(r, y, t).  By Markstein's
-//     theorem t' is the correctly rounded x / s when y is, as long as
-//     nothing underflows or overflows: the remainder r is exact, and then
-//     its one correction lands on the IEEE quotient.  A half-warp takes
-//     this path only if 2^-96 <= s < inf (s from a finite block): every x
-//     whose quotient can round to a nonzero q is then >= 2^-98, far from
-//     the subnormals, and |x / s| <= 127 (1 + 2^-23);
+//     costs t = x*y and one FMA remainder correction, t' = fma(fma(-t, s,
+//     x), y, t).  With y correctly rounded, that correction lands on the
+//     correctly rounded x / s as long as nothing underflows or overflows
+//     (Markstein's theorem); tests/test_torch_quantize.py holds the
+//     sequence, with an exact FMA, to IEEE division on quotients 2^-47
+//     from a rounding midpoint.  A half-warp takes this path only if
+//     2^-96 <= s < inf (s from a finite block): every x whose quotient can
+//     round to a nonzero q is then >= 2^-97, its remainder a multiple of
+//     2^-143, far above the subnormals' spacing of 2^-149, and |x / s| <=
+//     127 (1 + 2^-23);
 //   - so that path needs no clamp and no NaN test, and rounds with the
 //     1.5 * 2^23 shifter: t' + 1.5 * 2^23 rounds half to even to an
 //     integer whose low byte is q;

@@ -841,15 +841,9 @@ def hop_bitwise(label, got, want):
     check(bool(s[rows].isnan().all() and ws[rows].isnan().all()),
           f"{label}: a NaN did not poison its block's scale")
     check(not q[rows].any(), f"{label}: a NaN block's q is not 0")
-    keep = rows_except(s, rows)
-    return bitwise_error(label, (q, s[keep]), (wq, ws[keep]))
-
-
-def rows_except(s, rows):
-    """A mask of ``s``'s rows, False at ``rows``."""
     keep = s.new_ones(s.shape[0], dtype=bool)
-    keep[list(rows)] = False
-    return keep
+    keep[rows] = False
+    return bitwise_error(label, (q, s[keep]), (wq, ws[keep]))
 
 
 def check_quantize_kernels(torch, tq):
@@ -882,7 +876,8 @@ def check_quantize_kernels(torch, tq):
             check(not q[1].any() and float(s[1]) == 1.0, f"{label}: zero block")
             check(torch.equal(q[2].cpu(), torch.round(x[2].cpu()).to(torch.int8)),
                   f"{label}: ties do not round half to even")
-            keep = rows_except(s, (3,))   # the NaN scales, compared above
+            keep = torch.ones(n, dtype=torch.bool, device="cuda")
+            keep[3] = False   # the NaN scales, compared above
             s, ps = s[keep], ps[keep]
         err = bitwise_error(label, (q, s), (pq, ps))
         worst["quantize_int8"] = max(worst["quantize_int8"], err)
@@ -899,8 +894,8 @@ def check_quantize_kernels(torch, tq):
         pq2, ps2 = tq.equarx_hop(q, s, d, impl="plain")
         torch.cuda.synchronize()
         label = f"D={d} N={n}"
-        ok = ~(total.isnan() | plain_total.isnan())
-        check(torch.equal(total.isnan(), plain_total.isnan()),
+        ok = ~total.isnan()   # the NaN blocks' sums
+        check(torch.equal(~ok, plain_total.isnan()),
               f"dequant_sum {label}: NaNs differ from the plain version's")
         worst["dequant_sum"] = max(worst["dequant_sum"], bitwise_error(
             f"dequant_sum {label}", (total[ok],), (plain_total[ok],)))
@@ -949,7 +944,7 @@ def measure_quantize_kernels(torch, tq):
             q, s = tq.quantize_int8(make_quant_blocks(torch, d * n, 8 + d))
             q, s = q.view(d, n, 256), s.view(d, n, 1)
             fn = tq.dequant_sum if name == "dequant_sum" else (
-                lambda q_, s_, impl=None, d=d: tq.equarx_hop(q_, s_, d, impl=impl))
+                lambda q_, s_, impl=None: tq.equarx_hop(q_, s_, d, impl=impl))
             fns = (lambda: fn(q, s), lambda: fn(q, s, impl="plain"))
         ops, nbytes = quantize_work(name, n, d)
         t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3

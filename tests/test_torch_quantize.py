@@ -198,9 +198,10 @@ def _reciprocal_quotient(x, s):
 
 
 def _near_midpoint_pairs(n, seed):
-    """(x, s) whose exact quotient lies 2^-47 / s' from a midpoint of two
-    f32 (A 2^24 - B M = +-1 for significands A, B and the midpoint's M), at
-    exponents that keep s in [2^-90, 2^90] and x / s below 128."""
+    """(x, s) whose exact quotient lies about 2^-47 of its size from a
+    midpoint of two f32 (A 2^24 - B M = +-1 for significands A, B and the
+    midpoint's M), at exponents that keep s in [2^-90, 2^90] and x / s
+    below 128."""
     rng = np.random.RandomState(seed)
     xs, ss = [], []
     while len(xs) < n:
