@@ -1,6 +1,6 @@
 """AutoDist: the user entry point (counterpart of ``autodist_tpu/autodist.py``)::
 
-    ad = AutoDist(resource_spec=spec, strategy_builder=AllReduce())
+    ad = AutoDist(resource_spec=spec)      # the default builder, PSLoadBalancing()
     sess = ad.distribute(loss_fn, params, optim.adamw(3e-4))
     for batch in data:
         metrics = sess.run(batch)
@@ -8,7 +8,12 @@
 ``loss_fn(params, batch[, generator]) -> loss`` is single-device code over
 a dict of tensors; with ``mutable_state`` (e.g. a ResNet's batch
 statistics) it is ``loss_fn(params, state, batch[, generator]) -> (loss,
-new_state)``.
+new_state)``.  ``has_aux`` adds a dict of aux values to the loss
+(``(loss, aux)``, or ``(loss, (new_state, aux))``), averaged over the
+replicas into the metrics.  The options ``accum_steps``, ``clip_global_norm`` and
+``batch_mask`` (:mod:`autodist_tpu_torch.kernel.graph_transformer`,
+:mod:`autodist_tpu_torch.runner`) and ``eval_fn`` (the default forward of
+``predict``) are the JAX engine's.
 
 One process runs each replica, as ``torchrun --nproc-per-node R script.py``
 launches them: every rank runs the same script, ``distribute`` joins the
@@ -24,8 +29,11 @@ runs the ring over each seq row and ``run`` hands rank (d, s) its block of
 the global batch.  A rank runs on ``cuda:LOCAL_RANK``; a
 one-process run on the spec's first GPU; ``device="cpu"`` runs on the
 CPU.  Without a GPU and without that request it raises.  ``launch``,
-``serve``, ``aot_compile`` and the async PS runtime are later slices of
-the port.
+``serve``, ``aot_compile``, the async and stale PS (``PS(sync=False)``,
+``staleness > 0``) and the options ``remat``, ``data_axes``,
+``batch_spec``, ``param_specs``, ``sync_schedule``, ``verify`` and
+``sparse_vars`` are later slices of the port (ROADMAP, Queue A); they
+raise ``NotImplementedError``.
 """
 from typing import Any, Callable, Optional, Sequence
 
@@ -45,10 +53,8 @@ _DEFAULT_AUTODIST = {}
 # distribute() options of the JAX engine that later slices realise, with
 # the value that means "off"
 _LATER_OPTIONS = {
-    "eval_fn": None, "remat": False, "data_axes": None,
-    "batch_spec": None, "accum_steps": 1, "clip_global_norm": None,
-    "param_specs": None, "batch_mask": False, "sync_schedule": None,
-    "verify": False,
+    "remat": False, "data_axes": None, "batch_spec": None, "param_specs": None,
+    "sync_schedule": None, "verify": False,
 }
 
 
@@ -133,10 +139,18 @@ class AutoDist:
     def distribute(self, loss_fn: Callable, params: Any, optimizer: Any, *,
                    sparse_vars: Optional[Sequence[str]] = None, has_aux: bool = False,
                    has_rng: bool = False, rng: Optional[int] = None, name: str = "",
-                   mutable_state: Any = None, **options):
+                   mutable_state: Any = None, eval_fn: Optional[Callable] = None,
+                   accum_steps: int = 1, clip_global_norm: Optional[float] = None,
+                   batch_mask: bool = False, **options):
         """Capture single-device code and return a :class:`DistributedSession`.
 
         ``rng`` is the integer seed of the step generators (``has_rng``).
+        ``accum_steps`` splits each replica's batch into that many
+        microbatches, synchronised once a step; ``clip_global_norm`` clips
+        the update by the global gradient norm (reported as
+        ``grad_norm``); ``batch_mask=True`` takes uneven dict batches,
+        padded and masked, with a loss that ignores the masked rows (the
+        ``train_lib`` losses do); ``eval_fn`` is ``predict``'s default.
         """
         from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
         from autodist_tpu_torch.runner import DistributedSession
@@ -151,9 +165,12 @@ class AutoDist:
                 f"are later slices of the port (ROADMAP, Queue A)")
         item = ModelItem(loss_fn, params, optimizer, sparse_vars=sparse_vars,
                          has_aux=has_aux, has_rng=has_rng, mutable_state=mutable_state,
-                         name=name)
+                         eval_fn=eval_fn, name=name)
         raw = self._build_or_load_strategy(item)
         strategy = StrategyCompiler(item, self._resource_spec).compile(raw)
         world = self._mesh_world(strategy.graph_config.mesh)
-        return DistributedSession(GraphTransformer(strategy, item, self._device, world),
-                                  rng=rng, strategy_id=raw.id)
+        transformer = GraphTransformer(strategy, item, self._device, world,
+                                       accum_steps=accum_steps,
+                                       clip_global_norm=clip_global_norm)
+        return DistributedSession(transformer, rng=rng, strategy_id=raw.id,
+                                  batch_mask=batch_mask)

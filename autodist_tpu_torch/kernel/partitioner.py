@@ -1,13 +1,24 @@
 """Variable placement planning: strategy nodes -> per-variable plans.
 
-Counterpart of ``autodist_tpu/kernel/partitioner.py``.  This slice realises
-the AllReduce family's pure data parallelism: every variable REPLICATED,
-its gradient synchronised by the bucketed all-reduce.  Sharded, PS,
-divergent and custom (tensor-parallel) placements are later slices and
+Counterpart of ``autodist_tpu/kernel/partitioner.py``.  The port realises
+two plans, both with REPLICATED storage:
+
+- AllReduce: the gradient is synchronised by the bucketed all-reduce and
+  every replica runs the same full update;
+- synchronous PS: weight-update sharding.  The gradients are
+  reduce-scattered, each replica updates its flat 1/R shard of the
+  variable (:func:`flat_shard_update`; the optimizer state lives on the
+  shard, :func:`update_space_shape`), and the fresh shards are
+  all-gathered.  A scalar is always AllReduce, as in JAX.
+
+Sharded (partitioned), divergent (PS with ``sync=False`` or ``staleness >
+0``), sparse and custom (tensor-parallel) placements are later slices and
 raise ``NotImplementedError``.
 """
 import dataclasses
 import enum
+import math
+from typing import Optional
 
 from autodist_tpu_torch.utils import logging
 
@@ -44,6 +55,14 @@ class VarPlan:
     sharded_update: int = 0
     schedule_ir: str = ""
     precision: int = 0
+    # PSSynchronizer fields; local_replication and reduction_destination
+    # are carried for the JSON's sake: the gathered copy is the proxy
+    ps_sync: bool = True
+    staleness: int = 0
+    local_replication: bool = False
+    reduction_destination: str = ""
+    # "mesh:<axes>" destinations: the axes the PS scatter and gather span
+    ps_axes: Optional[tuple] = None
 
 
 def build_var_plans(strategy, model_item, num_replicas, param_specs=None):
@@ -71,10 +90,21 @@ def build_var_plans(strategy, model_item, num_replicas, param_specs=None):
                 f"{v.name!r}: partitioned variables are a later slice of the port "
                 f"(ROADMAP, Queue A item 6)")
         if which == "PSSynchronizer":
-            raise NotImplementedError(
-                f"{v.name!r}: PSSynchronizer is a later slice of the port "
-                f"(ROADMAP, Queue A item 2: the PS realisation)")
-        if which == "AllReduceSynchronizer":
+            ps = node.PSSynchronizer
+            if not ps.sync or ps.staleness > 0:
+                raise NotImplementedError(
+                    f"{v.name!r}: PS with sync=False or staleness > 0 (the divergent "
+                    f"copies and the async runtime) is a later slice of the port "
+                    f"(ROADMAP, Queue A item 6)")
+            plan.sync = SyncKind.PS
+            plan.ps_sync = ps.sync
+            plan.staleness = ps.staleness
+            plan.local_replication = ps.local_replication
+            plan.reduction_destination = ps.reduction_destination
+            if ps.reduction_destination.startswith("mesh:"):
+                plan.ps_axes = tuple(a for a in ps.reduction_destination[5:].split(",")
+                                     if a) or None
+        elif which == "AllReduceSynchronizer":
             ar = node.AllReduceSynchronizer
             plan.group = ar.group
             plan.compressor = ar.compressor
@@ -89,5 +119,29 @@ def build_var_plans(strategy, model_item, num_replicas, param_specs=None):
             raise NotImplementedError(
                 f"{v.name!r}: sparse gradients are a later slice of the port "
                 f"(ROADMAP, Queue A item 6)")
+        if len(v.shape) == 0:
+            # a scalar's flat shard would be one element padded R-way
+            plan.sync = SyncKind.ALL_REDUCE
+            plan.sharded_update = 0
         plans[v.name] = plan
     return plans
+
+
+def flat_shard_update(plan):
+    """True when the plan's update space is the flat padded 1/R shard: the
+    PS family's weight-update sharding (the AllReduce family's
+    ``sharded_update`` is a later slice, Queue A item 5)."""
+    return plan.placement == Placement.REPLICATED and plan.sync == SyncKind.PS
+
+
+def shard_len(plan, num_replicas):
+    """Elements of one replica's flat shard: ``ceil(n / R)``."""
+    return -(-math.prod(plan.shape) // num_replicas)
+
+
+def update_space_shape(plan, num_replicas):
+    """Global shape of the update space: the flat ``ceil(n/R) * R`` padded
+    elements of a flat-shard plan, else the variable's shape."""
+    if flat_shard_update(plan):
+        return (shard_len(plan, num_replicas) * num_replicas,)
+    return tuple(plan.shape)

@@ -14,6 +14,8 @@ With ``mutable_state`` (non-trainable state such as a ResNet's
 -> (loss, new_state)``.  The state is flattened by the same names; its
 leaves are no variables of the strategy (they stand in no ``var_infos``), and
 the engine takes the cross-replica mean of its float leaves every step.
+``eval_fn(params[, state], batch) -> outputs`` is the session's default
+forward for ``predict``.
 """
 import dataclasses
 import fnmatch
@@ -67,13 +69,18 @@ class VariableInfo:
     def size(self) -> int:
         return math.prod(self.shape)
 
+    @property
+    def byte_size(self) -> int:
+        return self.size * self.dtype.itemsize
+
 
 class ModelItem:
     """Captured model: params + loss + optimizer + variable metadata."""
 
     def __init__(self, loss_fn: Callable, params: Any, optimizer: Any = None, *,
                  sparse_vars: Optional[Sequence[str]] = None, has_aux: bool = False,
-                 has_rng: bool = False, mutable_state: Any = None, name: str = ""):
+                 has_rng: bool = False, mutable_state: Any = None,
+                 eval_fn: Optional[Callable] = None, name: str = ""):
         self.loss_fn = loss_fn
         self.params = flatten_params(params)
         self.mutable_state = None if mutable_state is None else flatten_params(mutable_state)
@@ -84,6 +91,7 @@ class ModelItem:
         self.optimizer = optimizer
         self.has_aux = has_aux
         self.has_rng = has_rng
+        self.eval_fn = eval_fn
         self.name = name
         sparse_vars = set(sparse_vars or ())
         self._var_infos = []

@@ -16,6 +16,9 @@ the identity and needs no process group.
   (``jax.lax.all_to_all(split_axis=0, concat_axis=0, tiled=True)``);
 - :func:`all_to_all` -- the same over any split and concat dims,
   differentiable (Ulysses attention);
+- :func:`psum_scatter` -- tiled reduce-scatter over dim 0: rank d
+  receives the sum over the ranks of row block d
+  (``jax.lax.psum_scatter(scatter_dimension=0, tiled=True)``);
 - :func:`all_gather_into_tensor` -- tiled all-gather over dim 0
   (``jax.lax.all_gather(axis=0, tiled=True)``);
 - :func:`ring_perm`, :func:`ppermute` -- a permutation of the group's
@@ -62,6 +65,19 @@ def all_to_all_single(x, group=None):
                          f"{axis_size(group)} replicas")
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+def psum_scatter(x, group=None):
+    """Tiled reduce-scatter over dim 0: dim 0 splits into one row block per
+    replica; replica d receives the sum of block d over the replicas."""
+    if group is None:
+        return x
+    r = axis_size(group)
+    if x.shape[0] % r:
+        raise ValueError(f"dim 0 ({x.shape[0]}) does not split over {r} replicas")
+    out = x.new_empty((x.shape[0] // r,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x.contiguous(), op=dist.ReduceOp.SUM, group=group)
     return out
 
 

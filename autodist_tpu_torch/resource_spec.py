@@ -160,6 +160,12 @@ class ResourceSpec:
         return list(self._nodes.keys())
 
     @property
+    def node_addresses(self):
+        """The node addresses in spec order (the PS builders' candidate
+        anchors)."""
+        return list(self._nodes.keys())
+
+    @property
     def devices(self):
         """Iterable of (name_string, DeviceSpec)."""
         return self._devices.items()

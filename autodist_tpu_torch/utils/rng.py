@@ -8,7 +8,8 @@ numbers than JAX from the same seed, so tests make shared inputs with numpy.
   (seed, step) so that two steps never reuse a stream (the JAX engine's
   ``fold_in(rng, step)``), and over more than one replica from the rank
   too, so that replicas draw independent streams (its
-  ``fold_in(axis_index)``).
+  ``fold_in(axis_index)``), and under gradient accumulation from the
+  microbatch index (its ``fold_in(micro_idx)``).
 """
 import torch
 
@@ -33,10 +34,13 @@ def host_generator(seed=0, device="cpu"):
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
-def step_generator(seed, step, device="cpu", replica=None):
+def step_generator(seed, step, device="cpu", replica=None, micro=None):
     """The generator of training step ``step`` under root ``seed``; with
-    ``replica``, that replica's own stream of the step."""
+    ``replica``, that replica's own stream of the step; with ``micro``, that
+    microbatch's stream of it."""
     folded = fold_in(seed, step)
     if replica is not None:
         folded = fold_in(folded, replica)
+    if micro is not None:
+        folded = fold_in(folded, micro)
     return torch.Generator(device=device).manual_seed(folded)

@@ -19,7 +19,8 @@
 - The package imports no JAX, flax, optax, protobuf or ``autodist_tpu``,
   and its entry points (``gpt_capture`` and ``classifier_capture`` too)
   raise without a GPU unless given ``device="cpu"``.
-- The knobs of later slices raise (``PowerSGDCompressor`` among them), and
+- The knobs of later slices raise (``PowerSGDCompressor``,
+  ``PSLoadBalancing(sync=False)`` and ``remat`` among them), and
   a spec of two replicas in a one-process world raises the world-size
   error instead of running one replica.
 """
@@ -304,17 +305,19 @@ def test_strategy_json_roundtrip_and_later_slices_raise(tmp_path):
                    {"precision": "bf16_master"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             AllReduce(**kwargs)
-    with pytest.raises(NotImplementedError, match="PS"):
-        PSLoadBalancing()
     loss_fn, params, _ = gpt_capture(dataclasses.replace(tgpt.GPT_TINY, num_layers=1),
                                      SEQ, device="cpu")
+    with pytest.raises(NotImplementedError, match="sync=False"):
+        AutoDist(resource_spec=ResourceSpec(resource_info=CPU_SPEC),
+                 strategy_builder=PSLoadBalancing(sync=False), device="cpu").distribute(
+            loss_fn, params, optim.sgd(0.1))
     ad = AutoDist(resource_spec=ResourceSpec(resource_info={
         "nodes": [{"address": "localhost", "gpus": [0, 1], "chief": True}]}),
         strategy_builder=AllReduce(), device="cpu")
     with pytest.raises(ValueError, match="2 replicas but this launch has WORLD_SIZE=1"):
         ad.distribute(loss_fn, params, optim.sgd(0.1))
-    with pytest.raises(NotImplementedError, match="accum_steps"):
-        ad.distribute(loss_fn, params, optim.sgd(0.1), accum_steps=2)
+    with pytest.raises(NotImplementedError, match="remat"):
+        ad.distribute(loss_fn, params, optim.sgd(0.1), remat=True)
 
 
 def test_resource_spec_yaml_matches_dict(tmp_path):

@@ -30,7 +30,17 @@ the CPU), runs the cases below and writes ``DIR/rank<r>.pkl``:
   first, causal and not, and its indivisible-heads error; 3 GPT-tiny sgd
   steps on ``{replica: 2, seq: 2}``, on the flat 4 replicas and on the
   one-axis ``{seq: 4}`` (data parallel, as in JAX), and the error of a
-  batch whose dim 1 does not divide.
+  batch whose dim 1 does not divide;
+- ``ps`` (one dict): the PS builders' weight-update sharding on
+  ``test_value_exact_sync``'s linear model (``PS``,
+  ``PS(local_proxy_variable=True)``, ``PSLoadBalancing`` x sgd/adam, with
+  the Adam moments' shapes), ``tests/test_grad_accumulation.py`` (A = 1,
+  2, 4 under AllReduce and PS, A = 3's error, the threaded EMA, rng with
+  aux), ``tests/test_clip_global_norm.py`` (AllReduce and PS),
+  ``tests/test_uneven_batch.py`` (B = 13 and 9 under AllReduce and PS,
+  with accumulation, ``predict``'s trim, the even batch, the error without
+  the opt-in), ``run_steps``, ``fit`` and ``check_replication`` before and
+  after rank 1 perturbs its copy.
 
 Every ``AutoDist`` case records its strategy id and final parameters, so
 the test can check that the ranks agree.
@@ -68,6 +78,12 @@ ULYSSES_HEADS, ULYSSES_BAD_HEADS = 4, 3
 SP_MESH = {"replica": 2, "seq": 2}
 SEQ_ONLY_MESH = {"seq": WORLD}   # one axis: dim 0 sharded over it, no ring
 SP_LR = 0.05
+# the PS cases: the linear model's builders, accumulation counts, the clip
+# bound and the uneven batch sizes
+PS_BUILDERS = ("PS", "PS_proxy", "PSLoadBalancing")
+ACCUM_COUNTS = (1, 2, 4)
+CLIP_NORM = 0.1
+UNEVEN_SIZES = (13, 9)
 
 
 def codec_inputs(r, n, seed):
@@ -115,6 +131,15 @@ def make_inputs(jax_gpt_params):
         "ring_qkv": qkv(RING_SHAPE, seed=11),
         "ulysses_qkv": qkv((b, s, ULYSSES_HEADS, d), seed=12),
         "ulysses_bad_qkv": qkv((b, s // 2, ULYSSES_BAD_HEADS, d), seed=13),
+        "accum_batch": np.random.RandomState(0).randn(32, 6).astype(np.float32),
+        "clip_batch": 5.0 * np.random.RandomState(0).randn(16, 10).astype(np.float32),
+        "clip_params": {"w": np.random.RandomState(3).randn(10, 4).astype(np.float32),
+                        "b": np.zeros(4, np.float32)},
+        "uneven_params": {"w": np.random.RandomState(7).randn(6, 3).astype(np.float32),
+                          "b": np.zeros(3, np.float32)},
+        "uneven_batches": {n: np.random.RandomState(0).randn(n, 6).astype(np.float32)
+                           for n in UNEVEN_SIZES},
+        "uneven_accum_batch": np.random.RandomState(1).randn(13, 6).astype(np.float32),
     }
     for i, n in enumerate(CODEC_SIZES):
         inputs["codec_bufs"][n], inputs["codec_states"][n] = codec_inputs(WORLD, n,
@@ -241,6 +266,7 @@ def main(workdir):
                                     losses=losses)
 
     results["seq_parallel"] = seq_parallel_cases(inputs, world, autodist)
+    results["ps"] = ps_cases(inputs, world, autodist)
 
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
@@ -305,6 +331,139 @@ def seq_parallel_cases(inputs, world, autodist):
                 sess.run(bad)
             except ValueError as e:
                 out["dim1_error"] = str(e)
+    return out
+
+
+def masked_mse(p, batch):
+    """``tests/test_uneven_batch.py``'s loss: a masked mean over the real rows."""
+    import torch
+
+    per_ex = torch.mean((batch["x"] @ p["w"] + p["b"]) ** 2, dim=-1)
+    m = batch.get("__batch_mask__")
+    if m is None:
+        return torch.mean(per_ex)
+    m = m.to(per_ex.dtype)
+    return torch.sum(per_ex * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def ps_cases(inputs, world, autodist):
+    import torch
+
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.strategy import PS, AllReduce, PSLoadBalancing
+
+    builders = {"PS": PS, "PS_proxy": lambda: PS(local_proxy_variable=True),
+                "PSLoadBalancing": PSLoadBalancing, "AllReduce": AllReduce}
+    out = {}
+
+    def tensors(arrays):
+        return {k: torch.from_numpy(v.copy()) for k, v in arrays.items()}
+
+    def linear_loss(p, batch):
+        return torch.mean((batch @ p["w"] + p["b"]) ** 2)
+
+    for name in PS_BUILDERS:
+        for opt in ("sgd", "adam"):
+            make = optim.sgd(0.1) if opt == "sgd" else optim.adam(0.05)
+            sess = autodist(builders[name]()).distribute(
+                linear_loss, tensors(inputs["linear_params"]), make)
+            for _ in range(3):
+                metrics = sess.run(inputs["linear_batch"])
+            res = _session_result(sess, metrics)
+            opt_state = sess.state["opt_state"].state
+            res["moments"] = {n: tuple(opt_state[t]["exp_avg"].shape) if opt == "adam"
+                              else None for n, t in sess.state["shards"].items()}
+            res["syncs"] = [n.WhichOneof("synchronizer")
+                            for n in sess.transformer.strategy.node_config]
+            out["linear", name, opt] = res
+
+    def accum_loss(p, b):
+        return torch.mean((b @ p["w"]) ** 2)
+
+    for name in ("AllReduce", "PS"):
+        for a in ACCUM_COUNTS:
+            sess = autodist(builders[name]()).distribute(
+                accum_loss, {"w": torch.ones(6)}, optim.sgd(0.05), accum_steps=a)
+            for _ in range(3):
+                metrics = sess.run(inputs["accum_batch"])
+            out["accum", name, a] = _session_result(sess, metrics)
+    sess = autodist(AllReduce()).distribute(accum_loss, {"w": torch.ones(6)},
+                                            optim.sgd(0.05), accum_steps=3)
+    try:
+        sess.run(inputs["accum_batch"])
+    except ValueError as e:
+        out["accum_error"] = str(e)
+
+    def ema_loss(p, s, b):
+        return torch.mean(b @ p["w"]), {"ema": 0.5 * s["ema"] + 0.5 * torch.mean(b)}
+
+    for a in (1, 4):
+        sess = autodist(AllReduce()).distribute(
+            ema_loss, {"w": torch.ones(6)}, optim.sgd(0.0),
+            mutable_state={"ema": torch.zeros(())}, accum_steps=a)
+        sess.run(np.ones((32, 6), np.float32))
+        out["ema", a] = float(sess.mutable_state()["ema"])
+
+    def aux_loss(p, b, generator):
+        return torch.mean(b @ p["w"]), {"n": torch.randn((), generator=generator)}
+
+    sess = autodist(PSLoadBalancing()).distribute(
+        aux_loss, {"w": torch.ones(6)}, optim.sgd(0.05), has_aux=True, has_rng=True,
+        accum_steps=2)
+    metrics = sess.run(inputs["accum_batch"])
+    out["rng_aux"] = {k: float(v) for k, v in metrics.items()}
+
+    def clip_loss(p, b):
+        return torch.mean((b @ p["w"] + p["b"]) ** 2)
+
+    for name in ("AllReduce", "PS"):
+        sess = autodist(builders[name]()).distribute(
+            clip_loss, tensors(inputs["clip_params"]), optim.sgd(0.1),
+            clip_global_norm=CLIP_NORM)
+        for _ in range(3):
+            metrics = sess.run(inputs["clip_batch"])
+        out["clip", name] = dict(_session_result(sess, metrics),
+                                 grad_norm=float(metrics["grad_norm"]))
+
+    for name in ("AllReduce", "PS"):
+        for n in UNEVEN_SIZES:
+            sess = autodist(builders[name]()).distribute(
+                masked_mse, tensors(inputs["uneven_params"]), optim.sgd(0.1),
+                batch_mask=True)
+            for _ in range(2):
+                metrics = sess.run({"x": inputs["uneven_batches"][n]})
+            out["uneven", name, n] = _session_result(sess, metrics)
+    sess = autodist(AllReduce()).distribute(
+        masked_mse, tensors(inputs["uneven_params"]), optim.sgd(0.1), accum_steps=2,
+        batch_mask=True)
+    sess.run({"x": inputs["uneven_accum_batch"]})
+    out["uneven_accum"] = _session_result(sess, {"loss": torch.tensor(0.0)})
+    sess = autodist(AllReduce()).distribute(
+        masked_mse, tensors(inputs["uneven_params"]), optim.sgd(0.1),
+        eval_fn=lambda p, b: b["x"] @ p["w"] + p["b"], batch_mask=True)
+    out["predict_shape"] = tuple(sess.predict({"x": np.ones((10, 6), np.float32)}).shape)
+    padded, pad = sess._pad_uneven({"x": np.ones((16, 6), np.float32)})
+    out["even_batch"] = (pad, sorted(padded))
+    sess = autodist(AllReduce()).distribute(masked_mse, tensors(inputs["uneven_params"]),
+                                            optim.sgd(0.1))
+    try:
+        sess.run({"x": np.ones((13, 6), np.float32)})
+    except ValueError as e:
+        out["uneven_error"] = str(e)
+
+    sess = autodist(PSLoadBalancing()).distribute(
+        linear_loss, tensors(inputs["linear_params"]), optim.adam(0.05))
+    sess.run_steps([inputs["linear_batch"]] * 2)
+    steps = [sess.step]
+    sess.fit(lambda step: inputs["linear_batch"], steps=5)
+    steps.append(sess.step)
+    out["session_steps"] = steps
+    replication = [sess.check_replication()]
+    if world.rank == 1:
+        with torch.no_grad():
+            sess.state["params"]["w"][0, 0] += 1.0
+    replication.append(sess.check_replication())
+    out["replication"] = replication
     return out
 
 
