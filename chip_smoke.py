@@ -116,7 +116,27 @@ Phases (each failure exits non-zero before the last line):
    (``attention_impl="xla"``), and per step 12 ``flash_block_update``, 12
    ``flash_dq``, 12 ``flash_dkdv`` and no ``flash_fwd``; prints step ms,
    tokens/s, peak memory and the profile;
-12. prints the ``{"kernels": [...]}`` line (nine kernels), then the
+12. trains GPT-2 small as in phase 5 (10 adamw steps, B=8, S=1024, phase
+   5's weights and batch) under the default builder, ``AutoDist(
+   resource_spec=...)`` with no strategy builder (``PSLoadBalancing``: the
+   gradients reduce-scattered, the flat shards updated, the shards
+   all-gathered), in a process of its own (``chip_smoke.py --ps LOSSES``,
+   LOSSES phase 5's ten losses as a JSON list): every node a
+   ``PSSynchronizer`` on the chief's first GPU; step 1's loss within 1e-5
+   relative of phase 5's (same parameters, same forward) and steps 2-10
+   within 1e-3 (at R = 1 PS and AllReduce compute the same elementwise
+   adamw; it prints the largest difference and whether the losses are
+   bitwise equal); finite losses whose last three average below the
+   first; per step 12 ``flash_fwd``, 12 ``flash_dq``, 12 ``flash_dkdv``
+   and no other kernel; then ``fit`` to step 12 and ``check_replication()
+   == []``; prints step ms, tokens/s, peak memory, the profile and the PS
+   sync's device time (pack -> scatter -> shard update -> gather ->
+   write-back, and its three parts).  A second session on the same
+   ``AutoDist`` with ``accum_steps=2`` and ``clip_global_norm=1.0``, 3
+   steps: step 1's loss within 1e-3 relative of phase 5's (the mean over 2
+   microbatches of 4), a finite positive ``grad_norm``, 24 launches a step
+   of each flash kernel;
+13. prints the ``{"kernels": [...]}`` line (nine kernels), then the
    ``{"ok": true, ...}`` line.
 
 Tolerances, kernel vs plain version on the same inputs.  Flash, bf16
@@ -130,7 +150,8 @@ relative Frobenius <= 1e-2 (1e-4 each in f32).  The ring-of-one run: step
 norm: y max-abs <= 1e-2 * max(1, max|y|) in bf16 (output rounding) and
 1e-4 in f32; mean and var max-abs <= 1e-4 of their largest magnitude (f32
 partial sums in another order).  Step 1 loss, kernels vs plain versions:
-relative <= 1e-3 (GPT-2 and both ResNets).  Quantization kernels and the
+relative <= 1e-3 (GPT-2 and both ResNets).  The default builder against
+phase 5: step 1 relative <= 1e-5, steps 2-10 <= 1e-3.  Quantization kernels and the
 synced gradients of the int8 codecs: bitwise (both sides divide with IEEE
 division, round half to even and sum the peers in order without FMA).
 """
@@ -183,6 +204,11 @@ CODECS = {   # codec -> its quantization launches per GPT-2 small step (2 bucket
 CODEC_STEPS = 5
 RING_BLOCKS = (4, 2)        # the virtual rings' block counts of the GPT-2 sequence
 RING_LOSS_TOL = 1e-3        # step 1 loss, ring of one vs the flat path (absolute)
+# the default builder (PSLoadBalancing) vs phase 5's AllReduce, relative:
+# step 1 (same parameters, same forward), steps 2-10, and step 1 of the
+# accumulation and clipping session
+PS_STEP1_TOL, PS_LOSS_TOL, PS_ACCUM_TOL = 1e-5, 1e-3, 1e-3
+PS_FIT_STEPS, PS_ACCUM, PS_CLIP, PS_ACCUM_RUN = 12, 2, 1.0, 3
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -1028,7 +1054,7 @@ def train_gpt2_small(torch, ad, kernel_modules):
     check(all(bool(torch.isfinite(t).all()) for t in sess.state["params"].values()),
           "non-finite parameters after training")
     profile_steps(torch, sess, batch)
-    return {n: launches[n] for n in ("flash_fwd", "flash_dq", "flash_dkdv")}, losses[0]
+    return {n: launches[n] for n in ("flash_fwd", "flash_dq", "flash_dkdv")}, losses
 
 
 def norm_site_shapes(torch):
@@ -1224,7 +1250,7 @@ def train_gpt2_codec(torch, ad, codec, kernel_modules):
         return {k: v.clone() if torch.is_tensor(v) else v
                 for k, v in sess.state["comp"].items()}
 
-    _, _, grads = t.gradients(sess.state, sess.shard_batch(batch))
+    _, _, grads, _ = t.gradients(sess.state, sess.shard_batch(batch))
     synced, states = t.sync(grads, fresh_states())
     plain_synced, plain_states = t.sync(grads, fresh_states(), impl="plain")
     torch.cuda.synchronize()
@@ -1355,6 +1381,125 @@ def train_gpt2_ring(torch, ad, kernel_modules, flat_loss):
             "step_ms": steady, "losses": losses, "peak_gb": peak_gb}
 
 
+def time_ps_sync(torch, t, state, grads):
+    """The PS sync's device time per step on ``grads``: pack -> scatter ->
+    shard update -> gather -> write-back (:meth:`GraphTransformer.update`,
+    which for the default builder holds nothing else), and its three parts.
+    Each timed call takes an optimizer step: run it after the checks."""
+    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
+    shards = state["shards"]
+
+    def shard_update(shard_grads):
+        with torch.no_grad():
+            for n, g in shard_grads.items():
+                shards[n].grad = g
+            state["opt_state"].step()
+            for n in shard_grads:
+                shards[n].grad = None
+
+    scattered = t.ps_scatter(grads)
+    times = {
+        "total": time_ms(lambda: t.update(state, grads), torch, flush, reps=10),
+        "pack + reduce-scatter": time_ms(lambda: t.ps_scatter(grads), torch, flush, reps=10),
+        "shard update (adamw)": time_ms(lambda: shard_update(scattered), torch, flush,
+                                        reps=10),
+        "all-gather + write-back": time_ms(lambda: t.ps_gather(state), torch, flush,
+                                           reps=10),
+    }
+    del flush, scattered
+    return times
+
+
+def train_gpt2_ps(torch, ad, spec, kernel_modules, flat_losses):
+    """The default builder (phase 12): phase 5's GPT-2 small, batch and
+    weights under ``AutoDist(resource_spec=...)`` with no strategy builder,
+    so ``PSLoadBalancing``: each step reduce-scatters the gradients, updates
+    the flat shards (at R = 1 the whole of each variable) and gathers them
+    back.  Its losses are held against ``flat_losses`` (phase 5's, under
+    AllReduce); then ``fit``, ``check_replication`` and a second session
+    with ``accum_steps`` and ``clip_global_norm``."""
+    import numpy as np
+
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.models.gpt import GPTConfig
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+
+    config = GPTConfig()
+    loss_fn, params, sparse = gpt_capture(config, SEQ, seed=0)
+    toks = np.random.default_rng(0).integers(0, config.vocab_size, (BATCH, SEQ + 1))
+    batch = {"tokens": toks[:, :-1].astype(np.int32), "targets": toks[:, 1:].astype(np.int32)}
+    sess = ad.distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
+                         has_rng=True)
+    t = sess.transformer
+    anchor = spec.gpu_devices[0][0]
+    dests = {(n.WhichOneof("synchronizer"), n.PSSynchronizer and
+              n.PSSynchronizer.reduction_destination) for n in t.strategy.node_config}
+    check(dests == {("PSSynchronizer", anchor)} and len(t.strategy.node_config) ==
+          len(t.names), f"PS: expected every node a PSSynchronizer on {anchor}, got {dests}")
+    check(not t.buckets and sum(len(v) for v in t.ps_groups.values()) == len(t.names),
+          f"PS: expected every variable in a PS group, got {t.ps_groups} and {t.buckets}")
+    print(f"PS: {len(t.names)} variables, every one a PSSynchronizer on {anchor}, "
+          f"{len(t.ps_groups)} dtype group(s) of {sum(t.shard_len.values())} elements")
+    losses, step_ms, launches, peak_gb = timed_steps(torch, sess, batch, STEPS,
+                                                     kernel_modules)
+    steady = statistics.median(step_ms[1:])
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, flat_losses)]
+    print("PS losses: " + ", ".join(f"{x:.6f}" for x in losses))
+    print("PS step ms: " + ", ".join(f"{x:.2f}" for x in step_ms))
+    print(f"PS (default builder): median step {steady:.2f} ms (steps 2-{STEPS}), "
+          f"{BATCH * SEQ / steady * 1e3:.0f} tokens/s, peak memory {peak_gb:.2f} GB, "
+          f"launches {launches}")
+    print(f"PS vs phase 5 (AllReduce): step 1 relative difference {rel[0]:.3e}, largest "
+          f"over steps 2-{STEPS} {max(rel[1:]):.3e}; bitwise equal losses: "
+          f"{losses == list(flat_losses)}")
+    check(len(flat_losses) == STEPS, f"PS: expected {STEPS} phase-5 losses")
+    check(all(math.isfinite(x) for x in losses), f"PS: non-finite loss in {losses}")
+    check(statistics.mean(losses[-3:]) < losses[0],
+          f"PS: the last three losses do not average below the first: {losses}")
+    check(rel[0] <= PS_STEP1_TOL, f"PS: step 1 loss differs from phase 5's by {rel[0]}")
+    check(max(rel[1:]) <= PS_LOSS_TOL, f"PS: a loss differs from phase 5's by {max(rel)}")
+    per_step = config.num_layers * STEPS
+    want = dict(NO_LAUNCHES, flash_fwd=per_step, flash_dq=per_step, flash_dkdv=per_step)
+    check(launches == want, f"PS: expected launches {want}, got {launches}")
+    profile_steps(torch, sess, batch)
+    sess.fit(lambda step: batch, steps=PS_FIT_STEPS)
+    check(sess.step == PS_FIT_STEPS, f"PS: fit ended at step {sess.step}")
+    bad = sess.check_replication()
+    check(bad == [], f"PS: check_replication names {bad}")
+    check(all(bool(torch.isfinite(p).all()) for p in sess.state["params"].values()),
+          "PS: non-finite parameters after training")
+    print(f"PS: fit ran to step {sess.step}; check_replication() == []")
+    _, _, grads, _ = t.gradients(sess.state, sess.shard_batch(batch))
+    sync = time_ps_sync(torch, t, sess.state, grads)
+    print("PS sync device time per step: " + ", ".join(f"{k} {v:.4f} ms"
+                                                        for k, v in sync.items()))
+    del sess, t, grads
+    torch.cuda.empty_cache()
+
+    sess = ad.distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
+                         has_rng=True, accum_steps=PS_ACCUM, clip_global_norm=PS_CLIP)
+    for m in kernel_modules:
+        m.reset_launches()
+    metrics = [sess.run(batch) for _ in range(PS_ACCUM_RUN)]
+    accum_losses = [m["loss"].item() for m in metrics]
+    norms = [m["grad_norm"].item() for m in metrics]
+    accum_launches = {n: c for m in kernel_modules for n, c in m.LAUNCHES.items()}
+    accum_rel = abs(accum_losses[0] - flat_losses[0]) / abs(flat_losses[0])
+    print(f"PS accum_steps={PS_ACCUM}, clip_global_norm={PS_CLIP}: losses "
+          + ", ".join(f"{x:.6f}" for x in accum_losses) + ", grad_norm "
+          + ", ".join(f"{x:.4f}" for x in norms)
+          + f"; step 1 relative difference from phase 5 {accum_rel:.3e}")
+    check(accum_rel <= PS_ACCUM_TOL, f"PS accum: step 1 differs from phase 5's by {accum_rel}")
+    check(all(math.isfinite(x) and x > 0 for x in norms), f"PS accum: grad_norm {norms}")
+    check(all(math.isfinite(x) for x in accum_losses), f"PS accum: losses {accum_losses}")
+    per_run = config.num_layers * PS_ACCUM * PS_ACCUM_RUN
+    want = dict(NO_LAUNCHES, flash_fwd=per_run, flash_dq=per_run, flash_dkdv=per_run)
+    check(accum_launches == want, f"PS accum: expected launches {want}, got {accum_launches}")
+    return {"launches": {k: launches[k] for k in ("flash_fwd", "flash_dq", "flash_dkdv")},
+            "step_ms": steady, "losses": losses, "peak_gb": peak_gb, "sync_ms": sync,
+            "accum_losses": accum_losses, "grad_norms": norms}
+
+
 def run_child(args, marker):
     """``chip_smoke.py ARGS`` in a process of its own (``AutoDist`` is one
     instance per process); forwards its output and returns its ``MARKER``
@@ -1469,6 +1614,25 @@ def ring_main(flat_loss):
     return 0
 
 
+def ps_main(flat_losses):
+    """``chip_smoke.py --ps LOSSES``: the default builder's run (phase 12);
+    LOSSES is phase 5's JSON list of losses."""
+    import torch
+
+    m = setup(torch)
+    if m is None:
+        return 1
+    try:
+        ad = m["AutoDist"](resource_spec=m["spec"])
+        result = train_gpt2_ps(torch, ad, m["spec"], (m["fa"], m["fn"], m["tq"]),
+                               json.loads(flat_losses))
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    print("PS_RESULT " + json.dumps(result))
+    return 0
+
+
 def main():
     try:
         import torch
@@ -1502,7 +1666,7 @@ def main():
         timing.update(measure_quantize_kernels(torch, tq))
         torch.cuda.empty_cache()
         ad = m["AutoDist"](resource_spec=m["spec"], strategy_builder=m["AllReduce"]())
-        launches, flat_loss = train_gpt2_small(torch, ad, kernel_modules)
+        launches, flat_losses = train_gpt2_small(torch, ad, kernel_modules)
         torch.cuda.empty_cache()
         report_norm_sites(torch)
         launches.update(train_resnet50(torch, ad, kernel_modules, "bn_fused", RESNET_STEPS))
@@ -1511,7 +1675,8 @@ def main():
         del ad
         torch.cuda.empty_cache()
         launches.update(run_codec_phase())
-        launches.update(run_child(["--ring", repr(flat_loss)], "RING_RESULT")["launches"])
+        launches.update(run_child(["--ring", repr(flat_losses[0])], "RING_RESULT")["launches"])
+        run_child(["--ps", json.dumps(flat_losses)], "PS_RESULT")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1534,4 +1699,6 @@ if __name__ == "__main__":
         sys.exit(codec_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--ring":
         sys.exit(ring_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ps":
+        sys.exit(ps_main(sys.argv[2]))
     sys.exit(main())

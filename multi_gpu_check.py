@@ -6,6 +6,8 @@ process per GPU (NCCL)::
         multi_gpu_check.py Int8Compressor
     python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
         multi_gpu_check.py ring
+    python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        multi_gpu_check.py ps
 
 ``CODEC`` (one of ``chip_smoke.CODECS``): each rank runs
 ``chip_smoke.train_gpt2_codec`` on its own GPU: GPT-2 small at full width
@@ -26,6 +28,17 @@ flat path (no sequence parallelism); 12 * R_s launches per step of each
 ring kernel and none of ``flash_fwd``; finite losses that fall; every rank
 ends with the same parameters.
 
+``ps``: the default builder.  GPT-2 small (adamw 3e-4, 8 sequences of
+1024 tokens per rank, 5 steps) under ``AutoDist(resource_spec=...)`` with
+no strategy builder, so ``PSLoadBalancing``: one reduce-scatter of the
+gradients, the adamw update of each rank's flat 1/R shards, one
+all-gather, per step.  Then the same run under ``AllReduce()`` (the
+``NoneCompressor``) on the same cards.  Checks: ``check_replication() ==
+[]`` after step 1; finite losses that fall; 12 launches per step of each
+flash kernel; step 1's loss equal between the two within 1e-5 (same
+parameters, same forward) and the later steps within 1e-3; every rank
+ends with the same parameters.  Prints both step medians.
+
 Rank 0 builds the kernels and prints; the run ends with a ``RESULT {...}``
 JSON line.  A failed check exits non-zero.
 """
@@ -39,6 +52,7 @@ import chip_smoke as smoke
 
 RING_STEPS = 5
 RING_SEQUENCES = 8
+PS_STEPS = 5
 
 
 def train_gpt2_mesh(torch, ad, kernel_modules):
@@ -91,10 +105,64 @@ def train_gpt2_mesh(torch, ad, kernel_modules):
             "launches_per_step": {k: v // RING_STEPS for k, v in launches.items() if v}}
 
 
+def train_gpt2_sync(torch, ad, kernel_modules, tag):
+    """GPT-2 small at 8 sequences per rank under ``ad``'s builder, PS_STEPS
+    adamw steps; ``check_replication`` after step 1; returns the run's
+    numbers."""
+    import numpy as np
+
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.models.gpt import GPTConfig
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+
+    config = GPTConfig()
+    loss_fn, params, sparse = gpt_capture(config, smoke.SEQ, seed=0)
+    rows = smoke.BATCH * ad.world.size
+    toks = np.random.default_rng(0).integers(0, config.vocab_size, (rows, smoke.SEQ + 1))
+    batch = {"tokens": toks[:, :-1].astype(np.int32), "targets": toks[:, 1:].astype(np.int32)}
+    sess = ad.distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
+                         has_rng=True)
+    first = sess.run(batch)["loss"].item()
+    bad = sess.check_replication()
+    smoke.check(bad == [], f"{tag}: check_replication() after step 1 names {bad}")
+    losses, step_ms, launches, peak_gb = smoke.timed_steps(torch, sess, batch, PS_STEPS - 1,
+                                                           kernel_modules)
+    losses = [first] + losses
+    steady = statistics.median(step_ms)
+    print(f"{tag} losses: " + ", ".join(f"{x:.6f}" for x in losses))
+    print(f"{tag} step ms (steps 2-{PS_STEPS}): " + ", ".join(f"{x:.2f}" for x in step_ms))
+    print(f"{tag}: median step {steady:.2f} ms (steps 2-{PS_STEPS}), "
+          f"{rows * smoke.SEQ / steady * 1e3:.0f} tokens/s over {rows} sequences, peak "
+          f"memory {peak_gb:.2f} GB, launches {launches}; check_replication() == [] "
+          f"after step 1")
+    smoke.check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss {losses}")
+    smoke.check(losses[-1] < losses[0], f"{tag}: loss did not fall: {losses}")
+    per_step = config.num_layers * (PS_STEPS - 1)
+    want = dict(smoke.NO_LAUNCHES, flash_fwd=per_step, flash_dq=per_step,
+                flash_dkdv=per_step)
+    smoke.check(launches == want, f"{tag}: expected launches {want}, got {launches}")
+    smoke.check(smoke.same_on_every_rank(torch, list(sess.state["params"].values()),
+                                         sess.transformer.group),
+                f"{tag}: the ranks hold different parameters")
+    print(f"{tag}: all {ad.world.size} ranks hold the same parameters")
+    return {"losses": losses, "step_ms": steady, "peak_gb": peak_gb}
+
+
+def compare_ps_allreduce(ps, ar):
+    """The default builder against AllReduce on the same cards."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(ps["losses"], ar["losses"])]
+    print(f"PSLoadBalancing {ps['step_ms']:.2f} ms vs AllReduce (NoneCompressor) "
+          f"{ar['step_ms']:.2f} ms a step; losses: step 1 relative difference "
+          f"{rel[0]:.3e}, largest later {max(rel[1:]):.3e}")
+    smoke.check(rel[0] <= smoke.PS_STEP1_TOL, f"ps: step 1 differs from AllReduce by {rel[0]}")
+    smoke.check(max(rel[1:]) <= smoke.PS_LOSS_TOL,
+                f"ps: a later loss differs from AllReduce's by {max(rel[1:])}")
+
+
 def main(argv):
     import torch
 
-    if len(argv) != 1 or argv[0] not in (*smoke.CODECS, "ring"):
+    if len(argv) != 1 or argv[0] not in (*smoke.CODECS, "ring", "ps"):
         print(__doc__ + f"\nCODEC is one of {list(smoke.CODECS)}", file=sys.stderr)
         return 2
     mode = argv[0]
@@ -103,7 +171,7 @@ def main(argv):
         print("FAIL: run under torchrun with --nproc-per-node >= 2 (even for ring)",
               file=sys.stderr)
         return 1
-    if mode == "ring":   # one AutoDist per mesh, both in this process
+    if mode in ("ring", "ps"):   # two AutoDists in this process
         os.environ["AUTODIST_IS_TESTING"] = "1"
     m = smoke.setup(torch)
     if m is None:
@@ -112,12 +180,16 @@ def main(argv):
 
     torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
     nodes = [{"address": "localhost", "gpus": list(range(world_size)), "chief": True}]
-    meshes = ([{"replica": 1, "seq": world_size}, {"replica": world_size // 2, "seq": 2}]
-              if mode == "ring" else [None])
-    builder = m["AllReduce"]() if mode == "ring" else m["AllReduce"](compressor=mode)
+    if mode == "ring":   # (mesh, strategy builder) of each AutoDist
+        runs = [({"replica": 1, "seq": world_size}, m["AllReduce"]()),
+                ({"replica": world_size // 2, "seq": 2}, m["AllReduce"]())]
+    elif mode == "ps":   # the default builder, then AllReduce
+        runs = [(None, None), (None, m["AllReduce"]())]
+    else:
+        runs = [(None, m["AllReduce"](compressor=mode))]
     ads = [m["AutoDist"](resource_spec=ResourceSpec(resource_info=dict(
         {"nodes": nodes}, **({"mesh": mesh} if mesh else {}))), strategy_builder=builder)
-        for mesh in meshes]
+        for mesh, builder in runs]
     rank = ads[0].world.rank   # joins the process group
     if rank == 0:
         m["build"].build(list(smoke.SOURCES))
@@ -129,6 +201,12 @@ def main(argv):
     try:
         if mode == "ring":
             result = {"ring": [train_gpt2_mesh(torch, ad, modules) for ad in ads]}
+        elif mode == "ps":
+            ps = train_gpt2_sync(torch, ads[0], modules, "PSLoadBalancing")
+            torch.cuda.empty_cache()
+            ar = train_gpt2_sync(torch, ads[1], modules, "AllReduce")
+            compare_ps_allreduce(ps, ar)
+            result = {"ps": ps, "all_reduce": ar}
         else:
             result = smoke.train_gpt2_codec(torch, ads[0], mode, modules)
     except smoke.SmokeFailure as e:
