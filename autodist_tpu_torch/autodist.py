@@ -10,8 +10,8 @@ a dict of tensors; with ``mutable_state`` (e.g. a ResNet's batch
 statistics) it is ``loss_fn(params, state, batch[, generator]) -> (loss,
 new_state)``.  ``has_aux`` adds a dict of aux values to the loss
 (``(loss, aux)``, or ``(loss, (new_state, aux))``), averaged over the
-replicas into the metrics.  The options ``accum_steps``, ``clip_global_norm`` and
-``batch_mask`` (:mod:`autodist_tpu_torch.kernel.graph_transformer`,
+replicas into the metrics.  The options ``remat``, ``accum_steps``,
+``clip_global_norm`` and ``batch_mask`` (:mod:`autodist_tpu_torch.kernel.graph_transformer`,
 :mod:`autodist_tpu_torch.runner`) and ``eval_fn`` (the default forward of
 ``predict``) are the JAX engine's.
 
@@ -30,10 +30,10 @@ the global batch.  A rank runs on ``cuda:LOCAL_RANK``; a
 one-process run on the spec's first GPU; ``device="cpu"`` runs on the
 CPU.  Without a GPU and without that request it raises.  ``launch``,
 ``serve``, ``aot_compile``, the async and stale PS (``PS(sync=False)``,
-``staleness > 0``) and the options ``remat``, ``data_axes``,
-``batch_spec``, ``param_specs``, ``sync_schedule``, ``verify`` and
-``sparse_vars`` are later slices of the port (ROADMAP, Queue A); they
-raise ``NotImplementedError``.
+``staleness > 0``) and the options ``data_axes``, ``batch_spec``,
+``param_specs``, ``sync_schedule``, ``verify`` and ``sparse_vars`` are
+later slices of the port (ROADMAP, Queue A); they raise
+``NotImplementedError``.
 """
 from typing import Any, Callable, Optional, Sequence
 
@@ -47,13 +47,14 @@ from autodist_tpu_torch.proto import schema
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.strategy.base import Strategy, StrategyCompiler
 from autodist_tpu_torch.utils import logging
+from autodist_tpu_torch.utils.remat import remat as remat_fn
 
 _DEFAULT_AUTODIST = {}
 
 # distribute() options of the JAX engine that later slices realise, with
 # the value that means "off"
 _LATER_OPTIONS = {
-    "remat": False, "data_axes": None, "batch_spec": None, "param_specs": None,
+    "data_axes": None, "batch_spec": None, "param_specs": None,
     "sync_schedule": None, "verify": False,
 }
 
@@ -141,10 +142,14 @@ class AutoDist:
                    has_rng: bool = False, rng: Optional[int] = None, name: str = "",
                    mutable_state: Any = None, eval_fn: Optional[Callable] = None,
                    accum_steps: int = 1, clip_global_norm: Optional[float] = None,
-                   batch_mask: bool = False, **options):
+                   batch_mask: bool = False, remat: bool = False, **options):
         """Capture single-device code and return a :class:`DistributedSession`.
 
         ``rng`` is the integer seed of the step generators (``has_rng``).
+        ``remat=True`` runs the loss under
+        :func:`autodist_tpu_torch.utils.remat.checkpoint` (JAX's
+        ``jax.checkpoint(loss_fn)``): the backward recomputes its
+        activations, dropout masks included.
         ``accum_steps`` splits each replica's batch into that many
         microbatches, synchronised once a step; ``clip_global_norm`` clips
         the update by the global gradient norm (reported as
@@ -163,6 +168,8 @@ class AutoDist:
             raise NotImplementedError(
                 f"distribute options {later + (['sparse_vars'] if sparse_vars else [])} "
                 f"are later slices of the port (ROADMAP, Queue A)")
+        if remat:
+            loss_fn = remat_fn(loss_fn)
         item = ModelItem(loss_fn, params, optimizer, sparse_vars=sparse_vars,
                          has_aux=has_aux, has_rng=has_rng, mutable_state=mutable_state,
                          eval_fn=eval_fn, name=name)

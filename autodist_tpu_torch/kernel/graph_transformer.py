@@ -1,14 +1,20 @@
 """GraphTransformer: the compiled strategy -> state and the training step.
 
 Counterpart of ``autodist_tpu/kernel/graph_transformer.py`` (``init_state``
-and the train step of ``_spmd_step``) for the two plans the port realises
+and the train step of ``_spmd_step``) for the plans the port realises
 (:mod:`autodist_tpu_torch.kernel.partitioner`): REPLICATED storage
-synchronised by the bucketed all-reduce, and the synchronous PS's
-weight-update sharding.  Each process runs one replica on its slice of the
-global batch; the replicas meet in the collectives of ``world.group``
-(:mod:`autodist_tpu_torch.parallel.mesh`).  One step is
+synchronised by the bucketed all-reduce, and weight-update sharding, the
+synchronous PS's and the AllReduce family's ``sharded_update`` (with or
+without ``precision="bf16_master"``).  Each process runs one replica on
+its slice of the global batch; the replicas meet in the collectives of
+``world.group`` (:mod:`autodist_tpu_torch.parallel.mesh`).  One step is
 
-1. materialise: the stored full-shape parameters are what the loss sees;
+1. materialise: the stored full-shape parameters are what the loss sees.
+   A bf16-master bucket stores its f32 master only as the flat shards
+   (``state["shards"]``); its full-shape parameters in ``state["params"]``
+   are a bf16 compute copy, all-gathered per bucket from the bf16 cast of
+   the shards here, at the top of the step
+   (:meth:`GraphTransformer.gather_compute_copies`);
 2. value and gradient (:meth:`GraphTransformer.gradients`):
    ``loss_fn(params, batch[, generator])``, then ``torch.autograd.grad``
    with respect to the parameters.  With ``accum_steps = A > 1`` the
@@ -17,7 +23,9 @@ global batch; the replicas meet in the collectives of ``world.group``
    means; the mutable state threads through them.  With ``has_rng`` the
    generator is folded from (seed, step), over more than one replica the
    rank, and at A > 1 the microbatch index
-   (:func:`autodist_tpu_torch.utils.rng.step_generator`).  With mutable
+   (:func:`autodist_tpu_torch.utils.rng.step_generator`).  The gradients
+   of a bf16 compute copy are cast to f32 at once, so the accumulation,
+   the sync and the update run at the master's precision.  With mutable
    state the call is ``loss_fn(params, mutable, batch[, generator]) ->
    (loss, new_mutable)``; the new state is stored detached, after the
    cross-replica mean of its float leaves (:func:`replica_mean_state`).
@@ -29,7 +37,9 @@ global batch; the replicas meet in the collectives of ``world.group``
    weighted mean over the real examples;
 3. sync: the AllReduce variables' buckets through each bucket's codec,
    whose state rides in ``state["comp"]`` (:meth:`GraphTransformer.sync`,
-   :func:`sync_bucketed`); the PS variables by one reduce-scatter per
+   :func:`sync_bucketed`; a sharded-update bucket reduce-scatters its
+   ``(R, ss)`` matrices side by side, the codec on this gradient leg
+   only); the PS variables by one reduce-scatter per
    dtype group (:meth:`GraphTransformer.ps_scatter`): each variable's
    zero-padded flat gradient as an ``(R, ceil(n/R))`` matrix, the group's
    matrices side by side, so that replica r receives row r, its shard of
@@ -39,11 +49,16 @@ global batch; the replicas meet in the collectives of ``world.group``
    (a PS shard's squared sum summed over the replicas, an AllReduce
    gradient counted once) scales every gradient by ``min(1, max_norm /
    max(norm, 1e-12))`` and is reported as ``grad_norm``;
-5. optimizer update: the AllReduce variables in place in storage; the PS
-   variables on their flat shards (``state["shards"]``, separate leaf
-   tensors, so the optimizer state lives sharded too), whose updated
-   values come back by one all-gather per group and are written into
-   storage (:meth:`GraphTransformer.ps_gather`).
+5. optimizer update: the replicated AllReduce variables in place in
+   storage; the PS and sharded-update variables on their flat shards
+   (``state["shards"]``, separate leaf tensors, so the optimizer state
+   lives sharded too), whose updated values come back by one all-gather
+   per PS dtype group (:meth:`GraphTransformer.ps_gather`) and per
+   sharded bucket, in the shards' dtype
+   (:meth:`GraphTransformer.gather_buckets`), and are written into
+   storage.  A bf16-master bucket has no gather here: its fresh f32
+   shards are the new storage, and the next step's top gather rebuilds
+   its compute copy.
 
 On a mesh with a ``seq`` axis and more than one axis (``{"replica": R_d,
 "seq": R_s}``, even at ``seq: 1``, as in JAX) sequence parallelism is on:
@@ -68,6 +83,8 @@ from autodist_tpu_torch.model_item import dtype_name
 from autodist_tpu_torch.parallel import collectives as coll
 from autodist_tpu_torch.parallel.context import seq_axis_context
 from autodist_tpu_torch.parallel.mesh import ReplicaWorld, check_replicas
+from autodist_tpu_torch.kernel.synchronization.all_reduce import padded_rows, unpack_rows
+from autodist_tpu_torch.utils import logging
 from autodist_tpu_torch.utils.rng import step_generator
 from autodist_tpu_torch.utils.tree import map_batch
 
@@ -96,14 +113,6 @@ def microbatches(batch, count):
             for i in range(count)]
 
 
-def padded_rows(t, rows, ss):
-    """``t``'s flat elements zero-padded to ``rows * ss``, as ``(rows, ss)``
-    (a view when no padding is needed)."""
-    flat = t.reshape(-1)
-    pad = rows * ss - flat.numel()
-    return (torch.nn.functional.pad(flat, (0, pad)) if pad else flat).view(rows, ss)
-
-
 class GraphTransformer:
     """Builds the session state and the training step of one replica."""
 
@@ -130,18 +139,74 @@ class GraphTransformer:
             if name not in self.plans:
                 raise ValueError(f"No plan for variable {name}")
         self._normalise_ps_axes(tuple(strategy.graph_config.mesh.axis_names))
+        self._normalise_sharded_update()
         infos = {v.name: v for v in model_item.var_infos}
         self.buckets = ar_sync.plan_buckets(
             self.plans, {n: infos[n].shape for n in self.names},
-            {n: infos[n].dtype for n in self.names})
-        # fused PS groups: dtype -> the names of its flat-shard vars, in order
+            {n: infos[n].dtype for n in self.names}, num_replicas=self.num_replicas)
+        self.sharded_buckets = [b for b in self.buckets if ar_sync.bucket_sharded(b)]
+        # bf16-master buckets: the f32 master lives only as the flat shards
+        self.precision_buckets = [b for b in self.sharded_buckets if b.precision]
+        self._prec_names = frozenset(n for b in self.precision_buckets for n in b.var_names)
+        # fused PS groups: dtype -> the names of its flat-shard vars, in order;
+        # shard_len: every flat-shard var's ceil(n / R)
         self.ps_groups = OrderedDict()
-        self.shard_len = {}
+        self.shard_len = {n: ss for b in self.sharded_buckets
+                          for n, ss in zip(b.var_names, b.shard_sizes)}
         for name in self.names:
             plan = self.plans[name]
-            if part.flat_shard_update(plan):
+            if plan.sync == part.SyncKind.PS and part.flat_shard_update(plan):
                 self.ps_groups.setdefault(dtype_name(plan.dtype), []).append(name)
                 self.shard_len[name] = part.shard_len(plan, self.num_replicas)
+
+    def _normalise_sharded_update(self):
+        """JAX's eligibility pass: a plan that asks for the sharded update
+        but cannot realise it (a block codec, a scalar) keeps the
+        replicated update; a bf16-master plan that is not f32 or has no
+        realised sharded update keeps F32.  Both are logged, never errors."""
+        for name in self.names:
+            plan = self.plans[name]
+            if plan.sharded_update and not part.plan_sharded_update(plan):
+                logging.debug("Variable %s: sharded_update requested but the wire codec "
+                              "is not elementwise; realising the replicated update", name)
+                plan.sharded_update = 0
+        for name in self.names:
+            plan = self.plans[name]
+            if plan.precision and not part.master_shard_storage(plan):
+                logging.debug("Variable %s: precision=bf16_master requested but the plan "
+                              "is not eligible (needs f32 and a realised sharded update); "
+                              "keeping F32", name)
+                plan.precision = 0
+
+    @property
+    def sync_sharded_update(self):
+        """True when any AllReduce bucket realises the sharded update."""
+        return bool(self.sharded_buckets)
+
+    @property
+    def sync_mixed_precision(self):
+        """True when any AllReduce bucket runs bf16 compute / f32 master."""
+        return bool(self.precision_buckets)
+
+    def sharded_update_summary(self):
+        """Static accounting of the sharded update, JAX's: the per-replica
+        update-space bytes, the per-replica padding bytes, and the
+        parameter all-gather's bytes (the bf16 compute copy's half for
+        bf16-master buckets)."""
+        out = {"enabled": self.sync_sharded_update,
+               "buckets": len(self.sharded_buckets),
+               "vars": sum(len(b.var_names) for b in self.sharded_buckets),
+               "num_shards": (self.sharded_buckets[0].num_shards
+                              if self.sharded_buckets else 1),
+               "shard_bytes": 0.0, "padding_bytes": 0.0, "param_gather_bytes": 0.0,
+               "bf16_master_buckets": len(self.precision_buckets),
+               "bf16_master_vars": sum(len(b.var_names) for b in self.precision_buckets)}
+        for b in self.sharded_buckets:
+            item = torch.empty((), dtype=getattr(torch, b.dtype)).element_size()
+            out["shard_bytes"] += b.shard_total * item
+            out["padding_bytes"] += (b.padded_total - b.total) * item / b.num_shards
+            out["param_gather_bytes"] += b.padded_total * item * (0.5 if b.precision else 1.0)
+        return out
 
     def _normalise_ps_axes(self, data_axes):
         """A PS destination ``mesh:<axes>`` naming every data axis is the
@@ -168,16 +233,21 @@ class GraphTransformer:
 
     def init_state(self, seed=0):
         """The session state: stored parameters (fresh copies on the device,
-        never aliasing the caller's tensors), the PS variables' flat shards,
-        the optimizer over the update spaces (shards for PS variables, the
-        stored tensors for the others), codec state, the step counter and
-        the rng seed."""
+        never aliasing the caller's tensors; a bf16-master variable's is
+        its bf16 compute copy), the flat shards of the PS and
+        sharded-update variables (a bf16-master variable's f32 master),
+        the optimizer over the update spaces (the shards where there are,
+        else the stored tensors), codec state, the step counter and the
+        rng seed."""
         params = self.model_item.params
-        storage = OrderedDict(
-            (n, params[n].detach().to(self.device, copy=True).requires_grad_(True))
-            for n in self.names)
-        shards = OrderedDict((n, self._shard(storage[n], n)) for n in self.names
+        full = OrderedDict((n, params[n].detach().to(self.device, copy=True))
+                           for n in self.names)
+        shards = OrderedDict((n, self._shard(full[n], n)) for n in self.names
                              if n in self.shard_len)
+        storage = OrderedDict(
+            (n, (t.to(torch.bfloat16) if n in self._prec_names else t).requires_grad_(True))
+            for n, t in full.items())
+        del full
         update_space = [shards.get(n, storage[n]) for n in self.names]
         return {
             "params": storage,
@@ -235,6 +305,9 @@ class GraphTransformer:
                                          * (self.num_replicas * A)
                                          / torch.clamp(real, min=1.0))
                 mb_grads = torch.autograd.grad(mb_loss, params)
+                if self._prec_names:   # bf16 compute copies: f32 from here on
+                    mb_grads = [g.float() if n in self._prec_names else g
+                                for n, g in zip(self.names, mb_grads)]
                 auxs.append({k: torch.as_tensor(v, device=self.device).detach()
                              for k, v in aux.items()} if isinstance(aux, dict) else {})
                 if mutable is not None:
@@ -252,8 +325,9 @@ class GraphTransformer:
         return loss, mutable, dict(zip(self.names, grads)), aux
 
     def sync(self, grads, comp_states, impl=None):
-        """The synced gradients of the AllReduce variables and the new codec
-        states (:func:`sync_bucketed` over this world's replicas)."""
+        """The synced gradients of the AllReduce variables (a sharded
+        bucket's as this replica's flat shards) and the new codec states
+        (:func:`sync_bucketed` over this world's replicas)."""
         return ar_sync.sync_bucketed(grads, self.buckets, comp_states, self.group,
                                      impl=impl)
 
@@ -278,31 +352,53 @@ class GraphTransformer:
         """Write the updated PS shards back into storage: one all-gather per
         dtype group of the shards laid end to end; variable v's columns of
         the gathered ``(R, S)`` matrix, read row-major, are its new value
-        (the full rows copied by one multi-tensor copy, the last partial
-        row, where there is one, apart)."""
+        (:func:`~autodist_tpu_torch.kernel.synchronization.all_reduce.unpack_rows`)."""
         R = self.num_replicas
         storage, shards = state["params"], state["shards"]
-        dsts, srcs = [], []
         with torch.no_grad():
             for names in self.ps_groups.values():
                 cat = torch.cat([shards[n] for n in names])
                 full = coll.all_gather_into_tensor(cat, self.group).view(R, -1)
-                off = 0
-                for n in names:
-                    ss = self.shard_len[n]
-                    flat = storage[n].view(-1)
-                    rows, rem = divmod(flat.numel(), ss)
-                    dsts.append(flat[:rows * ss].view(rows, ss))
-                    srcs.append(full[:rows, off:off + ss])
-                    if rem:
-                        flat[rows * ss:].copy_(full[rows, off:off + rem])
-                    off += ss
-            if dsts:
-                torch._foreach_copy_(dsts, srcs)
+                unpack_rows(full, names, [self.shard_len[n] for n in names], storage)
+
+    def gather_buckets(self, state):
+        """Write the updated shards of the sharded buckets without bf16
+        master back into storage: one all-gather per bucket, in the
+        shards' dtype."""
+        with torch.no_grad():
+            for b in self.sharded_buckets:
+                if not b.precision:
+                    ar_sync.gather_bucket_params(state["shards"], b, self.group,
+                                                 out=state["params"])
+
+    def gather_compute_copies(self, state):
+        """The top of the step for the bf16-master buckets: one all-gather
+        per bucket of the bf16 cast of the f32 master shards, written into
+        the stored bf16 compute copies."""
+        if not self.precision_buckets:
+            return
+        shards = state["shards"]
+        with torch.no_grad():
+            for b in self.precision_buckets:
+                ar_sync.gather_bucket_params(
+                    {n: shards[n].to(torch.bfloat16) for n in b.var_names}, b, self.group,
+                    out=state["params"])
+
+    def canonical_params(self, state):
+        """The full, unpadded parameters by name, as the single-device
+        program sees them: the stored tensors, and for the bf16-master
+        variables the f32 masters all-gathered from the shards (no full f32
+        copy lives in the state)."""
+        out = OrderedDict(state["params"])
+        with torch.no_grad():
+            for b in self.precision_buckets:
+                out.update(ar_sync.gather_bucket_params(state["shards"], b, self.group))
+        return out
 
     def global_norm(self, update_grads):
-        """The global norm of the update-space gradients: PS shards summed
-        over the replicas, replicated gradients counted once."""
+        """The global norm of the update-space gradients: flat shards (PS
+        and sharded-update) summed over the replicas, replicated gradients
+        counted once."""
         sq = torch.zeros((), device=self.device)
         sq_sharded = torch.zeros((), device=self.device)
         for name, g in update_grads.items():
@@ -315,8 +411,8 @@ class GraphTransformer:
 
     def update(self, state, grads):
         """Sync ``grads`` (this replica's, by name), clip them, step the
-        optimizer and write the PS shards back into storage; returns the
-        extra metrics (``grad_norm`` when clipping)."""
+        optimizer and write the PS and sharded-update shards back into
+        storage; returns the extra metrics (``grad_norm`` when clipping)."""
         synced, state["comp"] = self.sync(grads, state["comp"])
         synced.update(self.ps_scatter(grads))
         update_grads = OrderedDict((n, synced[n]) for n in self.names)
@@ -335,11 +431,13 @@ class GraphTransformer:
             for name in self.names:
                 shards.get(name, storage[name]).grad = None
         self.ps_gather(state)
+        self.gather_buckets(state)
         return metrics
 
     def step(self, state, batch):
         """One training step on this replica's batch slice, already on the
         device; returns (state, metrics)."""
+        self.gather_compute_copies(state)
         loss, new_mutable, grads, aux = self.gradients(state, batch)
         if new_mutable is not None:
             state["mutable"] = replica_mean_state(new_mutable, self.group)

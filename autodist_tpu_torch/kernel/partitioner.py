@@ -1,15 +1,19 @@
 """Variable placement planning: strategy nodes -> per-variable plans.
 
 Counterpart of ``autodist_tpu/kernel/partitioner.py``.  The port realises
-two plans, both with REPLICATED storage:
+these plans, all with REPLICATED storage:
 
 - AllReduce: the gradient is synchronised by the bucketed all-reduce and
   every replica runs the same full update;
-- synchronous PS: weight-update sharding.  The gradients are
+- weight-update sharding (:func:`flat_shard_update`): the gradients are
   reduce-scattered, each replica updates its flat 1/R shard of the
-  variable (:func:`flat_shard_update`; the optimizer state lives on the
-  shard, :func:`update_space_shape`), and the fresh shards are
-  all-gathered.  A scalar is always AllReduce, as in JAX.
+  variable (the optimizer state lives on the shard,
+  :func:`update_space_shape`), and the fresh shards are all-gathered.  The
+  synchronous PS realises every variable so; the AllReduce family does
+  with ``sharded_update`` where its wire codec is elementwise
+  (:func:`plan_sharded_update`), and with ``precision="bf16_master"`` the
+  f32 master lives only as that shard (:func:`master_shard_storage`).  A
+  scalar is always AllReduce with the replicated update, as in JAX.
 
 Sharded (partitioned), divergent (PS with ``sync=False`` or ``staleness >
 0``), sparse and custom (tensor-parallel) placements are later slices and
@@ -127,11 +131,41 @@ def build_var_plans(strategy, model_item, num_replicas, param_specs=None):
     return plans
 
 
+def plan_sharded_update(plan):
+    """Eligibility for the AllReduce family's sharded weight update: a
+    dense, non-scalar, replicated AllReduce plan with ``sharded_update``
+    set whose wire codec is elementwise (``None``, ``BF16``, ``BF16EF``); a
+    block codec re-blocked per shard would approximate differently, so
+    those plans keep the replicated update."""
+    from autodist_tpu_torch.kernel.synchronization.all_reduce import ELEMENTWISE_CODECS
+
+    if not plan.sharded_update or plan.sync != SyncKind.ALL_REDUCE:
+        return False
+    if plan.placement != Placement.REPLICATED or plan.sparse or not plan.shape:
+        return False
+    return plan.compressor in ELEMENTWISE_CODECS and not plan.schedule_ir
+
+
 def flat_shard_update(plan):
     """True when the plan's update space is the flat padded 1/R shard: the
-    PS family's weight-update sharding (the AllReduce family's
-    ``sharded_update`` is a later slice, Queue A item 5)."""
-    return plan.placement == Placement.REPLICATED and plan.sync == SyncKind.PS
+    PS family's weight-update sharding, and the AllReduce family's
+    sharded update (:func:`plan_sharded_update`)."""
+    if plan.placement != Placement.REPLICATED:
+        return False
+    return plan.sync == SyncKind.PS or plan_sharded_update(plan)
+
+
+def master_shard_storage(plan):
+    """bf16-compute / f32-master precision
+    (``Precision.BF16_COMPUTE_F32_MASTER``): the variable's storage is its
+    flat padded f32 master shard, the update space, and the full-shape
+    parameter the loss sees is a bf16 copy gathered at the top of each
+    step.  Needs an f32 variable and a realised sharded update."""
+    from autodist_tpu_torch.model_item import dtype_name
+
+    if not plan.precision or dtype_name(plan.dtype) != "float32":
+        return False
+    return plan_sharded_update(plan)
 
 
 def shard_len(plan, num_replicas):

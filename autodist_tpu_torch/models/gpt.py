@@ -14,7 +14,20 @@ Reproduces the flax model's numerics in PyTorch:
 - embeddings are normal(0.02) f32; the output head is
   ``x.float() @ wte.T`` in f32.  On the GPU that product must run in full
   f32: the port never enables TF32, and ``chip_smoke.py`` pins
-  ``torch.backends.cuda.matmul.allow_tf32 = False``.
+  ``torch.backends.cuda.matmul.allow_tf32 = False``.  ``return_hidden``
+  returns the ``ln_f`` output in f32 instead, for the streaming vocab loss
+  (:mod:`autodist_tpu_torch.ops.losses`), which never builds the logits.
+- with ``remat`` each block runs under
+  :func:`autodist_tpu_torch.utils.remat.checkpoint` (flax's
+  ``nn.remat(GPTBlock)``): its activations are recomputed in the backward,
+  dropout masks included, from the generator's state at the block's
+  first run.
+
+Parameters may be bf16 (the AllReduce builder's ``precision="bf16_master"``
+hands the loss a bf16 compute copy); every op then promotes as JAX does:
+the embedding lookup and the ``wpe`` add stay bf16, LayerNorm's f32
+statistics meet bf16 scale and bias in f32, and the head promotes ``wte``
+to f32.
 
 Attention runs through :func:`~autodist_tpu_torch.ops.flash_attention.
 flash_attention` (the Hopper kernels on CUDA) unless ``attention_impl=
@@ -25,7 +38,7 @@ graph transformer enters on a ``{"replica", "seq"}`` mesh) it runs
 the seq row with full heads, and the position embedding starts at the
 block's global offset.  Parameter names map one to one onto the flax tree
 (``h_0.attn.qkv.weight`` <-> ``h_0/attn/qkv/kernel``).  Decoding with a KV
-cache and remat are later slices.
+cache is a later slice.
 """
 import dataclasses
 import math
@@ -34,10 +47,12 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from autodist_tpu_torch.ops.flash_attention import attention_plain, flash_attention, use_flash
 from autodist_tpu_torch.parallel.context import current_seq_axis, global_position_offset
 from autodist_tpu_torch.parallel.ring_attention import ring_attention
+from autodist_tpu_torch.utils.remat import checkpoint
 
 # flax's lecun_normal: truncated normal at +-2 std, std corrected for the cut
 _TRUNC_STD = 0.87962566103423978
@@ -165,7 +180,8 @@ class GPTBlock(nn.Module):
 
 
 class GPT(nn.Module):
-    """Returns next-token logits (B, S, V) in f32.
+    """Returns next-token logits (B, S, V) in f32, or with ``return_hidden``
+    the (B, S, D) ``ln_f`` output in f32.
 
     ``generator`` seeds the initialisation (flax's ``model.init``); the
     forward's ``generator`` draws dropout masks (None = deterministic)."""
@@ -173,9 +189,6 @@ class GPT(nn.Module):
     def __init__(self, config, device=None, generator=None):
         super().__init__()
         c = config
-        if c.remat:
-            raise NotImplementedError("remat is a later slice of the port (ROADMAP, "
-                                      "Queue A item 4)")
         self.config = c
         self.wte = nn.Parameter(torch.empty(c.vocab_size, c.hidden_size, device=device))
         self.wpe = nn.Parameter(torch.empty(c.max_position, c.hidden_size, device=device))
@@ -186,7 +199,7 @@ class GPT(nn.Module):
             self.add_module(f"h_{i}", GPTBlock(c, device, generator))
         self.ln_f = LayerNorm(c.hidden_size, c.dtype, device=device)
 
-    def forward(self, tokens, generator=None):
+    def forward(self, tokens, generator=None, return_hidden=False):
         c = self.config
         S = tokens.shape[1]
         pos0 = global_position_offset(S)   # sequence parallelism: the block's start
@@ -196,9 +209,22 @@ class GPT(nn.Module):
         x = F.embedding(tokens, self.wte) + self.wpe[pos0:pos0 + S][None]
         x = _dropout(x.to(c.dtype), c.dropout_rate, generator)
         for i in range(c.num_layers):
-            x = getattr(self, f"h_{i}")(x, generator)
-        x = self.ln_f(x)
-        return x.float() @ self.wte.t()
+            block = getattr(self, f"h_{i}")
+            if c.remat:
+                # the recompute runs after functional_call has put the module's
+                # own tensors back: it must see the tensors this forward saw
+                x = checkpoint(_call_block, block, dict(block.named_parameters()), x,
+                               generator)
+            else:
+                x = block(x, generator)
+        x = self.ln_f(x).float()
+        if return_hidden:
+            return x
+        return x @ self.wte.t().float()
+
+
+def _call_block(block, params, x, generator):
+    return functional_call(block, params, (x, generator))
 
 
 def gpt_loss(logits, targets, mask=None):

@@ -6,7 +6,10 @@ Each module takes channels-last ``(..., C)`` activations and is called as
 
 - :class:`BatchNorm`: flax ``nn.BatchNorm`` (``norm="bn"``) in plain torch,
   f32 statistics ``var = max(E[x^2] - mean^2, 0)``, differentiated by
-  autograd; no kernel, as in JAX.
+  autograd; no kernel, as in JAX.  With ``f32_stats=False`` (flax's
+  ``force_float32_reductions=False``, the ResNet's ``bn_f32_stats=False``)
+  the statistics are in the compute dtype, in flax's order
+  (:func:`batch_norm_compute_dtype`).
 - :class:`FusedBatchNorm`: ``FusedBatchNorm`` (``norm="bn_fused"``); its
   training path is :func:`~autodist_tpu_torch.ops.fused_norm.fused_batch_norm`
   (the Hopper kernel on CUDA) unless ``impl="reference"``, which takes the
@@ -93,16 +96,49 @@ class _RunningNorm(_Norm):
         y, mean, var = self._batch_stats(x)
         if new_state is not None:
             m = self.momentum
-            new_state[self.path + ".mean"] = m * self.mean + (1 - m) * mean.detach()
-            new_state[self.path + ".var"] = m * self.var + (1 - m) * var.detach()
+            # 1 - m rounded to the statistics' dtype, as JAX rounds a
+            # weakly typed Python float; the product in f32, as XLA runs it
+            decay = float(torch.tensor(1 - m, dtype=mean.dtype))
+            new_state[self.path + ".mean"] = m * self.mean + decay * mean.detach().float()
+            new_state[self.path + ".var"] = m * self.var + decay * var.detach().float()
         return self._out(y, x)
 
 
+def batch_norm_compute_dtype(x, scale, bias, eps, dtype):
+    """flax ``nn.BatchNorm(force_float32_reductions=False)``'s training
+    statistics and output, with the roundings of the program XLA compiles
+    from it: ``x`` in ``dtype``; each mean an f32 sum times the f32
+    reciprocal of the count, rounded to ``dtype`` (``x * x`` summed in f32);
+    ``mean^2``, ``var = max(mean2 - mean^2, 0)`` and ``var + eps`` rounded
+    to ``dtype``; ``rsqrt``, ``x - mean``, the scale and the bias in f32.
+    (The flax source rounds ``x * x``, ``x - mean`` and ``rsqrt`` to
+    ``dtype`` as well; XLA drops those f32 -> ``dtype`` -> f32 round trips.)
+    Returns (y in f32, mean, var), the statistics in ``dtype``."""
+    c = x.shape[-1]
+    xf = x.to(dtype).reshape(-1, c).float()
+    inv_n = 1.0 / xf.shape[0]
+    mean = (xf.sum(dim=0) * inv_n).to(dtype)
+    mean2 = ((xf * xf).sum(dim=0) * inv_n).to(dtype)
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    inv = torch.rsqrt((var + float(torch.tensor(eps, dtype=dtype))).float())
+    y = (xf - mean.float()) * (inv * scale) + bias
+    return y.reshape(x.shape), mean, var
+
+
 class BatchNorm(_RunningNorm):
-    """flax ``nn.BatchNorm`` with f32 reductions, in plain torch."""
+    """flax ``nn.BatchNorm`` in plain torch: f32 reductions, or with
+    ``f32_stats=False`` reductions in the compute dtype."""
+
+    def __init__(self, features, momentum=0.9, epsilon=1e-5, dtype=None,
+                 zero_scale=False, f32_stats=True, device=None):
+        super().__init__(features, momentum, epsilon, dtype, zero_scale, device)
+        self.f32_stats = f32_stats
 
     def _batch_stats(self, x):
-        return batch_norm_plain(x, self.scale, self.bias, eps=self.epsilon)
+        if self.f32_stats:
+            return batch_norm_plain(x, self.scale, self.bias, eps=self.epsilon)
+        return batch_norm_compute_dtype(x, self.scale, self.bias, self.epsilon,
+                                        self.dtype or x.dtype)
 
 
 class FusedBatchNorm(_RunningNorm):

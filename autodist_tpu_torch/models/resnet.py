@@ -31,7 +31,9 @@ Names follow flax's: ``conv_init``, ``bn_init``, ``BottleneckResNetBlock_<k>``
 
 ``forward(x, train=True, new_state=None)`` returns f32 logits; in training
 a ``new_state`` dict receives every batch norm's new running statistics by
-buffer name.  ``bn_f32_stats=False`` (bf16 statistics) is a later slice.
+buffer name.  ``bn_f32_stats=False`` computes the ``norm="bn"`` sites'
+statistics in the compute dtype (flax's ``force_float32_reductions=False``);
+``bn_fused`` and ``gn`` ignore it, as in JAX.
 """
 import math
 from functools import partial
@@ -196,12 +198,9 @@ class ResNet(nn.Module):
                  norm="bn", in_channels=3, device=None,
                  generator=None):
         super().__init__()
-        if not bn_f32_stats:
-            raise NotImplementedError("bn_f32_stats=False (bf16 batch statistics) is a "
-                                      "later slice of the port (ROADMAP, Queue A item 3)")
-        if norm == "bn":
+        if norm == "bn":   # bn_f32_stats applies to flax's nn.BatchNorm only, as in JAX
             make_norm = partial(BatchNorm, momentum=0.9, epsilon=1e-5, dtype=dtype,
-                                device=device)
+                                f32_stats=bn_f32_stats, device=device)
         elif norm == "bn_fused":
             make_norm = partial(FusedBatchNorm, momentum=0.9, epsilon=1e-5, dtype=dtype,
                                 device=device)

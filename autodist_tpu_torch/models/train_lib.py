@@ -76,7 +76,17 @@ def sgd_momentum(lr=0.1, momentum=0.9):
     return optim.sgd(lr, momentum=momentum)
 
 
-def gpt_capture(config, seq_len, seed=0, device=None):
+def _positional_mask(targets, example_mask):
+    """The session's per-example (B,) mask broadcast to ``targets``' shape;
+    None stays None."""
+    if example_mask is None:
+        return None
+    m = example_mask.reshape(example_mask.shape + (1,) * (targets.dim() - example_mask.dim()))
+    return m.expand(targets.shape)
+
+
+def gpt_capture(config, seq_len, seed=0, device=None, streaming_loss=False,
+                loss_chunk=8192):
     """Init a GPT causal LM from ``seed``; returns (loss_fn, params, sparse_vars).
 
     ``params`` maps the flax names (``h_0/attn/qkv/kernel``, ...) to the
@@ -84,9 +94,14 @@ def gpt_capture(config, seq_len, seed=0, device=None):
     generator=None)`` with ``batch = {"tokens", "targets"}`` (targets
     pre-shifted by the caller) runs the module on them.  The tied
     embedding's gradient is dense, so no variable takes the sparse path.
+    ``streaming_loss=True`` takes the cross entropy against the tied
+    ``wte`` without the (B, S, V) logits
+    (:func:`~autodist_tpu_torch.ops.losses.streaming_softmax_xent`, vocab
+    chunks of ``loss_chunk``); the parameters are the same either way.
     Runs on ``cuda`` unless ``device="cpu"``.
     """
     from autodist_tpu_torch.models.gpt import GPT, gpt_loss
+    from autodist_tpu_torch.ops.losses import streaming_softmax_xent
 
     dev = resolve_device(device)
     if seq_len > config.max_position:
@@ -95,11 +110,21 @@ def gpt_capture(config, seq_len, seed=0, device=None):
     params = flatten_params(OrderedDict(
         (torch_to_jax_name(n), p.detach()) for n, p in model.named_parameters()))
 
-    def loss_fn(p, batch, generator=None):
+    def forward(p, batch, generator, return_hidden):
         tensors = {jax_to_torch_name(n): t for n, t in p.items()}
-        logits = functional_call(model, tensors, (batch["tokens"],),
-                                 {"generator": generator})
-        return gpt_loss(logits, batch["targets"], batch.get(BATCH_MASK_KEY))
+        return functional_call(model, tensors, (batch["tokens"],),
+                               {"generator": generator, "return_hidden": return_hidden})
+
+    if streaming_loss:
+        def loss_fn(p, batch, generator=None):
+            t = batch["targets"]
+            return streaming_softmax_xent(
+                forward(p, batch, generator, True), p["wte"], t,
+                valid=_positional_mask(t, batch.get(BATCH_MASK_KEY)), chunk=loss_chunk)
+    else:
+        def loss_fn(p, batch, generator=None):
+            return gpt_loss(forward(p, batch, generator, False), batch["targets"],
+                            batch.get(BATCH_MASK_KEY))
 
     return loss_fn, params, []
 

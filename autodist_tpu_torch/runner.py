@@ -12,7 +12,8 @@ structure.  ``run`` moves them to the device, runs one training step and
 returns its metrics; the loss, the mean over the replicas, stays a 0-d
 device tensor, so the host waits for the device only when the caller
 reads it.  ``params()`` and ``mutable_state()`` copy the current values,
-the same on every replica, to the host.
+the same on every replica, to the host: the full, unpadded f32 parameters
+also under ``precision="bf16_master"``, gathered from the master shards.
 
 With ``batch_mask=True`` a dict batch whose dim 0 does not divide by the
 replicas times ``accum_steps`` is padded by repeating its last row, and a
@@ -162,7 +163,9 @@ class DistributedSession:
     def predict(self, batch, apply_fn=None):
         """The forward alone on a global batch: ``apply_fn(params[, state],
         batch) -> outputs`` (default: the ``eval_fn`` given to
-        ``distribute``) under ``no_grad`` on this rank's slice.  Every output
+        ``distribute``) under ``no_grad`` on this rank's slice, with the
+        full parameters of :meth:`params` (bf16-master ones gathered in
+        f32, as JAX's ``canonicalize_params``).  Every output
         leaf must be per example, dim 0 the slice's rows: the leaves are
         gathered from the replicas in batch order, trimmed of the rows
         ``batch_mask`` padded, and returned on the host in the outputs'
@@ -182,9 +185,10 @@ class DistributedSession:
         local = self.shard_batch(batch)
         rows = {leaf.shape[0] for leaf in batch_leaves(local) if leaf.dim()}
         mutable = self.state["mutable"]
+        params = self._t.canonical_params(self.state)
         with torch.no_grad():
-            out = (apply_fn(self.state["params"], local) if mutable is None
-                   else apply_fn(self.state["params"], mutable, local))
+            out = (apply_fn(params, local) if mutable is None
+                   else apply_fn(params, mutable, local))
 
         def gather(leaf, path):
             if not isinstance(leaf, torch.Tensor) or leaf.dim() == 0 or rows != {leaf.shape[0]}:
@@ -199,8 +203,10 @@ class DistributedSession:
 
     def check_replication(self, atol=0.0):
         """The names of the stored (REPLICATED) variables whose copy on some
-        replica differs from rank 0's by more than ``atol``; every rank
-        returns the same list ([] when the copies agree)."""
+        replica differs from rank 0's by more than ``atol`` (for a
+        bf16-master variable its bf16 compute copy, the full-shape tensor
+        it stores; its master is sharded); every rank returns the same list
+        ([] when the copies agree)."""
         group = self._t.group
         if group is None:
             return []
@@ -216,9 +222,11 @@ class DistributedSession:
         return [n for n, f in zip(names, flags.tolist()) if f]
 
     def params(self):
-        """The current parameters by '/'-joined name, copied to the host."""
+        """The current full, unpadded parameters by '/'-joined name, copied
+        to the host (JAX's ``canonicalize_params``: bf16-master variables
+        gathered from their f32 master shards)."""
         return OrderedDict((n, t.detach().cpu().clone())
-                           for n, t in self.state["params"].items())
+                           for n, t in self._t.canonical_params(self.state).items())
 
     def mutable_state(self):
         """The current mutable state (e.g. batch statistics) by '/'-joined

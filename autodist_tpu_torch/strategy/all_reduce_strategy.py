@@ -5,9 +5,12 @@ Counterpart of ``autodist_tpu/strategy/all_reduce_strategy.py``: variable
 ``i // chunk_size``.  The port realises the compressor knob's six codecs
 (``NoneCompressor``, ``BF16Compressor``/``HorovodCompressor``,
 ``BF16CompressorEF``/``HorovodCompressorEF``, ``Int8Compressor``,
-``Int8CompressorEF``, ``EquarxInt8Compressor``) and the other knobs'
-defaults (barrier schedule, flat hierarchy, replicated update, f32); the
-rest raise ``NotImplementedError`` at construction.
+``Int8CompressorEF``, ``EquarxInt8Compressor``), the sharded update
+(``sharded_update="sharded"``) and bf16-compute / f32-master precision
+(``precision="bf16_master"``, which implies the sharded update: the f32
+master is the flat shard), and the other knobs' defaults (barrier
+schedule, flat hierarchy); the rest raise ``NotImplementedError`` at
+construction.
 """
 from autodist_tpu_torch.proto import schema
 from autodist_tpu_torch.strategy.base import (Strategy, StrategyBuilder,
@@ -43,8 +46,10 @@ class AllReduce(StrategyBuilder):
         self.compressor = resolve_compressor(compressor)
         self.schedule = resolve_schedule(schedule)
         self.hierarchy = resolve_hierarchy(hierarchy)
-        self.sharded_update = resolve_sharded_update(sharded_update)
         self.precision = resolve_precision(precision)
+        if self.precision:   # the f32 master lives in the sharded update's flat shard
+            sharded_update = "sharded"
+        self.sharded_update = resolve_sharded_update(sharded_update)
 
     def _node(self, v, group):
         ar = schema.AllReduceSynchronizer(

@@ -6,8 +6,9 @@ Counterpart of ``autodist_tpu/strategy/base.py`` over the JSON schema of
 node configs of non-trainable variables and resolves replica device
 strings to ``mesh:<index>``.  The ``resolve_*`` helpers map a builder's
 knobs to schema enums: the compressor knob takes the six codecs the port
-realises and the reference's aliases, the others only their default
-values; the rest raise, naming their ROADMAP item.
+realises and the reference's aliases, ``sharded_update`` and
+``precision`` every value, the schedule and the hierarchy only their
+default values; the rest raise, naming their ROADMAP item.
 """
 import copy
 import os
@@ -180,11 +181,12 @@ def resolve_sharded_update(name_or_value):
     if isinstance(name_or_value, bool):
         name_or_value = "sharded" if name_or_value else "replicated"
     return _resolve("sharded_update", name_or_value, _SHARDED_UPDATE_ALIASES,
-                    (_AR.REPLICATED_UPDATE,))
+                    (_AR.REPLICATED_UPDATE, _AR.SHARDED))
 
 
 def resolve_precision(name_or_value):
-    return _resolve("precision", name_or_value, _PRECISION_ALIASES, (_AR.F32,))
+    return _resolve("precision", name_or_value, _PRECISION_ALIASES,
+                    (_AR.F32, _AR.BF16_COMPUTE_F32_MASTER))
 
 
 class StrategyCompiler:

@@ -136,7 +136,32 @@ Phases (each failure exits non-zero before the last line):
    steps: step 1's loss within 1e-3 relative of phase 5's (the mean over 2
    microbatches of 4), a finite positive ``grad_norm``, 24 launches a step
    of each flash kernel;
-13. prints the ``{"kernels": [...]}`` line (nine kernels), then the
+13. trains GPT-2 small as ``bench.py`` trains it, in a process of its own
+   (``chip_smoke.py --bench-gpt PHASE5``, PHASE5 phase 5's losses and peak
+   memory as JSON): ``GPTConfig(remat=True)``,
+   ``gpt_capture(streaming_loss=True)`` (the cross entropy over vocab
+   chunks of 8192, no logits), ``AllReduce()``, adamw(3e-4), phase 5's
+   weights, 32 seeded sequences of 1024, 10 steps: step 1's loss within
+   1e-4 relative of the dense head's (the non-streaming ``loss_fn`` on the
+   same weights and batch under ``no_grad``), finite losses that fall, per
+   step 24 ``flash_fwd`` (12 of them remat's recompute), 12 ``flash_dq``,
+   12 ``flash_dkdv`` and no other kernel; prints step ms, tokens/s, peak
+   memory and the profile.  Then 3 steps at phase 5's B=8 batch with the
+   same options: step 1's loss within 1e-4 relative of phase 5's, and
+   their peak memory beside phase 5's;
+14. trains GPT-2 small as in phase 5 (B=8, 10 adamw steps, phase 5's
+   weights and batch) in a process of its own (``chip_smoke.py --sharded
+   PHASE5``), under ``AllReduce(sharded_update="sharded")``: losses within
+   1e-5 relative of phase 5's at step 1 and 1e-3 after (it prints whether
+   they are bitwise equal); and under ``AllReduce(precision=
+   "bf16_master")``: step 1 within 2e-2 relative (JAX's
+   ``BF16_MASTER_TOL``), finite losses whose last three average below the
+   first, every ``params()`` leaf f32.  Both: 12 launches a step of each
+   flash kernel, ``check_replication() == []``; prints step ms, peak
+   memory, the profile and the sync's device time by parts (reduce-scatter,
+   adamw on the shards, parameter all-gather; for the bf16 master the
+   top-of-step bf16 gather);
+15. prints the ``{"kernels": [...]}`` line (nine kernels), then the
    ``{"ok": true, ...}`` line.
 
 Tolerances, kernel vs plain version on the same inputs.  Flash, bf16
@@ -150,8 +175,11 @@ relative Frobenius <= 1e-2 (1e-4 each in f32).  The ring-of-one run: step
 norm: y max-abs <= 1e-2 * max(1, max|y|) in bf16 (output rounding) and
 1e-4 in f32; mean and var max-abs <= 1e-4 of their largest magnitude (f32
 partial sums in another order).  Step 1 loss, kernels vs plain versions:
-relative <= 1e-3 (GPT-2 and both ResNets).  The default builder against
-phase 5: step 1 relative <= 1e-5, steps 2-10 <= 1e-3.  Quantization kernels and the
+relative <= 1e-3 (GPT-2 and both ResNets).  The default builder and the
+sharded update against phase 5: step 1 relative <= 1e-5, steps 2-10 <=
+1e-3; the bf16 master's step 1 <= 2e-2.  The streaming loss against the
+dense head, and the bench configuration at B=8 against phase 5: step 1
+relative <= 1e-4.  Quantization kernels and the
 synced gradients of the int8 codecs: bitwise (both sides divide with IEEE
 division, round half to even and sum the peers in order without FMA).
 """
@@ -209,6 +237,10 @@ RING_LOSS_TOL = 1e-3        # step 1 loss, ring of one vs the flat path (absolut
 # accumulation and clipping session
 PS_STEP1_TOL, PS_LOSS_TOL, PS_ACCUM_TOL = 1e-5, 1e-3, 1e-3
 PS_FIT_STEPS, PS_ACCUM, PS_CLIP, PS_ACCUM_RUN = 12, 2, 1.0, 3
+# bench.py's GPT-2 configuration: 32 sequences a card, then 3 steps at B=8;
+# step 1 against the dense head and against phase 5, relative
+BENCH_BATCH, BENCH_B8_STEPS, BENCH_LOSS_TOL = 32, 3, 1e-4
+BF16_MASTER_TOL = 2e-2   # tests/test_mixed_precision.py:59, step 1 relative
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -1054,7 +1086,8 @@ def train_gpt2_small(torch, ad, kernel_modules):
     check(all(bool(torch.isfinite(t).all()) for t in sess.state["params"].values()),
           "non-finite parameters after training")
     profile_steps(torch, sess, batch)
-    return {n: launches[n] for n in ("flash_fwd", "flash_dq", "flash_dkdv")}, losses
+    return ({n: launches[n] for n in ("flash_fwd", "flash_dq", "flash_dkdv")},
+            {"losses": losses, "peak_gb": peak_gb})
 
 
 def norm_site_shapes(torch):
@@ -1500,6 +1533,188 @@ def train_gpt2_ps(torch, ad, spec, kernel_modules, flat_losses):
             "accum_losses": accum_losses, "grad_norms": norms}
 
 
+def gpt2_batch(config, rows):
+    """Phase 5's seeded token batch at ``rows`` sequences of SEQ."""
+    import numpy as np
+
+    toks = np.random.default_rng(0).integers(0, config.vocab_size, (rows, SEQ + 1))
+    return {"tokens": toks[:, :-1].astype(np.int32), "targets": toks[:, 1:].astype(np.int32)}
+
+
+def flash_launches(config, steps, forwards=1):
+    """The launches of ``steps`` GPT-2 steps: ``forwards`` flash forwards a
+    layer (2 under remat: the recompute), one dq and one dkdv."""
+    per_step = config.num_layers * steps
+    return dict(NO_LAUNCHES, flash_fwd=per_step * forwards, flash_dq=per_step,
+                flash_dkdv=per_step)
+
+
+def train_gpt2_bench(torch, ad, kernel_modules, phase5):
+    """GPT-2 small as ``bench.py`` trains it (phase 13): remat, the
+    streaming vocab loss, AllReduce, adamw, BENCH_BATCH sequences; then
+    BENCH_B8_STEPS steps at phase 5's batch with the same options."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.models.gpt import GPTConfig
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+
+    config = GPTConfig(remat=True)
+    loss_fn, params, sparse = gpt_capture(config, SEQ, seed=0, streaming_loss=True)
+    batch = gpt2_batch(config, BENCH_BATCH)
+    # the dense head's loss on the same weights and batch (phase 5's loss_fn)
+    dense_loss_fn, _, _ = gpt_capture(GPTConfig(), SEQ, seed=0)
+    with torch.no_grad():
+        dev_batch = {n: torch.from_numpy(a).cuda() for n, a in batch.items()}
+        dense_loss = dense_loss_fn(params, dev_batch).item()
+        streamed = loss_fn(params, dev_batch).item()
+    del dense_loss_fn, dev_batch
+    torch.cuda.empty_cache()
+
+    sess = ad.distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
+                         has_rng=True)
+    losses, step_ms, launches, peak_gb = timed_steps(torch, sess, batch, STEPS,
+                                                     kernel_modules)
+    steady = statistics.median(step_ms[1:])
+    rel = abs(losses[0] - dense_loss) / abs(dense_loss)
+    print("bench GPT-2 losses: " + ", ".join(f"{x:.5f}" for x in losses))
+    print("bench GPT-2 step ms: " + ", ".join(f"{x:.2f}" for x in step_ms))
+    print(f"bench GPT-2 (B={BENCH_BATCH}, remat, streaming loss): median step {steady:.2f} ms "
+          f"(steps 2-{STEPS}), {BENCH_BATCH * SEQ / steady * 1e3:.0f} tokens/s, peak memory "
+          f"{peak_gb:.2f} GB, launches {launches}")
+    print(f"bench GPT-2 step 1 loss {losses[0]:.6f}; dense head {dense_loss:.6f} (the "
+          f"streaming loss without gradients {streamed:.6f}), relative difference {rel:.3e}")
+    check(all(math.isfinite(x) for x in losses), f"bench: non-finite loss in {losses}")
+    check(losses[-1] < losses[0], f"bench: loss did not fall: {losses}")
+    check(rel <= BENCH_LOSS_TOL, f"bench: step 1 loss differs from the dense head's by {rel}")
+    want = flash_launches(config, STEPS, forwards=2)
+    check(launches == want, f"bench: expected launches {want}, got {launches}")
+    profile_steps(torch, sess, batch)
+    del sess
+    torch.cuda.empty_cache()
+
+    sess = ad.distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
+                         has_rng=True)
+    b8_losses, b8_ms, b8_launches, b8_peak = timed_steps(
+        torch, sess, gpt2_batch(config, BATCH), BENCH_B8_STEPS, kernel_modules)
+    b8_rel = abs(b8_losses[0] - phase5["losses"][0]) / abs(phase5["losses"][0])
+    print(f"bench GPT-2 at B={BATCH}: losses " + ", ".join(f"{x:.6f}" for x in b8_losses)
+          + f"; step 1 relative difference from phase 5 {b8_rel:.3e}; step ms "
+          + ", ".join(f"{x:.2f}" for x in b8_ms) + f"; peak memory {b8_peak:.2f} GB "
+          f"(phase 5, dense head, no remat: {phase5['peak_gb']:.2f} GB)")
+    check(b8_rel <= BENCH_LOSS_TOL, f"bench B={BATCH}: step 1 differs from phase 5's by {b8_rel}")
+    want = flash_launches(config, BENCH_B8_STEPS, forwards=2)
+    check(b8_launches == want, f"bench B={BATCH}: expected launches {want}, got {b8_launches}")
+    return {"launches": {k: launches[k] for k in ("flash_fwd", "flash_dq", "flash_dkdv")},
+            "step_ms": steady, "losses": losses, "peak_gb": peak_gb,
+            "dense_loss": dense_loss, "b8_losses": b8_losses, "b8_step_ms": b8_ms,
+            "b8_peak_gb": b8_peak}
+
+
+def state_bytes(sess):
+    """(flat-shard bytes, optimizer-state bytes) this rank holds."""
+    shards = sum(t.numel() * t.element_size() for t in sess.state["shards"].values())
+    opt = sum(v.numel() * v.element_size() for st in sess.state["opt_state"].state.values()
+              for v in st.values() if hasattr(v, "numel") and v.dim())
+    return shards, opt
+
+
+def time_sharded_sync(torch, t, state, grads):
+    """The sharded update's device time per step on ``grads`` (f32 for the
+    bf16 master), and its parts: the buckets' reduce-scatter, adamw on the
+    shards, the parameter all-gather (none for the bf16 master) and the
+    bf16 master's top-of-step gather of its compute copy.  Each timed
+    update takes an optimizer step: run it after the checks."""
+    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
+    shards = state["shards"]
+
+    def shard_update(shard_grads):
+        with torch.no_grad():
+            for n, g in shard_grads.items():
+                shards[n].grad = g
+            state["opt_state"].step()
+            for n in shard_grads:
+                shards[n].grad = None
+
+    scattered, _ = t.sync(grads, state["comp"])
+    times = {
+        "total": time_ms(lambda: (t.gather_compute_copies(state), t.update(state, grads)),
+                         torch, flush, reps=10),
+        "reduce-scatter": time_ms(lambda: t.sync(grads, state["comp"]), torch, flush, reps=10),
+        "shard update (adamw)": time_ms(lambda: shard_update(scattered), torch, flush,
+                                        reps=10),
+    }
+    if t.precision_buckets:
+        times["top-of-step bf16 gather"] = time_ms(lambda: t.gather_compute_copies(state),
+                                                   torch, flush, reps=10)
+    else:
+        times["all-gather + write-back"] = time_ms(lambda: t.gather_buckets(state), torch,
+                                                   flush, reps=10)
+    del flush, scattered
+    return times
+
+
+def train_gpt2_sharded(torch, ad, mode, kernel_modules, phase5):
+    """Phase 14: phase 5's GPT-2 small, batch and weights under
+    ``ad``'s ``AllReduce(sharded_update="sharded")`` or
+    ``AllReduce(precision="bf16_master")`` (``mode``), STEPS adamw steps,
+    held against phase 5's losses; ``check_replication`` and the sync's
+    device time by parts."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.models.gpt import GPTConfig
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+
+    config = GPTConfig()
+    loss_fn, params, sparse = gpt_capture(config, SEQ, seed=0)
+    batch = gpt2_batch(config, BATCH)
+    sess = ad.distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
+                         has_rng=True)
+    t = sess.transformer
+    master = mode == "bf16_master"
+    check(t.sync_sharded_update and t.sync_mixed_precision == master
+          and sum(len(b.var_names) for b in t.sharded_buckets) == len(t.names),
+          f"{mode}: expected every variable in a sharded bucket, got {t.sharded_buckets}")
+    summary = t.sharded_update_summary()
+    print(f"{mode}: {len(t.sharded_buckets)} sharded bucket(s) of "
+          f"{summary['vars']} variables, {summary['shard_bytes'] / 1e9:.3f} GB of flat "
+          f"shards, parameter gather {summary['param_gather_bytes'] / 1e9:.3f} GB")
+    losses, step_ms, launches, peak_gb = timed_steps(torch, sess, batch, STEPS,
+                                                     kernel_modules)
+    steady = statistics.median(step_ms[1:])
+    flat_losses = phase5["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, flat_losses)]
+    print(f"{mode} losses: " + ", ".join(f"{x:.6f}" for x in losses))
+    print(f"{mode} step ms: " + ", ".join(f"{x:.2f}" for x in step_ms))
+    print(f"{mode}: median step {steady:.2f} ms (steps 2-{STEPS}), "
+          f"{BATCH * SEQ / steady * 1e3:.0f} tokens/s, peak memory {peak_gb:.2f} GB "
+          f"(phase 5: {phase5['peak_gb']:.2f} GB), launches {launches}")
+    print(f"{mode} vs phase 5 (replicated f32 update): step 1 relative difference "
+          f"{rel[0]:.3e}, largest over steps 2-{STEPS} {max(rel[1:]):.3e}; bitwise equal "
+          f"losses: {losses == list(flat_losses)}")
+    check(all(math.isfinite(x) for x in losses), f"{mode}: non-finite loss in {losses}")
+    check(statistics.mean(losses[-3:]) < losses[0],
+          f"{mode}: the last three losses do not average below the first: {losses}")
+    if master:
+        check(rel[0] <= BF16_MASTER_TOL, f"{mode}: step 1 differs from phase 5's by {rel[0]}")
+        dtypes = {str(p.dtype) for p in sess.params().values()}
+        check(dtypes == {"torch.float32"}, f"{mode}: params() dtypes {dtypes}")
+    else:
+        check(rel[0] <= PS_STEP1_TOL, f"{mode}: step 1 differs from phase 5's by {rel[0]}")
+        check(max(rel[1:]) <= PS_LOSS_TOL, f"{mode}: a loss differs from phase 5's by "
+              f"{max(rel)}")
+    want = flash_launches(config, STEPS)
+    check(launches == want, f"{mode}: expected launches {want}, got {launches}")
+    bad = sess.check_replication()
+    check(bad == [], f"{mode}: check_replication names {bad}")
+    profile_steps(torch, sess, batch)
+    _, _, grads, _ = t.gradients(sess.state, sess.shard_batch(batch))
+    sync = time_sharded_sync(torch, t, sess.state, grads)
+    print(f"{mode} sync device time per step: " + ", ".join(f"{k} {v:.4f} ms"
+                                                          for k, v in sync.items()))
+    del sess, t, grads
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": steady, "peak_gb": peak_gb, "sync_ms": sync,
+            "launches": {k: launches[k] for k in ("flash_fwd", "flash_dq", "flash_dkdv")}}
+
+
 def run_child(args, marker):
     """``chip_smoke.py ARGS`` in a process of its own (``AutoDist`` is one
     instance per process); forwards its output and returns its ``MARKER``
@@ -1633,6 +1848,48 @@ def ps_main(flat_losses):
     return 0
 
 
+def bench_gpt_main(phase5):
+    """``chip_smoke.py --bench-gpt PHASE5``: bench.py's GPT-2 configuration
+    (phase 13); PHASE5 is phase 5's JSON losses and peak memory."""
+    import torch
+
+    m = setup(torch)
+    if m is None:
+        return 1
+    try:
+        ad = m["AutoDist"](resource_spec=m["spec"], strategy_builder=m["AllReduce"]())
+        result = train_gpt2_bench(torch, ad, (m["fa"], m["fn"], m["tq"]), json.loads(phase5))
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    print("BENCH_GPT_RESULT " + json.dumps(result))
+    return 0
+
+
+def sharded_main(phase5):
+    """``chip_smoke.py --sharded PHASE5``: the sharded update and the bf16
+    master (phase 14), one ``AutoDist`` each in this process."""
+    import torch
+
+    os.environ["AUTODIST_IS_TESTING"] = "1"   # two AutoDists in this process
+    m = setup(torch)
+    if m is None:
+        return 1
+    try:
+        result = {}
+        for mode, kwargs in (("sharded", {"sharded_update": "sharded"}),
+                             ("bf16_master", {"precision": "bf16_master"})):
+            ad = m["AutoDist"](resource_spec=m["spec"],
+                               strategy_builder=m["AllReduce"](**kwargs))
+            result[mode] = train_gpt2_sharded(torch, ad, mode, (m["fa"], m["fn"], m["tq"]),
+                                              json.loads(phase5))
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    print("SHARDED_RESULT " + json.dumps(result))
+    return 0
+
+
 def main():
     try:
         import torch
@@ -1666,7 +1923,8 @@ def main():
         timing.update(measure_quantize_kernels(torch, tq))
         torch.cuda.empty_cache()
         ad = m["AutoDist"](resource_spec=m["spec"], strategy_builder=m["AllReduce"]())
-        launches, flat_losses = train_gpt2_small(torch, ad, kernel_modules)
+        launches, phase5 = train_gpt2_small(torch, ad, kernel_modules)
+        flat_losses = phase5["losses"]
         torch.cuda.empty_cache()
         report_norm_sites(torch)
         launches.update(train_resnet50(torch, ad, kernel_modules, "bn_fused", RESNET_STEPS))
@@ -1677,6 +1935,8 @@ def main():
         launches.update(run_codec_phase())
         launches.update(run_child(["--ring", repr(flat_losses[0])], "RING_RESULT")["launches"])
         run_child(["--ps", json.dumps(flat_losses)], "PS_RESULT")
+        run_child(["--bench-gpt", json.dumps(phase5)], "BENCH_GPT_RESULT")
+        run_child(["--sharded", json.dumps(phase5)], "SHARDED_RESULT")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1701,4 +1961,8 @@ if __name__ == "__main__":
         sys.exit(ring_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--ps":
         sys.exit(ps_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--bench-gpt":
+        sys.exit(bench_gpt_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--sharded":
+        sys.exit(sharded_main(sys.argv[2]))
     sys.exit(main())

@@ -8,6 +8,8 @@ process per GPU (NCCL)::
         multi_gpu_check.py ring
     python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
         multi_gpu_check.py ps
+    python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        multi_gpu_check.py sharded
 
 ``CODEC`` (one of ``chip_smoke.CODECS``): each rank runs
 ``chip_smoke.train_gpt2_codec`` on its own GPU: GPT-2 small at full width
@@ -38,6 +40,20 @@ all-gather, per step.  And the same run under ``AllReduce()`` (the
 flash kernel; step 1's loss equal between the two within 1e-5 (same
 parameters, same forward) and the later steps within 1e-3; every rank
 ends with the same parameters.  Prints both builders' step medians.
+
+``sharded``: the AllReduce family's weight-update sharding.  GPT-2 small
+(adamw 3e-4, 8 sequences of 1024 tokens per rank, 5 steps) under
+``AllReduce()``, ``AllReduce(sharded_update="sharded")`` (reduce-scatter of
+the gradient buckets, adamw on each rank's flat 1/R shards, all-gather of
+the parameters) and ``AllReduce(precision="bf16_master")`` (the f32
+master only as those shards, a bf16 compute copy gathered at the top of
+each step), in turns, twice each.  Checks: step 1's loss against the same
+global batch's loss in one process on the dense path (within 1e-5
+relative; the bf16 master within 2e-2), ``check_replication() == []``
+after step 1, finite losses that fall, 12 launches per step of each flash
+kernel, and every rank ending with the same full parameters.  Prints each
+median step, peak memory and the flat-shard and optimizer-state bytes a
+rank holds.
 
 Rank 0 builds the kernels and prints; the run ends with a ``RESULT {...}``
 JSON line.  A failed check exits non-zero.
@@ -105,10 +121,11 @@ def train_gpt2_mesh(torch, ad, kernel_modules):
             "launches_per_step": {k: v // RING_STEPS for k, v in launches.items() if v}}
 
 
-def train_gpt2_sync(torch, ad, kernel_modules, tag):
+def train_gpt2_sync(torch, ad, kernel_modules, tag, flat_loss=None, step1_tol=None):
     """GPT-2 small at 8 sequences per rank under ``ad``'s builder, PS_STEPS
-    adamw steps; ``check_replication`` after step 1; returns the run's
-    numbers."""
+    adamw steps; ``check_replication`` after step 1, and with
+    ``flat_loss`` step 1's loss within ``step1_tol`` relative of it;
+    returns the run's numbers."""
     import numpy as np
 
     from autodist_tpu_torch import optim
@@ -125,6 +142,12 @@ def train_gpt2_sync(torch, ad, kernel_modules, tag):
     first = sess.run(batch)["loss"].item()
     bad = sess.check_replication()
     smoke.check(bad == [], f"{tag}: check_replication() after step 1 names {bad}")
+    if flat_loss is not None:
+        rel = abs(first - flat_loss) / abs(flat_loss)
+        print(f"{tag} step 1 loss {first:.6f}, one process on the dense path "
+              f"{flat_loss:.6f}, relative difference {rel:.3e}")
+        smoke.check(rel <= step1_tol, f"{tag}: step 1 loss differs from one process's by {rel}")
+    shard_bytes, opt_bytes = smoke.state_bytes(sess)
     losses, step_ms, launches, peak_gb = smoke.timed_steps(torch, sess, batch, PS_STEPS - 1,
                                                            kernel_modules)
     losses = [first] + losses
@@ -134,18 +157,20 @@ def train_gpt2_sync(torch, ad, kernel_modules, tag):
     print(f"{tag}: median step {steady:.2f} ms (steps 2-{PS_STEPS}), "
           f"{rows * smoke.SEQ / steady * 1e3:.0f} tokens/s over {rows} sequences, peak "
           f"memory {peak_gb:.2f} GB, launches {launches}; check_replication() == [] "
-          f"after step 1")
+          f"after step 1; this rank holds {shard_bytes / 1e9:.3f} GB of flat shards and "
+          f"{opt_bytes / 1e9:.3f} GB of optimizer state")
     smoke.check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss {losses}")
     smoke.check(losses[-1] < losses[0], f"{tag}: loss did not fall: {losses}")
     per_step = config.num_layers * (PS_STEPS - 1)
     want = dict(smoke.NO_LAUNCHES, flash_fwd=per_step, flash_dq=per_step,
                 flash_dkdv=per_step)
     smoke.check(launches == want, f"{tag}: expected launches {want}, got {launches}")
-    smoke.check(smoke.same_on_every_rank(torch, list(sess.state["params"].values()),
-                                         sess.transformer.group),
+    full = sess.transformer.canonical_params(sess.state)   # bf16 master: gathered in f32
+    smoke.check(smoke.same_on_every_rank(torch, list(full.values()), sess.transformer.group),
                 f"{tag}: the ranks hold different parameters")
     print(f"{tag}: all {ad.world.size} ranks hold the same parameters")
-    return {"losses": losses, "step_ms": steady, "steps_ms": step_ms, "peak_gb": peak_gb}
+    return {"losses": losses, "step_ms": steady, "steps_ms": step_ms, "peak_gb": peak_gb,
+            "shard_bytes": shard_bytes, "opt_bytes": opt_bytes}
 
 
 def compare_ps_allreduce(ps_runs, ar_runs):
@@ -166,10 +191,33 @@ def compare_ps_allreduce(ps_runs, ar_runs):
                 f"ps: a later loss differs from AllReduce's by {max(rel[1:])}")
 
 
+SHARDED_MODES = {   # tag -> (AllReduce options, step 1 tolerance against one process)
+    "AllReduce": ({}, smoke.PS_STEP1_TOL),
+    "AllReduce(sharded_update)": ({"sharded_update": "sharded"}, smoke.PS_STEP1_TOL),
+    "AllReduce(bf16_master)": ({"precision": "bf16_master"}, smoke.BF16_MASTER_TOL),
+}
+
+
+def one_process_loss(torch, world_size):
+    """The global batch's loss (8 sequences per rank) in this process, on
+    the dense path, under ``no_grad``: what step 1 must reproduce."""
+    from autodist_tpu_torch.models.gpt import GPTConfig
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+
+    loss_fn, params, _ = gpt_capture(GPTConfig(), smoke.SEQ, seed=0)
+    batch = smoke.gpt2_batch(GPTConfig(), smoke.BATCH * world_size)
+    with torch.no_grad():
+        loss = loss_fn(params, {n: torch.from_numpy(a).cuda() for n, a in batch.items()})
+    loss = loss.item()
+    del loss_fn, params
+    torch.cuda.empty_cache()
+    return loss
+
+
 def main(argv):
     import torch
 
-    if len(argv) != 1 or argv[0] not in (*smoke.CODECS, "ring", "ps"):
+    if len(argv) != 1 or argv[0] not in (*smoke.CODECS, "ring", "ps", "sharded"):
         print(__doc__ + f"\nCODEC is one of {list(smoke.CODECS)}", file=sys.stderr)
         return 2
     mode = argv[0]
@@ -178,7 +226,7 @@ def main(argv):
         print("FAIL: run under torchrun with --nproc-per-node >= 2 (even for ring)",
               file=sys.stderr)
         return 1
-    if mode in ("ring", "ps"):   # two AutoDists in this process
+    if mode in ("ring", "ps", "sharded"):   # several AutoDists in this process
         os.environ["AUTODIST_IS_TESTING"] = "1"
     m = smoke.setup(torch)
     if m is None:
@@ -192,6 +240,8 @@ def main(argv):
                 ({"replica": world_size // 2, "seq": 2}, m["AllReduce"]())]
     elif mode == "ps":   # the default builder, then AllReduce
         runs = [(None, None), (None, m["AllReduce"]())]
+    elif mode == "sharded":
+        runs = [(None, m["AllReduce"](**opts)) for opts, _ in SHARDED_MODES.values()]
     else:
         runs = [(None, m["AllReduce"](compressor=mode))]
     ads = [m["AutoDist"](resource_spec=ResourceSpec(resource_info=dict(
@@ -218,6 +268,20 @@ def main(argv):
             compare_ps_allreduce(by_builder["PSLoadBalancing"], by_builder["AllReduce"])
             result = {"ps": by_builder["PSLoadBalancing"],
                       "all_reduce": by_builder["AllReduce"]}
+        elif mode == "sharded":   # in turns: 0, 1, 2, 2, 1, 0
+            flat_loss = one_process_loss(torch, world_size)
+            names = list(SHARDED_MODES)
+            result = {name: [] for name in names}
+            for i in (0, 1, 2, 2, 1, 0):
+                result[names[i]].append(train_gpt2_sync(
+                    torch, ads[i], modules, names[i], flat_loss, SHARDED_MODES[names[i]][1]))
+                torch.cuda.empty_cache()
+            for name, runs_ in result.items():
+                pooled = statistics.median(x for r in runs_ for x in r["steps_ms"])
+                print(f"{name}: {pooled:.2f} ms a step (median of steps 2-{PS_STEPS} of two "
+                      f"runs, in turns), peak memory {runs_[0]['peak_gb']:.2f} GB, per rank "
+                      f"{runs_[0]['shard_bytes'] / 1e9:.3f} GB of flat shards and "
+                      f"{runs_[0]['opt_bytes'] / 1e9:.3f} GB of optimizer state")
         else:
             result = smoke.train_gpt2_codec(torch, ads[0], mode, modules)
     except smoke.SmokeFailure as e:

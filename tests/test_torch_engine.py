@@ -19,8 +19,9 @@
 - The package imports no JAX, flax, optax, protobuf or ``autodist_tpu``,
   and its entry points (``gpt_capture`` and ``classifier_capture`` too)
   raise without a GPU unless given ``device="cpu"``.
-- The knobs of later slices raise (``PowerSGDCompressor``,
-  ``PSLoadBalancing(sync=False)`` and ``remat`` among them), and
+- The knobs of later slices raise (``PowerSGDCompressor``, the overlap
+  schedule, two-level, ``PSLoadBalancing(sync=False)`` and
+  ``sync_schedule`` among them), and
   a spec of two replicas in a one-process world raises the world-size
   error instead of running one replica.
 """
@@ -301,9 +302,8 @@ def test_strategy_json_roundtrip_and_later_slices_raise(tmp_path):
     assert back.graph_config.replicas == ["localhost:GPU:0", "localhost:GPU:1"]
     assert back.node_config[-1].WhichOneof("synchronizer") == "AllReduceSynchronizer"
     for kwargs in ({"compressor": "PowerSGDCompressor"}, {"schedule": "overlap"},
-                   {"hierarchy": "two_level"}, {"sharded_update": "sharded"},
-                   {"precision": "bf16_master"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                   {"hierarchy": "two_level"}):
+        with pytest.raises(NotImplementedError, match="Queue A item 5"):
             AllReduce(**kwargs)
     loss_fn, params, _ = gpt_capture(dataclasses.replace(tgpt.GPT_TINY, num_layers=1),
                                      SEQ, device="cpu")
@@ -316,8 +316,8 @@ def test_strategy_json_roundtrip_and_later_slices_raise(tmp_path):
         strategy_builder=AllReduce(), device="cpu")
     with pytest.raises(ValueError, match="2 replicas but this launch has WORLD_SIZE=1"):
         ad.distribute(loss_fn, params, optim.sgd(0.1))
-    with pytest.raises(NotImplementedError, match="remat"):
-        ad.distribute(loss_fn, params, optim.sgd(0.1), remat=True)
+    with pytest.raises(NotImplementedError, match="sync_schedule"):
+        ad.distribute(loss_fn, params, optim.sgd(0.1), sync_schedule="overlap")
 
 
 def test_resource_spec_yaml_matches_dict(tmp_path):

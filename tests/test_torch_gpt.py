@@ -7,7 +7,15 @@ mode (``attention_impl="flash"``), the port through the flash wrappers'
 plain versions (CPU tensors).  In f32, logits and the loss agree to atol
 2e-5 and every parameter gradient to atol 2e-5 (f32 sums in another
 order); the bf16 forward agrees to atol 3e-2 on logits of magnitude ~0.3
-(bf16 rounds at other places in the two frameworks).
+(bf16 rounds at other places in the two frameworks).  ``return_hidden``
+gives flax's f32 ``ln_f`` output (atol 2e-5).
+
+Remat (``GPTConfig(remat=True)``, ``distribute(remat=True)``) against the
+same model without it, as ``tests/test_models.py::test_remat_is_value_exact``
+holds flax's: the loss bitwise, the gradients atol 1e-5, rtol 1e-4; with
+dropout 0.1 from a seeded generator the recompute draws the first run's
+masks (gradients atol 1e-7), and three adamw steps equal three without
+remat (atol 1e-6).
 """
 import dataclasses
 
@@ -116,6 +124,87 @@ def test_seeded_init_follows_flax_initialisers():
     assert not a.h_0.mlp_in.bias.any() and bool((a.ln_f.scale == 1).all())
 
 
-def test_remat_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgpt.GPT(dataclasses.replace(tgpt.GPT_TINY, remat=True))
+def test_return_hidden_matches_flax():
+    cj, ct = _configs(jnp.float32, torch.float32)
+    jparams = _flax_params()
+    tokens, _ = _tokens(2)
+    j_hidden = np.asarray(jax.jit(lambda p, t: jgpt.GPT(cj).apply(
+        {"params": p}, t, return_hidden=True))(jparams, jnp.asarray(tokens)))
+    with torch.no_grad():
+        t_hidden = _torch_model(ct, jparams)(torch.from_numpy(tokens), return_hidden=True)
+    assert t_hidden.dtype == torch.float32 and t_hidden.shape == (B, SEQ, ct.hidden_size)
+    np.testing.assert_allclose(t_hidden.numpy(), j_hidden, atol=F32_ATOL, rtol=0)
+
+
+def _loss_and_grads(config, jparams, tokens, targets, generator=None):
+    model = _torch_model(config, jparams)
+    loss = tgpt.gpt_loss(model(torch.from_numpy(tokens), generator=generator),
+                         torch.from_numpy(targets))
+    return loss, torch.autograd.grad(loss, list(model.parameters()))
+
+
+def test_remat_is_value_exact():
+    """``tests/test_models.py::test_remat_is_value_exact``: the same loss,
+    bitwise, and the gradients within atol 1e-5, rtol 1e-4."""
+    c0 = dataclasses.replace(tgpt.GPT_TINY, attention_impl="flash")
+    jparams = _flax_params()
+    tokens, targets = _tokens(3)
+    l0, g0 = _loss_and_grads(c0, jparams, tokens, targets)
+    l1, g1 = _loss_and_grads(dataclasses.replace(c0, remat=True), jparams, tokens, targets)
+    assert l0.item() == l1.item()
+    for a, b in zip(g0, g1):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-5, rtol=1e-4)
+
+
+def test_remat_with_dropout_recomputes_the_same_masks():
+    """With dropout 0.1 from one seeded generator, remat's recompute draws
+    the masks of the first run: the loss, every gradient and the
+    generator's end state equal those without remat."""
+    c0 = dataclasses.replace(tgpt.GPT_TINY, dropout_rate=0.1)
+    jparams = _flax_params()
+    tokens, targets = _tokens(4)
+    runs = []
+    for remat in (False, True):
+        gen = torch.Generator().manual_seed(7)
+        loss, grads = _loss_and_grads(dataclasses.replace(c0, remat=remat), jparams, tokens,
+                                      targets, generator=gen)
+        runs.append((loss.item(), grads, gen.get_state()))
+    (l0, g0, s0), (l1, g1, s1) = runs
+    assert l0 == l1 and torch.equal(s0, s1)
+    for a, b in zip(g0, g1):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-7, rtol=0)
+    # the masks were drawn: another seed gives another loss
+    other, _ = _loss_and_grads(c0, jparams, tokens, targets, torch.Generator().manual_seed(8))
+    assert other.item() != l0
+
+
+@pytest.mark.parametrize("where", ["config", "distribute"])
+def test_three_remat_steps_equal_three_plain_steps(where):
+    """``GPTConfig(remat=True)`` and ``distribute(remat=True)``: three adamw
+    steps with dropout equal three steps without remat (losses and final
+    parameters within atol 1e-6)."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.autodist import AutoDist
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.strategy import AllReduce
+
+    toks = np.random.default_rng(5).integers(0, tgpt.GPT_TINY.vocab_size,
+                                             (B, SEQ + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    runs = []
+    for remat in (False, True):
+        config = dataclasses.replace(tgpt.GPT_TINY, dropout_rate=0.1,
+                                     remat=remat and where == "config")
+        loss_fn, params, _ = gpt_capture(config, SEQ, device="cpu")
+        sess = AutoDist(resource_spec=ResourceSpec(resource_info={"nodes": [
+            {"address": "localhost", "cpus": [0], "chief": True}]}),
+            strategy_builder=AllReduce(), device="cpu").distribute(
+            loss_fn, params, optim.adamw(1e-3), has_rng=True,
+            remat=remat and where == "distribute")
+        runs.append(([sess.run(batch)["loss"].item() for _ in range(3)], sess.params()))
+    (l0, p0), (l1, p1) = runs
+    np.testing.assert_allclose(l1, l0, atol=1e-6, rtol=0)
+    assert l0[-1] < l0[0]
+    for n in p0:
+        np.testing.assert_allclose(p1[n].numpy(), p0[n].numpy(), atol=1e-6, rtol=0, err_msg=n)

@@ -84,6 +84,11 @@ PS_BUILDERS = ("PS", "PS_proxy", "PSLoadBalancing")
 ACCUM_COUNTS = (1, 2, 4)
 CLIP_NORM = 0.1
 UNEVEN_SIZES = (13, 9)
+# the sharded-update and bf16-master cases: the optimizers, the codecs, the
+# steps of each run and the clip case's bound
+SHARDED_OPTS = ("sgd", "momentum", "adam")
+SHARDED_CODECS = ("BF16Compressor", "BF16CompressorEF", "Int8Compressor")
+SHARDED_STEPS, SHARDED_CLIP = 2, 0.5
 
 
 def codec_inputs(r, n, seed):
@@ -114,6 +119,23 @@ def qkv(shape, seed):
     return tuple(rng.standard_normal(shape).astype(np.float32) for _ in range(3))
 
 
+def mlp_inputs():
+    """``tests/test_sharded_update.py::_train``'s parameters and batch, drawn
+    in its order from one RandomState."""
+    r = np.random.RandomState(0)
+    params = {"w1": r.randn(32, 16).astype(np.float32), "b1": np.zeros(16, np.float32),
+              "w2": r.randn(16, 4).astype(np.float32)}
+    batch = {"x": r.randn(32, 32).astype(np.float32), "y": r.randn(32, 4).astype(np.float32)}
+    return params, batch
+
+
+def sharded_clip_inputs():
+    """``test_sharded_update_with_global_norm_clip``'s parameters and batch."""
+    r = np.random.RandomState(1)
+    params = {"w": (r.randn(32, 8) * 3).astype(np.float32)}
+    return params, {"x": r.randn(16, 32).astype(np.float32)}
+
+
 def make_inputs(jax_gpt_params):
     """Every rank's inputs, from seeds; ``jax_gpt_params`` is the flax
     GPT-tiny parameter tree both packages train."""
@@ -141,6 +163,8 @@ def make_inputs(jax_gpt_params):
                            for n in UNEVEN_SIZES},
         "uneven_accum_batch": np.random.RandomState(1).randn(13, 6).astype(np.float32),
     }
+    inputs["mlp_params"], inputs["mlp_batch"] = mlp_inputs()
+    inputs["sharded_clip_params"], inputs["sharded_clip_batch"] = sharded_clip_inputs()
     for i, n in enumerate(CODEC_SIZES):
         inputs["codec_bufs"][n], inputs["codec_states"][n] = codec_inputs(WORLD, n,
                                                                           seed=40 + i)
@@ -267,6 +291,7 @@ def main(workdir):
 
     results["seq_parallel"] = seq_parallel_cases(inputs, world, autodist)
     results["ps"] = ps_cases(inputs, world, autodist)
+    results["sharded"] = sharded_cases(inputs, autodist)
 
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
@@ -464,6 +489,56 @@ def ps_cases(inputs, world, autodist):
             sess.state["params"]["w"][0, 0] += 1.0
     replication.append(sess.check_replication())
     out["replication"] = replication
+    return out
+
+
+def sharded_cases(inputs, autodist):
+    import torch
+
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.strategy import AllReduce
+
+    opts = {"sgd": lambda: optim.sgd(0.1), "momentum": lambda: optim.sgd(0.1, momentum=0.9),
+            "adam": lambda: optim.adam(0.05)}
+
+    def mlp_loss(p, b):   # f32 inputs meet bf16 compute copies in f32, as JAX promotes
+        h = torch.tanh(b["x"] @ p["w1"].float() + p["b1"])
+        return torch.mean((h @ p["w2"].float() - b["y"]) ** 2)
+
+    def clip_loss(p, b):
+        return torch.mean((b["x"] @ p["w"]) ** 2)
+
+    def run(builder, opt="sgd", loss=mlp_loss, params="mlp_params", batch="mlp_batch",
+            steps=SHARDED_STEPS, **options):
+        sess = autodist(builder).distribute(
+            loss, {k: torch.from_numpy(v.copy()) for k, v in inputs[params].items()},
+            opts[opt](), **options)
+        for _ in range(steps):
+            metrics = sess.run(inputs[batch])
+        t = sess.transformer
+        opt_state = sess.state["opt_state"].state
+        return dict(
+            _session_result(sess, metrics), sharded=t.sync_sharded_update,
+            mixed=t.sync_mixed_precision, replication=sess.check_replication(),
+            grad_norm=float(metrics["grad_norm"]) if "grad_norm" in metrics else None,
+            shards={n: (tuple(x.shape), str(x.dtype)) for n, x in sess.state["shards"].items()},
+            stored={n: (tuple(x.shape), str(x.dtype)) for n, x in sess.state["params"].items()},
+            moments={n: tuple(opt_state[x]["exp_avg"].shape)
+                     for n, x in sess.state["shards"].items()} if opt == "adam" else None)
+
+    out = {}
+    for opt in SHARDED_OPTS:
+        for mode in ("replicated", "sharded"):
+            out["opt", opt, mode] = run(AllReduce(sharded_update=mode), opt)
+        out["bf16_master", opt] = run(AllReduce(precision="bf16_master"), opt)
+    for comp in SHARDED_CODECS:
+        for mode in ("replicated", "sharded"):
+            out["codec", comp, mode] = run(AllReduce(compressor=comp, sharded_update=mode))
+    for mode in ("replicated", "sharded"):
+        out["accum", mode] = run(AllReduce(sharded_update=mode), "adam", accum_steps=2)
+        out["clip", mode] = run(AllReduce(sharded_update=mode), loss=clip_loss,
+                                params="sharded_clip_params", batch="sharded_clip_batch",
+                                steps=1, clip_global_norm=SHARDED_CLIP)
     return out
 
 
