@@ -35,6 +35,7 @@ CPU.  Without a GPU and without that request it raises.  ``launch``,
 later slices of the port (ROADMAP, Queue A); they raise
 ``NotImplementedError``.
 """
+import functools
 from typing import Any, Callable, Optional, Sequence
 
 from autodist_tpu_torch import const
@@ -47,7 +48,7 @@ from autodist_tpu_torch.proto import schema
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.strategy.base import Strategy, StrategyCompiler
 from autodist_tpu_torch.utils import logging
-from autodist_tpu_torch.utils.remat import remat as remat_fn
+from autodist_tpu_torch.utils.remat import checkpoint
 
 _DEFAULT_AUTODIST = {}
 
@@ -169,7 +170,7 @@ class AutoDist:
                 f"distribute options {later + (['sparse_vars'] if sparse_vars else [])} "
                 f"are later slices of the port (ROADMAP, Queue A)")
         if remat:
-            loss_fn = remat_fn(loss_fn)
+            loss_fn = functools.partial(checkpoint, loss_fn)
         item = ModelItem(loss_fn, params, optimizer, sparse_vars=sparse_vars,
                          has_aux=has_aux, has_rng=has_rng, mutable_state=mutable_state,
                          eval_fn=eval_fn, name=name)

@@ -202,7 +202,7 @@ class GraphTransformer:
                "bf16_master_buckets": len(self.precision_buckets),
                "bf16_master_vars": sum(len(b.var_names) for b in self.precision_buckets)}
         for b in self.sharded_buckets:
-            item = torch.empty((), dtype=getattr(torch, b.dtype)).element_size()
+            item = getattr(torch, b.dtype).itemsize
             out["shard_bytes"] += b.shard_total * item
             out["padding_bytes"] += (b.padded_total - b.total) * item / b.num_shards
             out["param_gather_bytes"] += b.padded_total * item * (0.5 if b.precision else 1.0)
@@ -225,11 +225,11 @@ class GraphTransformer:
                     f"{data_axes}, is a later slice of the port (ROADMAP, Queue A item 5)")
             plan.ps_axes = None
 
-    def _shard(self, param, name):
-        """This replica's flat shard of ``param``: elements ``[r * ss, (r + 1)
-        * ss)`` of its flat form zero-padded to ``ss * R``."""
+    def _shard(self, param, name, row):
+        """Row ``row`` of ``param``'s flat shards: elements ``[row * ss, (row
+        + 1) * ss)`` of its flat form zero-padded to ``ss * R``."""
         rows = padded_rows(param.detach(), self.num_replicas, self.shard_len[name])
-        return rows[self.world.rank].clone()
+        return rows[row].clone()
 
     def init_state(self, seed=0):
         """The session state: stored parameters (fresh copies on the device,
@@ -242,8 +242,12 @@ class GraphTransformer:
         params = self.model_item.params
         full = OrderedDict((n, params[n].detach().to(self.device, copy=True))
                            for n in self.names)
-        shards = OrderedDict((n, self._shard(full[n], n)) for n in self.names
-                             if n in self.shard_len)
+        rows = dict.fromkeys((n for names in self.ps_groups.values() for n in names),
+                             self.world.rank)
+        rows.update((n, ar_sync.shard_index(b, self.group)) for b in self.sharded_buckets
+                    for n in b.var_names)
+        shards = OrderedDict((n, self._shard(full[n], n, rows[n])) for n in self.names
+                             if n in rows)
         storage = OrderedDict(
             (n, (t.to(torch.bfloat16) if n in self._prec_names else t).requires_grad_(True))
             for n, t in full.items())
@@ -377,12 +381,10 @@ class GraphTransformer:
         the stored bf16 compute copies."""
         if not self.precision_buckets:
             return
-        shards = state["shards"]
         with torch.no_grad():
             for b in self.precision_buckets:
-                ar_sync.gather_bucket_params(
-                    {n: shards[n].to(torch.bfloat16) for n in b.var_names}, b, self.group,
-                    out=state["params"])
+                ar_sync.gather_bucket_params(state["shards"], b, self.group, out=state["params"],
+                                             dtype=torch.bfloat16)
 
     def canonical_params(self, state):
         """The full, unpadded parameters by name, as the single-device

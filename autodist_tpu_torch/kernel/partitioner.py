@@ -143,7 +143,7 @@ def plan_sharded_update(plan):
         return False
     if plan.placement != Placement.REPLICATED or plan.sparse or not plan.shape:
         return False
-    return plan.compressor in ELEMENTWISE_CODECS and not plan.schedule_ir
+    return plan.compressor in ELEMENTWISE_CODECS
 
 
 def flat_shard_update(plan):

@@ -56,7 +56,7 @@ def wire_codec(bucket) -> int:
 def elementwise(bucket) -> bool:
     """True when every wire transform of the bucket acts element for
     element on the flat buffer."""
-    return wire_codec(bucket) in ELEMENTWISE_CODECS and bucket.compressor in ELEMENTWISE_CODECS
+    return wire_codec(bucket) in ELEMENTWISE_CODECS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,15 +67,12 @@ class Bucket:
     shapes: tuple
     compressor: int
     dtype: str
-    hierarchy: int = 0
-    dcn_compressor: int = 0
     # AllReduceSynchronizer.ShardedUpdate, and for SHARDED buckets the shard
     # plan: the replica count the update space shards over and each var's
     # flat shard length ceil(size / num_shards)
     sharded_update: int = 0
     num_shards: int = 1
     shard_sizes: tuple = ()
-    schedule_ir: str = ""
     # AllReduceSynchronizer.Precision: BF16_COMPUTE_F32_MASTER buckets keep
     # the f32 master as the flat shards (set on sharded buckets only)
     precision: int = 0
@@ -116,7 +113,7 @@ def plan_buckets(plans, var_shapes, var_dtypes, num_replicas=1) -> List[Bucket]:
         groups.setdefault(key, []).append(name)
     buckets = []
     R = max(1, int(num_replicas))
-    for (group, dtype, comp, hier, dcn, shup, ir, prec), names in sorted(groups.items()):
+    for (group, dtype, comp, hier, _, shup, ir, prec), names in sorted(groups.items()):
         if hier == _AR.TWO_LEVEL or ir:
             raise NotImplementedError(
                 "two-level and schedule-IR buckets are a later slice of the port "
@@ -126,10 +123,8 @@ def plan_buckets(plans, var_shapes, var_dtypes, num_replicas=1) -> List[Bucket]:
         buckets.append(Bucket(
             key=f"g{group}_{dtype}_c{comp}{suffix}", var_names=tuple(names),
             sizes=sizes, shapes=tuple(tuple(var_shapes[n]) for n in names),
-            compressor=comp, dtype=dtype, hierarchy=hier, dcn_compressor=dcn,
-            sharded_update=shup, num_shards=R if shup else 1,
-            shard_sizes=tuple(-(-s // R) for s in sizes) if shup else (),
-            schedule_ir=ir, precision=prec))
+            compressor=comp, dtype=dtype, sharded_update=shup, num_shards=R if shup else 1,
+            shard_sizes=tuple(-(-s // R) for s in sizes) if shup else (), precision=prec))
     return buckets
 
 
@@ -138,8 +133,7 @@ def bucket_sharded(bucket) -> bool:
     set, a shard plan was computed, and every wire transform is
     elementwise (the transformer has already dropped the knob of the
     others, as JAX does)."""
-    return (bool(bucket.sharded_update) and bool(bucket.shard_sizes)
-            and not bucket.schedule_ir and elementwise(bucket))
+    return bool(bucket.sharded_update) and bool(bucket.shard_sizes) and elementwise(bucket)
 
 
 def init_compressor_states(buckets, device="cpu"):
@@ -190,29 +184,21 @@ def _unpack_shard(b, row, grads_by_name, synced):
         off += ss
 
 
-def fused_wire_hop(collective, src, codec, state, offset=0):
+def fused_wire_hop(collective, src, codec, state):
     """The codec's encode -> ``collective`` -> decode around one wire hop.
     The bf16 family casts a flat f32 view of ``src`` to bf16 (the
-    error-feedback variant adds the residual region of ``state`` at
-    ``offset`` first and writes the new residual there), runs
-    ``collective`` on the bf16 buffer of ``src``'s shape and decodes to
-    f32; any other codec passes ``src`` through at its dtype.  Returns
-    (the collective's output, the new state)."""
+    error-feedback variant adds its flat f32 residual ``state`` first and
+    returns the new residual), runs ``collective`` on the bf16 buffer of
+    ``src``'s shape and decodes to f32; any other codec passes ``src``
+    through at its dtype.  Returns (the collective's output, the new
+    state)."""
     if codec not in (_AR.BF16Compressor, _AR.BF16CompressorEF):
         return collective(src), state
     flat = src.reshape(-1).float()
     stateful = codec == _AR.BF16CompressorEF
-    n = flat.numel()
-    corrected = flat + state[offset:offset + n] if stateful else flat
+    corrected = flat + state if stateful else flat
     wire = corrected.to(torch.bfloat16)
-    new_state = state
-    if stateful:
-        residual = corrected - wire.float()
-        if offset == 0 and n == state.numel():
-            new_state = residual
-        else:
-            new_state = state.clone()
-            new_state[offset:offset + n] = residual
+    new_state = corrected - wire.float() if stateful else state
     return collective(wire.view(src.shape)).float(), new_state
 
 
@@ -253,12 +239,15 @@ def unpack_rows(full, names, shard_sizes, out):
         torch._foreach_copy_(dsts, srcs)
 
 
-def gather_bucket_params(shards_by_name, b, group=None, out=None):
+def gather_bucket_params(shards_by_name, b, group=None, out=None, dtype=None):
     """All-gather one sharded-update bucket's updated flat shards into full
-    variables, in the shards' dtype (a compressed parameter gather would
-    hand the replicas drifting copies): written into ``out[name]`` when
-    given, else into new tensors; returns them by name."""
-    row = torch.cat([shards_by_name[n].reshape(-1) for n in b.var_names])
+    variables, in the shards' dtype or ``dtype`` (the bf16 master's compute
+    copy; a compressed parameter gather would hand the replicas drifting
+    copies): written into ``out[name]`` when given, else into new tensors;
+    returns them by name."""
+    srcs = [shards_by_name[n].reshape(-1) for n in b.var_names]
+    row = torch.empty(b.shard_total, dtype=dtype or srcs[0].dtype, device=srcs[0].device)
+    torch._foreach_copy_(list(row.split(b.shard_sizes)), srcs)   # one launch, cast on the way
     full = coll.all_gather_into_tensor(row, group).view(b.num_shards, -1)
     if out is None:
         out = {n: torch.empty(shape, dtype=full.dtype, device=full.device)

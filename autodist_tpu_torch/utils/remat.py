@@ -40,12 +40,3 @@ def checkpoint(fn, *args):
                 g.set_state(s)
 
     return _ckpt.checkpoint(run, *args, use_reentrant=False)
-
-
-def remat(fn):
-    """``fn`` whose every call runs under :func:`checkpoint`
-    (``distribute(remat=True)`` wraps the loss in it)."""
-    def wrapped(*args):
-        return checkpoint(fn, *args)
-
-    return wrapped

@@ -1414,15 +1414,12 @@ def train_gpt2_ring(torch, ad, kernel_modules, flat_loss):
             "step_ms": steady, "losses": losses, "peak_gb": peak_gb}
 
 
-def time_ps_sync(torch, t, state, grads):
-    """The PS sync's device time per step on ``grads``: pack -> scatter ->
-    shard update -> gather -> write-back (:meth:`GraphTransformer.update`,
-    which for the default builder holds nothing else), and its three parts.
-    Each timed call takes an optimizer step: run it after the checks."""
-    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
+def shard_optimizer_step(torch, state):
+    """The optimizer's step on the flat shards alone, as a function of the
+    shards' gradients by name."""
     shards = state["shards"]
 
-    def shard_update(shard_grads):
+    def step(shard_grads):
         with torch.no_grad():
             for n, g in shard_grads.items():
                 shards[n].grad = g
@@ -1430,6 +1427,16 @@ def time_ps_sync(torch, t, state, grads):
             for n in shard_grads:
                 shards[n].grad = None
 
+    return step
+
+
+def time_ps_sync(torch, t, state, grads):
+    """The PS sync's device time per step on ``grads``: pack -> scatter ->
+    shard update -> gather -> write-back (:meth:`GraphTransformer.update`,
+    which for the default builder holds nothing else), and its three parts.
+    Each timed call takes an optimizer step: run it after the checks."""
+    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
+    shard_update = shard_optimizer_step(torch, state)
     scattered = t.ps_scatter(grads)
     times = {
         "total": time_ms(lambda: t.update(state, grads), torch, flush, reps=10),
@@ -1624,16 +1631,7 @@ def time_sharded_sync(torch, t, state, grads):
     bf16 master's top-of-step gather of its compute copy.  Each timed
     update takes an optimizer step: run it after the checks."""
     flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
-    shards = state["shards"]
-
-    def shard_update(shard_grads):
-        with torch.no_grad():
-            for n, g in shard_grads.items():
-                shards[n].grad = g
-            state["opt_state"].step()
-            for n in shard_grads:
-                shards[n].grad = None
-
+    shard_update = shard_optimizer_step(torch, state)
     scattered, _ = t.sync(grads, state["comp"])
     times = {
         "total": time_ms(lambda: (t.gather_compute_copies(state), t.update(state, grads)),

@@ -21,7 +21,8 @@ precision, the port against the JAX package.
   ``tests/test_mixed_precision.py``'s parity bounds (2e-2; adam 0.2, steps
   x lr x 2), the loss within 2e-2, every ``params()`` leaf f32, the
   stored full-shape copy bf16 and the master a flat f32 shard.
-  ``check_replication() == []`` on every session.
+  ``check_replication() == []`` on every session, and ``predict`` gives
+  the forward of the final f32 parameters (atol 1e-5).
 """
 import jax
 import jax.numpy as jnp
@@ -225,6 +226,10 @@ def _close(got, want, atol, what):
         np.testing.assert_allclose(got[k], want[k], atol=atol, rtol=0, err_msg=f"{what} {k}")
 
 
+def _mlp_forward(params, batch):
+    return np.tanh(batch["x"] @ params["w1"] + params["b1"]) @ params["w2"]
+
+
 def _same_run_on_every_rank(results, key):
     first = results[0][key]
     for res in results[1:]:
@@ -237,12 +242,15 @@ def _same_run_on_every_rank(results, key):
 
 @pytest.mark.parametrize("opt", ranks.SHARDED_OPTS)
 def test_sharded_update_per_optimizer_over_four_ranks(gloo, jax_runs, opt):
-    _, results = gloo
+    inputs, results = gloo
+    batch = inputs["mlp_batch"]
     j_params, j_loss = jax_runs["opt", opt]
     _same_run_on_every_rank(results, ("opt", opt, "sharded"))
     for res in results:
         rep, shd = res["opt", opt, "replicated"], res["opt", opt, "sharded"]
         assert shd["sharded"] and not rep["sharded"] and not shd["mixed"]
+        np.testing.assert_allclose(shd["predict"], _mlp_forward(shd["params"], batch),
+                                   atol=1e-5, rtol=0)
         _close(shd["params"], rep["params"], 1e-5, "sharded vs replicated")
         _close(shd["params"], j_params, 1e-5, "sharded vs the JAX engine")
         assert abs(shd["loss"] - rep["loss"]) < 1e-4 and abs(shd["loss"] - j_loss) < 1e-4
@@ -311,7 +319,8 @@ def test_sharded_clip_matches_the_jax_engine(gloo):
 
 @pytest.mark.parametrize("opt", ranks.SHARDED_OPTS)
 def test_bf16_master_per_optimizer_over_four_ranks(gloo, jax_runs, opt):
-    _, results = gloo
+    inputs, results = gloo
+    inputs = inputs["mlp_batch"]
     j_params, j_loss = jax_runs["bf16_master", opt]
     _same_run_on_every_rank(results, ("bf16_master", opt))
     for res in results:
@@ -329,3 +338,6 @@ def test_bf16_master_per_optimizer_over_four_ranks(gloo, jax_runs, opt):
                                    "w2": ((16, 4), "torch.bfloat16")}
         assert mixed["shards"] == {"b1": ((4,), "torch.float32"), "w1": ((128,), "torch.float32"),
                                    "w2": ((16,), "torch.float32")}
+        # predict runs on the f32 masters, gathered
+        np.testing.assert_allclose(mixed["predict"], _mlp_forward(mixed["params"], inputs),
+                                   atol=1e-5, rtol=0)

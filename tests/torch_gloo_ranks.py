@@ -505,6 +505,9 @@ def sharded_cases(inputs, autodist):
         h = torch.tanh(b["x"] @ p["w1"].float() + p["b1"])
         return torch.mean((h @ p["w2"].float() - b["y"]) ** 2)
 
+    def mlp_apply(p, b):
+        return torch.tanh(b["x"] @ p["w1"] + p["b1"]) @ p["w2"]
+
     def clip_loss(p, b):
         return torch.mean((b["x"] @ p["w"]) ** 2)
 
@@ -524,7 +527,9 @@ def sharded_cases(inputs, autodist):
             shards={n: (tuple(x.shape), str(x.dtype)) for n, x in sess.state["shards"].items()},
             stored={n: (tuple(x.shape), str(x.dtype)) for n, x in sess.state["params"].items()},
             moments={n: tuple(opt_state[x]["exp_avg"].shape)
-                     for n, x in sess.state["shards"].items()} if opt == "adam" else None)
+                     for n, x in sess.state["shards"].items()} if opt == "adam" else None,
+            predict=sess.predict(inputs[batch], mlp_apply).numpy()
+            if loss is mlp_loss else None)
 
     out = {}
     for opt in SHARDED_OPTS:
