@@ -72,6 +72,7 @@ It returns the metrics ``{"loss", "step"}``, the loss the mean over the
 replicas (the JAX step's ``pmean(loss)``), with ``grad_norm`` when
 clipping and every aux value's mean over the replicas.
 """
+import math
 from collections import OrderedDict
 
 import torch
@@ -83,7 +84,7 @@ from autodist_tpu_torch.model_item import dtype_name
 from autodist_tpu_torch.parallel import collectives as coll
 from autodist_tpu_torch.parallel.context import seq_axis_context
 from autodist_tpu_torch.parallel.mesh import ReplicaWorld, check_replicas
-from autodist_tpu_torch.kernel.synchronization.all_reduce import padded_rows, unpack_rows
+from autodist_tpu_torch.kernel.synchronization.all_reduce import padded_rows
 from autodist_tpu_torch.utils import logging
 from autodist_tpu_torch.utils.rng import step_generator
 from autodist_tpu_torch.utils.tree import map_batch
@@ -158,6 +159,13 @@ class GraphTransformer:
             if plan.sync == part.SyncKind.PS and part.flat_shard_update(plan):
                 self.ps_groups.setdefault(dtype_name(plan.dtype), []).append(name)
                 self.shard_len[name] = part.shard_len(plan, self.num_replicas)
+        self._ps_buckets = [ar_sync.Bucket(
+            key=f"ps_{dtype}", var_names=tuple(names),
+            sizes=tuple(math.prod(infos[n].shape) for n in names),
+            shapes=tuple(tuple(infos[n].shape) for n in names), compressor=0, dtype=dtype,
+            sharded_update=1, num_shards=self.num_replicas,
+            shard_sizes=tuple(self.shard_len[n] for n in names))
+            for dtype, names in self.ps_groups.items()]
 
     def _normalise_sharded_update(self):
         """JAX's eligibility pass: a plan that asks for the sharded update
@@ -338,32 +346,23 @@ class GraphTransformer:
     def ps_scatter(self, grads):
         """Each PS variable's gradient shard, the replica mean of its flat
         ``[r * ss, (r + 1) * ss)`` slice: one reduce-scatter per dtype group
-        of the variables' ``(R, ss)`` matrices side by side."""
-        R = self.num_replicas
+        of the variables' ``(R, ss)`` matrices side by side (each group
+        runs as a sharded bucket without a codec)."""
         shards = {}
-        for names in self.ps_groups.values():
-            mats = [padded_rows(grads[n], R, self.shard_len[n]) for n in names]
-            row = coll.psum_scatter(torch.cat(mats, dim=1), self.group).reshape(-1)
-            if R > 1:
-                row = row / R
-            off = 0
-            for n in names:
-                shards[n] = row[off:off + self.shard_len[n]]
-                off += self.shard_len[n]
+        for b in self._ps_buckets:
+            row, _ = ar_sync.scatter_bucket(grads, b, (), self.group)
+            ar_sync.unpack_shard(b, row, grads, shards)
         return shards
 
     def ps_gather(self, state):
         """Write the updated PS shards back into storage: one all-gather per
-        dtype group of the shards laid end to end; variable v's columns of
-        the gathered ``(R, S)`` matrix, read row-major, are its new value
-        (:func:`~autodist_tpu_torch.kernel.synchronization.all_reduce.unpack_rows`)."""
-        R = self.num_replicas
-        storage, shards = state["params"], state["shards"]
+        dtype group of the shards laid end to end, whose columns, read
+        row-major, are each variable's new value
+        (:func:`~autodist_tpu_torch.kernel.synchronization.all_reduce.gather_bucket_params`)."""
         with torch.no_grad():
-            for names in self.ps_groups.values():
-                cat = torch.cat([shards[n] for n in names])
-                full = coll.all_gather_into_tensor(cat, self.group).view(R, -1)
-                unpack_rows(full, names, [self.shard_len[n] for n in names], storage)
+            for b in self._ps_buckets:
+                ar_sync.gather_bucket_params(state["shards"], b, self.group,
+                                             out=state["params"])
 
     def gather_buckets(self, state):
         """Write the updated shards of the sharded buckets without bf16

@@ -175,7 +175,7 @@ def _pack_rows(pieces, b):
     return torch.cat(mats, dim=1) if len(mats) > 1 else mats[0]
 
 
-def _unpack_shard(b, row, grads_by_name, synced):
+def unpack_shard(b, row, grads_by_name, synced):
     """A replica's ``(shard_total,)`` mean row -> its per-var flat shards
     (the update-space gradients)."""
     off = 0
@@ -220,7 +220,7 @@ def scatter_bucket(grads_by_name, b, state, group=None):
     return (row / R if R > 1 else row), new_state
 
 
-def unpack_rows(full, names, shard_sizes, out):
+def _unpack_rows(full, names, shard_sizes, out):
     """Write a gathered ``(R, S)`` update matrix into the full tensors
     ``out[name]``: a var's columns, read row-major, are its flat value (the
     whole rows copied by one multi-tensor copy, a last partial row
@@ -252,7 +252,7 @@ def gather_bucket_params(shards_by_name, b, group=None, out=None, dtype=None):
     if out is None:
         out = {n: torch.empty(shape, dtype=full.dtype, device=full.device)
                for n, shape in zip(b.var_names, b.shapes)}
-    unpack_rows(full, b.var_names, b.shard_sizes, out)
+    _unpack_rows(full, b.var_names, b.shard_sizes, out)
     return {n: out[n] for n in b.var_names}
 
 
@@ -274,7 +274,7 @@ def sync_bucketed(grads_by_name, buckets, comp_states, group=None, impl=None):
         if bucket_sharded(b):
             row, new_states[b.key] = scatter_bucket(grads_by_name, b, comp_states[b.key],
                                                     group)
-            _unpack_shard(b, row, grads_by_name, synced)
+            unpack_shard(b, row, grads_by_name, synced)
             continue
         comp = get_compressor(b.compressor, impl=impl)
         reduced, new_states[b.key] = comp.all_reduce(
