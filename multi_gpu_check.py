@@ -48,10 +48,12 @@ the gradient buckets, adamw on each rank's flat 1/R shards, all-gather of
 the parameters) and ``AllReduce(precision="bf16_master")`` (the f32
 master only as those shards, a bf16 compute copy gathered at the top of
 each step), in turns, twice each.  Checks: step 1's loss against the same
-global batch's loss in one process on the dense path (within 1e-5
-relative; the bf16 master within 2e-2), ``check_replication() == []``
-after step 1, finite losses that fall, 12 launches per step of each flash
-kernel, and every rank ending with the same full parameters.  Prints each
+global batch's loss in one process on the dense path (within 1e-3
+relative, the kernels' bound against plain versions; the bf16 master
+within 2e-2), the sharded update's losses against ``AllReduce()``'s
+(step 1 within 1e-5 relative, later steps 1e-3), ``check_replication() ==
+[]`` after step 1, finite losses that fall, 12 launches per step of each
+flash kernel, and every rank ending with the same full parameters.  Prints each
 median step, peak memory and the flat-shard and optimizer-state bytes a
 rank holds.
 
@@ -192,8 +194,8 @@ def compare_ps_allreduce(ps_runs, ar_runs):
 
 
 SHARDED_MODES = {   # tag -> (AllReduce options, step 1 tolerance against one process)
-    "AllReduce": ({}, smoke.PS_STEP1_TOL),
-    "AllReduce(sharded_update)": ({"sharded_update": "sharded"}, smoke.PS_STEP1_TOL),
+    "AllReduce": ({}, smoke.LOSS_REL_TOL),
+    "AllReduce(sharded_update)": ({"sharded_update": "sharded"}, smoke.LOSS_REL_TOL),
     "AllReduce(bf16_master)": ({"precision": "bf16_master"}, smoke.BF16_MASTER_TOL),
 }
 
@@ -276,6 +278,14 @@ def main(argv):
                 result[names[i]].append(train_gpt2_sync(
                     torch, ads[i], modules, names[i], flat_loss, SHARDED_MODES[names[i]][1]))
                 torch.cuda.empty_cache()
+            rel = [abs(a - b) / abs(b) for a, b in zip(
+                result["AllReduce(sharded_update)"][0]["losses"], result["AllReduce"][0]["losses"])]
+            print(f"sharded update vs AllReduce: step 1 relative difference {rel[0]:.3e}, "
+                  f"largest later {max(rel[1:]):.3e}")
+            smoke.check(rel[0] <= smoke.PS_STEP1_TOL,
+                        f"sharded: step 1 differs from AllReduce by {rel[0]}")
+            smoke.check(max(rel[1:]) <= smoke.PS_LOSS_TOL,
+                        f"sharded: a later loss differs from AllReduce's by {max(rel[1:])}")
             for name, runs_ in result.items():
                 pooled = statistics.median(x for r in runs_ for x in r["steps_ms"])
                 print(f"{name}: {pooled:.2f} ms a step (median of steps 2-{PS_STEPS} of two "
