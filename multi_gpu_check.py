@@ -216,6 +216,34 @@ def one_process_loss(torch, world_size):
     return loss
 
 
+def compare_sharded(torch, ads, modules, world_size):
+    """``AllReduce()``, its sharded update and its bf16 master (``ads`` in
+    SHARDED_MODES' order) in turns, 0 1 2 2 1 0: each run's step 1 against
+    one process's loss, the sharded update's losses against AllReduce's;
+    returns the runs by mode."""
+    flat_loss = one_process_loss(torch, world_size)
+    names = list(SHARDED_MODES)
+    result = {name: [] for name in names}
+    for i in (0, 1, 2, 2, 1, 0):
+        result[names[i]].append(train_gpt2_sync(
+            torch, ads[i], modules, names[i], flat_loss, SHARDED_MODES[names[i]][1]))
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(
+        result["AllReduce(sharded_update)"][0]["losses"], result["AllReduce"][0]["losses"])]
+    print(f"sharded update vs AllReduce: step 1 relative difference {rel[0]:.3e}, "
+          f"largest later {max(rel[1:]):.3e}")
+    smoke.check(rel[0] <= smoke.PS_STEP1_TOL, f"sharded: step 1 differs from AllReduce by {rel[0]}")
+    smoke.check(max(rel[1:]) <= smoke.PS_LOSS_TOL,
+                f"sharded: a later loss differs from AllReduce's by {max(rel[1:])}")
+    for name, runs in result.items():
+        pooled = statistics.median(x for r in runs for x in r["steps_ms"])
+        print(f"{name}: {pooled:.2f} ms a step (median of steps 2-{PS_STEPS} of two runs, in "
+              f"turns), peak memory {runs[0]['peak_gb']:.2f} GB, per rank "
+              f"{runs[0]['shard_bytes'] / 1e9:.3f} GB of flat shards and "
+              f"{runs[0]['opt_bytes'] / 1e9:.3f} GB of optimizer state")
+    return result
+
+
 def main(argv):
     import torch
 
@@ -270,28 +298,8 @@ def main(argv):
             compare_ps_allreduce(by_builder["PSLoadBalancing"], by_builder["AllReduce"])
             result = {"ps": by_builder["PSLoadBalancing"],
                       "all_reduce": by_builder["AllReduce"]}
-        elif mode == "sharded":   # in turns: 0, 1, 2, 2, 1, 0
-            flat_loss = one_process_loss(torch, world_size)
-            names = list(SHARDED_MODES)
-            result = {name: [] for name in names}
-            for i in (0, 1, 2, 2, 1, 0):
-                result[names[i]].append(train_gpt2_sync(
-                    torch, ads[i], modules, names[i], flat_loss, SHARDED_MODES[names[i]][1]))
-                torch.cuda.empty_cache()
-            rel = [abs(a - b) / abs(b) for a, b in zip(
-                result["AllReduce(sharded_update)"][0]["losses"], result["AllReduce"][0]["losses"])]
-            print(f"sharded update vs AllReduce: step 1 relative difference {rel[0]:.3e}, "
-                  f"largest later {max(rel[1:]):.3e}")
-            smoke.check(rel[0] <= smoke.PS_STEP1_TOL,
-                        f"sharded: step 1 differs from AllReduce by {rel[0]}")
-            smoke.check(max(rel[1:]) <= smoke.PS_LOSS_TOL,
-                        f"sharded: a later loss differs from AllReduce's by {max(rel[1:])}")
-            for name, runs_ in result.items():
-                pooled = statistics.median(x for r in runs_ for x in r["steps_ms"])
-                print(f"{name}: {pooled:.2f} ms a step (median of steps 2-{PS_STEPS} of two "
-                      f"runs, in turns), peak memory {runs_[0]['peak_gb']:.2f} GB, per rank "
-                      f"{runs_[0]['shard_bytes'] / 1e9:.3f} GB of flat shards and "
-                      f"{runs_[0]['opt_bytes'] / 1e9:.3f} GB of optimizer state")
+        elif mode == "sharded":
+            result = compare_sharded(torch, ads, modules, world_size)
         else:
             result = smoke.train_gpt2_codec(torch, ads[0], mode, modules)
     except smoke.SmokeFailure as e:
