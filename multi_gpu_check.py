@@ -64,6 +64,7 @@ import json
 import math
 import os
 import statistics
+import subprocess
 import sys
 
 import chip_smoke as smoke
@@ -284,6 +285,10 @@ def main(argv):
         sys.stdout = open(os.devnull, "w")
     torch.distributed.barrier()
     print(f"{world_size} ranks, torch {torch.__version__}, {torch.cuda.get_device_name()}")
+    if rank == 0:   # every card's name and power limit
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60).stdout.strip())
     modules = (m["fa"], m["fn"], m["tq"])
     try:
         if mode == "ring":
