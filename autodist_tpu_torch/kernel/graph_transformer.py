@@ -35,15 +35,14 @@ its slice of the global batch; the replicas meet in the collectives of
    scales each microbatch's loss by ``sum(mask) * R * A / max(S, 1)``, S
    the real rows over all replicas, so that the means below are the
    weighted mean over the real examples;
-3. sync: the AllReduce variables' buckets through each bucket's codec,
-   whose state rides in ``state["comp"]`` (:meth:`GraphTransformer.sync`,
-   :func:`sync_bucketed`; a sharded-update bucket reduce-scatters its
-   ``(R, ss)`` matrices side by side, the codec on this gradient leg
-   only); the PS variables by one reduce-scatter per
-   dtype group (:meth:`GraphTransformer.ps_scatter`): each variable's
-   zero-padded flat gradient as an ``(R, ceil(n/R))`` matrix, the group's
-   matrices side by side, so that replica r receives row r, its shard of
-   every variable, summed over the replicas and divided by R;
+3. sync: every bucket through its codec, whose state rides in
+   ``state["comp"]`` (:meth:`GraphTransformer.sync`, :func:`sync_bucketed`).
+   The PS variables form one bucket per dtype, without a codec.  A
+   sharded bucket (a PS group, or AllReduce's ``sharded_update``)
+   reduce-scatters: each variable's zero-padded flat gradient as an
+   ``(R, ceil(n/R))`` matrix, the bucket's matrices side by side, so that
+   replica r receives row r, its shard of every variable, summed over the
+   replicas and divided by R, the codec on this gradient leg only;
    :meth:`GraphTransformer.update` runs this step and the next two;
 4. with ``clip_global_norm``, the true global norm over the update spaces
    (a PS shard's squared sum summed over the replicas, an AllReduce
@@ -53,8 +52,7 @@ its slice of the global batch; the replicas meet in the collectives of
    storage; the PS and sharded-update variables on their flat shards
    (``state["shards"]``, separate leaf tensors, so the optimizer state
    lives sharded too), whose updated values come back by one all-gather
-   per PS dtype group (:meth:`GraphTransformer.ps_gather`) and per
-   sharded bucket, in the shards' dtype
+   per sharded bucket, in the shards' dtype
    (:meth:`GraphTransformer.gather_buckets`), and are written into
    storage.  A bf16-master bucket has no gather here: its fresh f32
    shards are the new storage, and the next step's top gather rebuilds
@@ -142,30 +140,32 @@ class GraphTransformer:
         self._normalise_ps_axes(tuple(strategy.graph_config.mesh.axis_names))
         self._normalise_sharded_update()
         infos = {v.name: v for v in model_item.var_infos}
-        self.buckets = ar_sync.plan_buckets(
-            self.plans, {n: infos[n].shape for n in self.names},
-            {n: infos[n].dtype for n in self.names}, num_replicas=self.num_replicas)
-        self.sharded_buckets = [b for b in self.buckets if ar_sync.bucket_sharded(b)]
-        # bf16-master buckets: the f32 master lives only as the flat shards
-        self.precision_buckets = [b for b in self.sharded_buckets if b.precision]
-        self._prec_names = frozenset(n for b in self.precision_buckets for n in b.var_names)
-        # fused PS groups: dtype -> the names of its flat-shard vars, in order;
-        # shard_len: every flat-shard var's ceil(n / R)
+        # fused PS groups: dtype -> the names of its flat-shard vars, in order
         self.ps_groups = OrderedDict()
-        self.shard_len = {n: ss for b in self.sharded_buckets
-                          for n, ss in zip(b.var_names, b.shard_sizes)}
         for name in self.names:
             plan = self.plans[name]
             if plan.sync == part.SyncKind.PS and part.flat_shard_update(plan):
                 self.ps_groups.setdefault(dtype_name(plan.dtype), []).append(name)
-                self.shard_len[name] = part.shard_len(plan, self.num_replicas)
-        self._ps_buckets = [ar_sync.Bucket(
+        # the AllReduce buckets, then each PS group as a sharded bucket
+        # without a codec
+        self.buckets = ar_sync.plan_buckets(
+            self.plans, {n: infos[n].shape for n in self.names},
+            {n: infos[n].dtype for n in self.names}, num_replicas=self.num_replicas)
+        self.buckets += [ar_sync.Bucket(
             key=f"ps_{dtype}", var_names=tuple(names),
             sizes=tuple(math.prod(infos[n].shape) for n in names),
             shapes=tuple(tuple(infos[n].shape) for n in names), compressor=0, dtype=dtype,
             sharded_update=1, num_shards=self.num_replicas,
-            shard_sizes=tuple(self.shard_len[n] for n in names))
+            shard_sizes=tuple(part.shard_len(self.plans[n], self.num_replicas)
+                              for n in names))
             for dtype, names in self.ps_groups.items()]
+        self.sharded_buckets = [b for b in self.buckets if ar_sync.bucket_sharded(b)]
+        # bf16-master buckets: the f32 master lives only as the flat shards
+        self.precision_buckets = [b for b in self.sharded_buckets if b.precision]
+        self._prec_names = frozenset(n for b in self.precision_buckets for n in b.var_names)
+        # every flat-shard var's ceil(n / R)
+        self.shard_len = {n: ss for b in self.sharded_buckets
+                          for n, ss in zip(b.var_names, b.shard_sizes)}
 
     def _normalise_sharded_update(self):
         """JAX's eligibility pass: a plan that asks for the sharded update
@@ -189,7 +189,7 @@ class GraphTransformer:
     @property
     def sync_sharded_update(self):
         """True when any AllReduce bucket realises the sharded update."""
-        return bool(self.sharded_buckets)
+        return any(not b.key.startswith("ps_") for b in self.sharded_buckets)
 
     @property
     def sync_mixed_precision(self):
@@ -197,10 +197,10 @@ class GraphTransformer:
         return bool(self.precision_buckets)
 
     def sharded_update_summary(self):
-        """Static accounting of the sharded update, JAX's: the per-replica
-        update-space bytes, the per-replica padding bytes, and the
-        parameter all-gather's bytes (the bf16 compute copy's half for
-        bf16-master buckets)."""
+        """Static accounting of the sharded buckets, JAX's for AllReduce's
+        sharded update (PS groups count too): the per-replica update-space
+        bytes, the per-replica padding bytes, and the parameter all-gather's
+        bytes (the bf16 compute copy's half for bf16-master buckets)."""
         out = {"enabled": self.sync_sharded_update,
                "buckets": len(self.sharded_buckets),
                "vars": sum(len(b.var_names) for b in self.sharded_buckets),
@@ -250,10 +250,8 @@ class GraphTransformer:
         params = self.model_item.params
         full = OrderedDict((n, params[n].detach().to(self.device, copy=True))
                            for n in self.names)
-        rows = dict.fromkeys((n for names in self.ps_groups.values() for n in names),
-                             self.world.rank)
-        rows.update((n, ar_sync.shard_index(b, self.group)) for b in self.sharded_buckets
-                    for n in b.var_names)
+        rows = {n: ar_sync.shard_index(b, self.group) for b in self.sharded_buckets
+                for n in b.var_names}
         shards = OrderedDict((n, self._shard(full[n], n, rows[n])) for n in self.names
                              if n in rows)
         storage = OrderedDict(
@@ -337,37 +335,19 @@ class GraphTransformer:
         return loss, mutable, dict(zip(self.names, grads)), aux
 
     def sync(self, grads, comp_states, impl=None):
-        """The synced gradients of the AllReduce variables (a sharded
-        bucket's as this replica's flat shards) and the new codec states
-        (:func:`sync_bucketed` over this world's replicas)."""
+        """The synced gradients (a sharded bucket's as this replica's flat
+        shards, each the replica mean of its flat ``[r * ss, (r + 1) * ss)``
+        slice) and the new codec states (:func:`sync_bucketed` over this
+        world's replicas)."""
         return ar_sync.sync_bucketed(grads, self.buckets, comp_states, self.group,
                                      impl=impl)
 
-    def ps_scatter(self, grads):
-        """Each PS variable's gradient shard, the replica mean of its flat
-        ``[r * ss, (r + 1) * ss)`` slice: one reduce-scatter per dtype group
-        of the variables' ``(R, ss)`` matrices side by side (each group
-        runs as a sharded bucket without a codec)."""
-        shards = {}
-        for b in self._ps_buckets:
-            row, _ = ar_sync.scatter_bucket(grads, b, (), self.group)
-            ar_sync.unpack_shard(b, row, grads, shards)
-        return shards
-
-    def ps_gather(self, state):
-        """Write the updated PS shards back into storage: one all-gather per
-        dtype group of the shards laid end to end, whose columns, read
-        row-major, are each variable's new value
-        (:func:`~autodist_tpu_torch.kernel.synchronization.all_reduce.gather_bucket_params`)."""
-        with torch.no_grad():
-            for b in self._ps_buckets:
-                ar_sync.gather_bucket_params(state["shards"], b, self.group,
-                                             out=state["params"])
-
     def gather_buckets(self, state):
         """Write the updated shards of the sharded buckets without bf16
-        master back into storage: one all-gather per bucket, in the
-        shards' dtype."""
+        master back into storage: one all-gather per bucket of the shards
+        laid end to end, in their dtype, whose columns, read row-major, are
+        each variable's new value
+        (:func:`~autodist_tpu_torch.kernel.synchronization.all_reduce.gather_bucket_params`)."""
         with torch.no_grad():
             for b in self.sharded_buckets:
                 if not b.precision:
@@ -412,10 +392,8 @@ class GraphTransformer:
 
     def update(self, state, grads):
         """Sync ``grads`` (this replica's, by name), clip them, step the
-        optimizer and write the PS and sharded-update shards back into
-        storage; returns the extra metrics (``grad_norm`` when clipping)."""
+        optimizer and write the sharded buckets' shards back into storage; returns the extra metrics (``grad_norm`` when clipping)."""
         synced, state["comp"] = self.sync(grads, state["comp"])
-        synced.update(self.ps_scatter(grads))
         update_grads = OrderedDict((n, synced[n]) for n in self.names)
         metrics = {}
         if self.clip_global_norm is not None:
@@ -431,7 +409,6 @@ class GraphTransformer:
             state["opt_state"].step()
             for name in self.names:
                 shards.get(name, storage[name]).grad = None
-        self.ps_gather(state)
         self.gather_buckets(state)
         return metrics
 

@@ -15,7 +15,8 @@ Phases (each failure exits non-zero before the last line):
    spills from ``-Xptxas -v``;
 3. holds each flash kernel (forward, dq, dkdv) against its plain PyTorch
    version on the same bf16 inputs, the plain version computing in f32, at
-   the GPT-2-small attention shape, a GQA case, a key-padding case with
+   the GPT-2-small attention shape at phase 5's B=8 and at phase 13's
+   B=32 (BH=384, four times the persistent grid's work items), a GQA case, a key-padding case with
    fully masked rows and a ragged S = 1000, and at the shapes that test
    the bf16 kernels' TMA tiles and wgmma layouts: D = 128 (two 64-column
    boxes a tile), D = 32 and D = 40 (boxes zero-filled past D), D = 36 (the
@@ -143,7 +144,9 @@ Phases (each failure exits non-zero before the last line):
    chunks of 8192, no logits), ``AllReduce()``, adamw(3e-4), phase 5's
    weights, 32 seeded sequences of 1024, 10 steps: step 1's loss within
    1e-4 relative of the dense head's (the non-streaming ``loss_fn`` on the
-   same weights and batch under ``no_grad``), finite losses that fall, per
+   same weights and batch under ``no_grad``) and within 1e-3 of the same
+   dense head through the kernel-free plain attention (``attention_impl=
+   "xla"``, as phase 5 holds its step 1), finite losses that fall, per
    step 24 ``flash_fwd`` (12 of them remat's recompute), 12 ``flash_dq``,
    12 ``flash_dkdv`` and no other kernel; prints step ms, tokens/s, peak
    memory and the profile.  Then 3 steps at phase 5's B=8 batch with the
@@ -310,6 +313,7 @@ def check_kernels(torch, fa):
     of the bf16 cases (the main path's type)."""
     cases = {
         "gpt2_small B8 S1024 H12 D64 causal": (8, 1024, 12, 12, 64, True, False),
+        "gpt2_small bench B32 S1024 H12 D64 causal": (32, 1024, 12, 12, 64, True, False),
         "gqa g2 B2 S512 H12/6 D64 causal": (2, 512, 12, 6, 64, True, False),
         "key padding, fully masked rows B2 S512 H12 D64": (2, 512, 12, 12, 64, False, True),
         "ragged B2 S1000 H12 D64 causal": (2, 1000, 12, 12, 64, True, False),
@@ -1437,13 +1441,14 @@ def time_ps_sync(torch, t, state, grads):
     Each timed call takes an optimizer step: run it after the checks."""
     flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
     shard_update = shard_optimizer_step(torch, state)
-    scattered = t.ps_scatter(grads)
+    scattered, _ = t.sync(grads, state["comp"])
     times = {
         "total": time_ms(lambda: t.update(state, grads), torch, flush, reps=10),
-        "pack + reduce-scatter": time_ms(lambda: t.ps_scatter(grads), torch, flush, reps=10),
+        "pack + reduce-scatter": time_ms(lambda: t.sync(grads, state["comp"]), torch, flush,
+                                         reps=10),
         "shard update (adamw)": time_ms(lambda: shard_update(scattered), torch, flush,
                                         reps=10),
-        "all-gather + write-back": time_ms(lambda: t.ps_gather(state), torch, flush,
+        "all-gather + write-back": time_ms(lambda: t.gather_buckets(state), torch, flush,
                                            reps=10),
     }
     del flush, scattered
@@ -1476,7 +1481,8 @@ def train_gpt2_ps(torch, ad, spec, kernel_modules, flat_losses):
               n.PSSynchronizer.reduction_destination) for n in t.strategy.node_config}
     check(dests == {("PSSynchronizer", anchor)} and len(t.strategy.node_config) ==
           len(t.names), f"PS: expected every node a PSSynchronizer on {anchor}, got {dests}")
-    check(not t.buckets and sum(len(v) for v in t.ps_groups.values()) == len(t.names),
+    check([b.key for b in t.buckets] == [f"ps_{d}" for d in t.ps_groups]
+          and sum(len(v) for v in t.ps_groups.values()) == len(t.names),
           f"PS: expected every variable in a PS group, got {t.ps_groups} and {t.buckets}")
     print(f"PS: {len(t.names)} variables, every one a PSSynchronizer on {anchor}, "
           f"{len(t.ps_groups)} dtype group(s) of {sum(t.shard_len.values())} elements")
@@ -1567,13 +1573,16 @@ def train_gpt2_bench(torch, ad, kernel_modules, phase5):
     config = GPTConfig(remat=True)
     loss_fn, params, sparse = gpt_capture(config, SEQ, seed=0, streaming_loss=True)
     batch = gpt2_batch(config, BENCH_BATCH)
-    # the dense head's loss on the same weights and batch (phase 5's loss_fn)
+    # the dense head's loss on the same weights and batch (phase 5's
+    # loss_fn), with the flash kernels and with the plain attention
     dense_loss_fn, _, _ = gpt_capture(GPTConfig(), SEQ, seed=0)
+    plain_loss_fn, _, _ = gpt_capture(GPTConfig(attention_impl="xla"), SEQ, seed=0)
     with torch.no_grad():
         dev_batch = {n: torch.from_numpy(a).cuda() for n, a in batch.items()}
         dense_loss = dense_loss_fn(params, dev_batch).item()
+        plain_loss = plain_loss_fn(params, dev_batch).item()
         streamed = loss_fn(params, dev_batch).item()
-    del dense_loss_fn, dev_batch
+    del dense_loss_fn, plain_loss_fn, dev_batch
     torch.cuda.empty_cache()
 
     sess = ad.distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
@@ -1582,16 +1591,21 @@ def train_gpt2_bench(torch, ad, kernel_modules, phase5):
                                                      kernel_modules)
     steady = statistics.median(step_ms[1:])
     rel = abs(losses[0] - dense_loss) / abs(dense_loss)
+    plain_rel = abs(losses[0] - plain_loss) / abs(plain_loss)
     print("bench GPT-2 losses: " + ", ".join(f"{x:.5f}" for x in losses))
     print("bench GPT-2 step ms: " + ", ".join(f"{x:.2f}" for x in step_ms))
     print(f"bench GPT-2 (B={BENCH_BATCH}, remat, streaming loss): median step {steady:.2f} ms "
           f"(steps 2-{STEPS}), {BENCH_BATCH * SEQ / steady * 1e3:.0f} tokens/s, peak memory "
           f"{peak_gb:.2f} GB, launches {launches}")
     print(f"bench GPT-2 step 1 loss {losses[0]:.6f}; dense head {dense_loss:.6f} (the "
-          f"streaming loss without gradients {streamed:.6f}), relative difference {rel:.3e}")
+          f"streaming loss without gradients {streamed:.6f}), relative difference {rel:.3e}; "
+          f"dense head with plain attention {plain_loss:.6f}, relative difference "
+          f"{plain_rel:.3e}")
     check(all(math.isfinite(x) for x in losses), f"bench: non-finite loss in {losses}")
     check(losses[-1] < losses[0], f"bench: loss did not fall: {losses}")
     check(rel <= BENCH_LOSS_TOL, f"bench: step 1 loss differs from the dense head's by {rel}")
+    check(plain_rel <= LOSS_REL_TOL,
+          f"bench: step 1 loss differs from the plain-attention dense head's by {plain_rel}")
     want = flash_launches(config, STEPS, forwards=2)
     check(launches == want, f"bench: expected launches {want}, got {launches}")
     profile_steps(torch, sess, batch)
@@ -1612,7 +1626,7 @@ def train_gpt2_bench(torch, ad, kernel_modules, phase5):
     check(b8_launches == want, f"bench B={BATCH}: expected launches {want}, got {b8_launches}")
     return {"launches": {k: launches[k] for k in ("flash_fwd", "flash_dq", "flash_dkdv")},
             "step_ms": steady, "losses": losses, "peak_gb": peak_gb,
-            "dense_loss": dense_loss, "b8_losses": b8_losses, "b8_step_ms": b8_ms,
+            "dense_loss": dense_loss, "plain_loss": plain_loss, "b8_losses": b8_losses, "b8_step_ms": b8_ms,
             "b8_peak_gb": b8_peak}
 
 

@@ -10,6 +10,16 @@ order); the bf16 forward agrees to atol 3e-2 on logits of magnitude ~0.3
 (bf16 rounds at other places in the two frameworks).  ``return_hidden``
 gives flax's f32 ``ln_f`` output (atol 2e-5).
 
+With bf16 parameters (the bf16 master's compute copy), ``gpt_capture``'s
+dense and streaming losses and every gradient hold the JAX capture's on
+the same bf16-rounded weights: the embedding lookup and the ``wpe`` add in
+bf16, LayerNorm and Dense with bf16 scale and bias, and the head and the
+streaming loss promoting the bf16 ``wte`` to f32.  In f32 compute the loss
+agrees to rtol 1e-6 and each bf16 gradient to one bf16 rounding of the
+same f32 sum (rtol 2^-7, atol 1e-5); in bf16 compute, GPT-2 small's, the
+loss to rtol 1e-4 and each gradient to 3e-2 in relative norm (bf16 rounds
+at other places in the two frameworks; measured 8e-6 and 1.2e-2).
+
 Remat (``GPTConfig(remat=True)``, ``distribute(remat=True)``) against the
 same model without it, as ``tests/test_models.py::test_remat_is_value_exact``
 holds flax's: the loss bitwise, the gradients atol 1e-5, rtol 1e-4; with
@@ -26,11 +36,16 @@ import pytest
 import torch
 
 from autodist_tpu.models import gpt as jgpt
+from autodist_tpu.models import train_lib as jtrain
 from autodist_tpu_torch.models import convert
 from autodist_tpu_torch.models import gpt as tgpt
+from autodist_tpu_torch.models.train_lib import gpt_capture
 
 SEQ, B = 16, 2
 F32_ATOL, BF16_ATOL = 2e-5, 3e-2
+# bf16 parameters: (loss rtol, gradient check) per compute dtype
+BF16_PARAM_LOSS_RTOL = {"float32": 1e-6, "bfloat16": 1e-4}
+BF16_PARAM_GRAD_RTOL, BF16_PARAM_GRAD_ATOL, BF16_COMPUTE_GRAD_NORM_RTOL = 2 ** -7, 1e-5, 3e-2
 
 
 def _configs(dtype_j, dtype_t):
@@ -134,6 +149,45 @@ def test_return_hidden_matches_flax():
         t_hidden = _torch_model(ct, jparams)(torch.from_numpy(tokens), return_hidden=True)
     assert t_hidden.dtype == torch.float32 and t_hidden.shape == (B, SEQ, ct.hidden_size)
     np.testing.assert_allclose(t_hidden.numpy(), j_hidden, atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("streaming", [False, True], ids=["dense", "streaming"])
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_bf16_params_loss_and_gradients_match_jax(compute, streaming):
+    cj = dataclasses.replace(jgpt.GPT_TINY, attention_impl="flash", dtype=getattr(jnp, compute))
+    ct = dataclasses.replace(tgpt.GPT_TINY, attention_impl="flash",
+                             dtype=getattr(torch, compute))
+    kw = dict(streaming_loss=streaming, loss_chunk=128)
+    j_loss_fn, jparams, _ = jtrain.gpt_capture(cj, SEQ, **kw)
+    t_loss_fn, _, _ = gpt_capture(ct, SEQ, device="cpu", **kw)
+    tokens, targets = _tokens(6)
+    targets[:, -1] = -100
+    batch = {"tokens": tokens, "targets": targets}
+    # eager, as each op defines its rounding: under jit XLA may keep bf16
+    # intermediates in f32 (excess precision)
+    jl, jg = jax.value_and_grad(j_loss_fn)(
+        jax.tree.map(lambda x: x.astype(jnp.bfloat16), jparams),
+        {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0))
+    # the same round-to-nearest-even cast of the same f32 weights
+    loaded = {convert.torch_to_jax_name(n): t.to(torch.bfloat16).requires_grad_(True)
+              for n, t in convert.params_from_jax(jparams).items()}
+    tl = t_loss_fn(loaded, {k: torch.from_numpy(v) for k, v in batch.items()})
+    grads = torch.autograd.grad(tl, list(loaded.values()))
+    assert tl.dtype == torch.float32 and all(g.dtype == torch.bfloat16 for g in grads)
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=BF16_PARAM_LOSS_RTOL[compute])
+    t_tree, _ = convert.params_to_jax({convert.jax_to_torch_name(n): g.float()
+                                       for n, g in zip(loaded, grads)})
+    j_flat = dict(jax.tree_util.tree_leaves_with_path(jg))
+    t_flat = jax.tree_util.tree_leaves_with_path(t_tree)
+    assert len(t_flat) == len(j_flat) == 28
+    for path, g in t_flat:
+        want, what = np.asarray(j_flat[path], np.float32), jax.tree_util.keystr(path)
+        if compute == "float32":
+            np.testing.assert_allclose(g, want, rtol=BF16_PARAM_GRAD_RTOL,
+                                       atol=BF16_PARAM_GRAD_ATOL, err_msg=what)
+        else:
+            rel = np.linalg.norm(g - want) / np.linalg.norm(want)
+            assert rel <= BF16_COMPUTE_GRAD_NORM_RTOL, (what, rel)
 
 
 def _loss_and_grads(config, jparams, tokens, targets, generator=None):

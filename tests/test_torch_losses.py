@@ -9,7 +9,11 @@ binary and non-binary ``valid`` weights, with every position ignored, and
 with a bf16 hidden.  Loss and the gradients with respect to ``hidden`` and
 ``table`` are compared at ``tests/test_losses.py``'s tolerances: loss rtol
 1e-6 (1e-5 for the bf16 hidden), gradients rtol 2e-5, atol 1e-6 (the bf16
-hidden's own gradient within one bf16 rounding, rtol 2^-8).
+hidden's own gradient within one bf16 rounding, rtol 2^-8).  A bf16 table
+(the bf16 master's compute copy of a tied embedding), with an f32 or a
+bf16 hidden in both layouts, is promoted to f32 as JAX's ``dot_general``
+promotes it: the same loss (rtol 1e-6) and gradients, each returned in its
+operand's dtype, within one bf16 rounding of JAX's.
 
 GPT-tiny's ``gpt_capture(streaming_loss=True, loss_chunk=128)`` holds the
 JAX capture's loss (rtol 1e-5) and every gradient (rtol 5e-4, atol 2e-5)
@@ -124,6 +128,26 @@ def test_bf16_hidden_matches_jax(data):
     np.testing.assert_allclose(dh.float().numpy(), np.asarray(jg[0], np.float32),
                                rtol=2 ** -8, atol=GRAD_ATOL)
     np.testing.assert_allclose(dw.numpy(), np.asarray(jg[1]), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("layout", ["vd", "dv"])
+@pytest.mark.parametrize("hidden", ["float32", "bfloat16"])
+def test_bf16_table_matches_jax(data, hidden, layout):
+    h, table, t = data
+    if layout == "dv":
+        table = np.ascontiguousarray(table.T)
+    jh, jw = jnp.asarray(h, getattr(jnp, hidden)), jnp.asarray(table, jnp.bfloat16)
+    jl, jg = jax.value_and_grad(lambda a, w: jxent(a, w, jnp.asarray(t), chunk=32,
+                                                   layout=layout), argnums=(0, 1))(jh, jw)
+    th = torch.from_numpy(h).to(getattr(torch, hidden)).requires_grad_(True)
+    tw = torch.from_numpy(table).to(torch.bfloat16).requires_grad_(True)
+    tl = txent(th, tw, torch.from_numpy(t), chunk=32, layout=layout)
+    dh, dw = torch.autograd.grad(tl, (th, tw))
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=LOSS_RTOL)
+    assert dh.dtype == th.dtype and dw.dtype == torch.bfloat16 and dw.shape == table.shape
+    for got, want in ((dh, jg[0]), (dw, jg[1])):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=2 ** -8, atol=GRAD_ATOL)
 
 
 def _gpt_batch(r, B):

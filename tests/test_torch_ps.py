@@ -151,7 +151,8 @@ def test_default_builder_three_steps_match_jax_autodist(opt):
         t_loss_fn, t_params, make_t(), sparse_vars=t_sparse, has_rng=True)
     assert {n.WhichOneof("synchronizer")
             for n in t_sess.transformer.strategy.node_config} == {"PSSynchronizer"}
-    assert t_sess.transformer.ps_groups and not t_sess.transformer.buckets
+    t = t_sess.transformer   # no AllReduce bucket: each bucket a PS group
+    assert t.ps_groups and [b.key for b in t.buckets] == [f"ps_{d}" for d in t.ps_groups]
     t_losses = [t_sess.run(batch)["loss"].item() for _ in range(STEPS)]
 
     np.testing.assert_allclose(t_losses, j_losses, rtol=1e-4)
@@ -201,7 +202,10 @@ def test_session_loops_and_the_scalar_stay_replicated():
         sess.fit(lambda step: batch, steps=6, checkpoint_path="ckpt")
     assert sess.check_replication() == []
     t = sess.transformer
-    assert list(sess.state["shards"]) == ["w"] and [b.var_names for b in t.buckets] == [("b",)]
+    assert list(sess.state["shards"]) == ["w"]
+    # the scalar's AllReduce bucket, then the PS group
+    assert [(b.var_names, b.key == "ps_float32") for b in t.buckets] == [
+        (("b",), False), (("w",), True)] and t.sharded_buckets == t.buckets[1:]
     # the scalar's gradient takes the all-reduce bucket, its update in place
     assert sess.state["opt_state"].param_groups[0]["params"][0] is sess.state["params"]["b"]
 

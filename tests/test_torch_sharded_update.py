@@ -16,10 +16,13 @@ precision, the port against the JAX package.
   optimizer atol 1e-5 with the loss within 1e-4; per codec None 1e-5, BF16
   and BF16EF 2e-2; ``accum_steps=2`` 1e-5; the global-norm clip 1e-5 with
   the norm within 1e-5 relative.  ``Int8Compressor`` falls back to the
-  replicated update (bitwise equal to it).  bf16 master against f32 and
-  against the JAX engine's bf16 master at
+  replicated update (bitwise equal to it).  bf16 master against f32 at
   ``tests/test_mixed_precision.py``'s parity bounds (2e-2; adam 0.2, steps
-  x lr x 2), the loss within 2e-2, every ``params()`` leaf f32, the
+  x lr x 2) and the loss within 2e-2; against the JAX engine's bf16 master
+  at atol 1e-3 and the loss within 1e-3 (one bf16 rounding at |x| < 1
+  is at most 2^-9 = 2e-3; measured 2.8e-4 under adam, 1.5e-6 under sgd and
+  momentum, while one adam step moves each parameter by ~lr = 0.05),
+  every ``params()`` leaf f32, the
   stored full-shape copy bf16 and the master a flat f32 shard.
   ``check_replication() == []`` on every session, and ``predict`` gives
   the forward of the final f32 parameters (atol 1e-5).
@@ -62,6 +65,7 @@ JSPEC4 = JResourceSpec(resource_info={"nodes": [{"address": "localhost",
 CODEC_TOL = {"NoneCompressor": 1e-5, "BF16Compressor": 2e-2, "BF16CompressorEF": 2e-2}
 BF16_MASTER_TOL = 2e-2
 PARITY_ATOL = {"sgd": BF16_MASTER_TOL, "momentum": BF16_MASTER_TOL, "adam": 2 * 0.05 * 2}
+JAX_BF16_MASTER_ATOL = 1e-3   # the port's bf16 master against the JAX engine's
 _JOPTS = {"sgd": lambda: optax.sgd(0.1), "momentum": lambda: optax.sgd(0.1, momentum=0.9),
           "adam": lambda: optax.adam(0.05)}
 
@@ -327,9 +331,9 @@ def test_bf16_master_per_optimizer_over_four_ranks(gloo, jax_runs, opt):
         f32, mixed = res["opt", opt, "replicated"], res["bf16_master", opt]
         assert mixed["mixed"] and mixed["sharded"]
         _close(mixed["params"], f32["params"], PARITY_ATOL[opt], "bf16 master vs f32")
-        _close(mixed["params"], j_params, PARITY_ATOL[opt], "bf16 master vs the JAX engine")
+        _close(mixed["params"], j_params, JAX_BF16_MASTER_ATOL, "bf16 master vs the JAX engine")
         assert abs(mixed["loss"] - f32["loss"]) < BF16_MASTER_TOL
-        assert abs(mixed["loss"] - j_loss) < BF16_MASTER_TOL
+        assert abs(mixed["loss"] - j_loss) < JAX_BF16_MASTER_ATOL
         # params() is the f32 master; storage holds a bf16 compute copy and
         # the master lives only as the flat f32 shard
         assert all(p.dtype == np.float32 for p in mixed["params"].values())
