@@ -11,7 +11,9 @@ statistics) it is ``loss_fn(params, state, batch[, generator]) -> (loss,
 new_state)``.  ``has_aux`` adds a dict of aux values to the loss
 (``(loss, aux)``, or ``(loss, (new_state, aux))``), averaged over the
 replicas into the metrics.  The options ``remat``, ``accum_steps``,
-``clip_global_norm`` and ``batch_mask`` (:mod:`autodist_tpu_torch.kernel.graph_transformer`,
+``clip_global_norm``, ``batch_mask`` and ``sync_schedule`` (``"overlap"``
+or ``"barrier"``, over the strategy's schedule knob)
+(:mod:`autodist_tpu_torch.kernel.graph_transformer`,
 :mod:`autodist_tpu_torch.runner`) and ``eval_fn`` (the default forward of
 ``predict``) are the JAX engine's.
 
@@ -26,12 +28,15 @@ it receives by broadcast.  A spec whose ``mesh:`` asks for ``{"replica":
 R_d, "seq": R_s}`` lays the ranks out on that mesh
 (:func:`autodist_tpu_torch.parallel.mesh.mesh_world`): GPT's attention then
 runs the ring over each seq row and ``run`` hands rank (d, s) its block of
-the global batch.  A rank runs on ``cuda:LOCAL_RANK``; a
+the global batch.  ``{"replica_dcn": R_dcn, "replica_ici": R_ici}`` (asked
+for, or factored from a spec of several hosts by
+``AllReduce(hierarchy="two_level")``) gives the two-level sync its node
+groups.  A rank runs on ``cuda:LOCAL_RANK``; a
 one-process run on the spec's first GPU; ``device="cpu"`` runs on the
 CPU.  Without a GPU and without that request it raises.  ``launch``,
 ``serve``, ``aot_compile``, the async and stale PS (``PS(sync=False)``,
 ``staleness > 0``) and the options ``data_axes``, ``batch_spec``,
-``param_specs``, ``sync_schedule``, ``verify`` and ``sparse_vars`` are
+``param_specs``, ``verify`` and ``sparse_vars`` are
 later slices of the port (ROADMAP, Queue A); they raise
 ``NotImplementedError``.
 """
@@ -52,11 +57,11 @@ from autodist_tpu_torch.utils.remat import checkpoint
 
 _DEFAULT_AUTODIST = {}
 
-# distribute() options of the JAX engine that later slices realise, with
-# the value that means "off"
+# distribute() options of the JAX engine that later slices realise: the
+# value that means "off", and the ROADMAP Queue A item that ports it
 _LATER_OPTIONS = {
-    "data_axes": None, "batch_spec": None, "param_specs": None,
-    "sync_schedule": None, "verify": False,
+    "data_axes": (None, 9), "batch_spec": (None, 9), "param_specs": (None, 9),
+    "verify": (False, 11),
 }
 
 
@@ -143,7 +148,8 @@ class AutoDist:
                    has_rng: bool = False, rng: Optional[int] = None, name: str = "",
                    mutable_state: Any = None, eval_fn: Optional[Callable] = None,
                    accum_steps: int = 1, clip_global_norm: Optional[float] = None,
-                   batch_mask: bool = False, remat: bool = False, **options):
+                   batch_mask: bool = False, remat: bool = False,
+                   sync_schedule: Optional[str] = None, **options):
         """Capture single-device code and return a :class:`DistributedSession`.
 
         ``rng`` is the integer seed of the step generators (``has_rng``).
@@ -156,7 +162,9 @@ class AutoDist:
         the update by the global gradient norm (reported as
         ``grad_norm``); ``batch_mask=True`` takes uneven dict batches,
         padded and masked, with a loss that ignores the masked rows (the
-        ``train_lib`` losses do); ``eval_fn`` is ``predict``'s default.
+        ``train_lib`` losses do); ``eval_fn`` is ``predict``'s default;
+        ``sync_schedule`` (``"overlap"`` or ``"barrier"``) overrides the
+        strategy's issue schedule.
         """
         from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
         from autodist_tpu_torch.runner import DistributedSession
@@ -164,11 +172,14 @@ class AutoDist:
         unknown = set(options) - set(_LATER_OPTIONS)
         if unknown:
             raise TypeError(f"distribute() got unexpected options {sorted(unknown)}")
-        later = sorted(k for k, v in options.items() if v != _LATER_OPTIONS[k])
-        if later or sparse_vars:
+        later = {k: _LATER_OPTIONS[k][1] for k, v in options.items()
+                 if v != _LATER_OPTIONS[k][0]}
+        if sparse_vars:
+            later["sparse_vars"] = 6
+        if later:
             raise NotImplementedError(
-                f"distribute options {later + (['sparse_vars'] if sparse_vars else [])} "
-                f"are later slices of the port (ROADMAP, Queue A)")
+                "distribute options are later slices of the port: " + ", ".join(
+                    f"{k} (ROADMAP, Queue A item {item})" for k, item in sorted(later.items())))
         if remat:
             loss_fn = functools.partial(checkpoint, loss_fn)
         item = ModelItem(loss_fn, params, optimizer, sparse_vars=sparse_vars,
@@ -179,6 +190,7 @@ class AutoDist:
         world = self._mesh_world(strategy.graph_config.mesh)
         transformer = GraphTransformer(strategy, item, self._device, world,
                                        accum_steps=accum_steps,
-                                       clip_global_norm=clip_global_norm)
+                                       clip_global_norm=clip_global_norm,
+                                       sync_schedule=sync_schedule)
         return DistributedSession(transformer, rng=rng, strategy_id=raw.id,
                                   batch_mask=batch_mask)

@@ -35,8 +35,24 @@ its slice of the global batch; the replicas meet in the collectives of
    scales each microbatch's loss by ``sum(mask) * R * A / max(S, 1)``, S
    the real rows over all replicas, so that the means below are the
    weighted mean over the real examples;
-3. sync: every bucket through its codec, whose state rides in
-   ``state["comp"]`` (:meth:`GraphTransformer.sync`, :func:`sync_bucketed`).
+3. sync: every bucket through its program and codec, whose state rides in
+   ``state["comp"]`` (:meth:`GraphTransformer.sync`): the schedule
+   ``"barrier"`` syncs every bucket after the backward pass
+   (:func:`sync_bucketed`); ``"overlap"`` issues each AllReduce bucket's
+   sync from autograd hooks during the backward pass, in reverse bucket
+   order, the elementwise codecs in ``DEFAULT_BUCKET_BYTES`` chunks
+   (:class:`~autodist_tpu_torch.kernel.synchronization.all_reduce.OverlapPass`),
+   and waits for them before the clip and the update.  With ``accum_steps
+   > 1`` the overlap schedule syncs the elementwise buckets in every
+   microbatch's backward pass and accumulates the mean of their partial
+   means; the block-codec buckets accumulate the gradients and sync once
+   after the microbatches, as JAX's in-scan overlap does.  On a
+   ``{replica_dcn, replica_ici}`` mesh the hierarchy resolves as JAX's
+   (AUTO is TWO_LEVEL when ``replica_dcn > 1``; a DCN codec that is not
+   DCN-safe raises; PowerSGD stays FLAT; a ``schedule_ir`` canonical to
+   FLAT or TWO_LEVEL is pinned back to those knobs, any other runs
+   verbatim), and a TWO_LEVEL bucket runs ICI reduce-scatter -> DCN shard
+   all-reduce -> ICI all-gather.
    The PS variables form one bucket per dtype, without a codec.  A
    sharded bucket (a PS group, or AllReduce's ``sharded_update``)
    reduce-scatters: each variable's zero-padded flat gradient as an
@@ -70,14 +86,18 @@ It returns the metrics ``{"loss", "step"}``, the loss the mean over the
 replicas (the JAX step's ``pmean(loss)``), with ``grad_norm`` when
 clipping and every aux value's mean over the replicas.
 """
+import contextlib
+import functools
 import math
 from collections import OrderedDict
 
 import torch
 
-from autodist_tpu_torch.const import BATCH_MASK_KEY
+from autodist_tpu_torch.const import (AXIS_REPLICA_DCN, AXIS_REPLICA_ICI, BATCH_MASK_KEY,
+                                      DEFAULT_BUCKET_BYTES)
 from autodist_tpu_torch.kernel import partitioner as part
 from autodist_tpu_torch.kernel.synchronization import all_reduce as ar_sync
+from autodist_tpu_torch.kernel.synchronization import schedule_ir as sir
 from autodist_tpu_torch.model_item import dtype_name
 from autodist_tpu_torch.parallel import collectives as coll
 from autodist_tpu_torch.parallel.context import seq_axis_context
@@ -86,6 +106,8 @@ from autodist_tpu_torch.kernel.synchronization.all_reduce import padded_rows
 from autodist_tpu_torch.utils import logging
 from autodist_tpu_torch.utils.rng import step_generator
 from autodist_tpu_torch.utils.tree import map_batch
+
+_AR = ar_sync._AR
 
 
 def replica_mean_state(new_state, group=None):
@@ -116,7 +138,7 @@ class GraphTransformer:
     """Builds the session state and the training step of one replica."""
 
     def __init__(self, strategy, model_item, device, world=None, accum_steps=1,
-                 clip_global_norm=None):
+                 clip_global_norm=None, sync_schedule=None):
         self.strategy = strategy
         self.model_item = model_item
         self.device = torch.device(device)
@@ -124,6 +146,8 @@ class GraphTransformer:
         self.num_replicas = max(1, len(strategy.graph_config.replicas))
         check_replicas(self.num_replicas, self.world)
         self.group = self.world.group
+        # an axis tuple -> its AxisGroup, resolved once
+        self.axes = functools.lru_cache(maxsize=None)(self.world.axis_group)
         # sequence parallelism: set on the world by parallel.mesh.mesh_world
         self.seq_axis = self.world.seq
         if model_item.optimizer is None:
@@ -137,7 +161,17 @@ class GraphTransformer:
         for name in self.names:
             if name not in self.plans:
                 raise ValueError(f"No plan for variable {name}")
-        self._normalise_ps_axes(tuple(strategy.graph_config.mesh.axis_names))
+        mesh = strategy.graph_config.mesh
+        data_axes = tuple(mesh.axis_names)
+        axis_sizes = dict(zip(data_axes, (int(x) for x in mesh.axis_sizes)))
+        self._normalise_ps_axes(data_axes)
+        # the two-level split: the ICI sub-axis, and the cross-node hop over
+        # every other data axis
+        self.hier_spec = None
+        if AXIS_REPLICA_DCN in data_axes and AXIS_REPLICA_ICI in data_axes:
+            self.hier_spec = ar_sync.HierAxes(
+                ici=AXIS_REPLICA_ICI, dcn=tuple(a for a in data_axes if a != AXIS_REPLICA_ICI))
+        self._normalise_hierarchy(data_axes, axis_sizes)
         self._normalise_sharded_update()
         infos = {v.name: v for v in model_item.var_infos}
         # fused PS groups: dtype -> the names of its flat-shard vars, in order
@@ -166,6 +200,90 @@ class GraphTransformer:
         # every flat-shard var's ceil(n / R)
         self.shard_len = {n: ss for b in self.sharded_buckets
                           for n, ss in zip(b.var_names, b.shard_sizes)}
+        # the issue schedule: "overlap" syncs AllReduce buckets from hooks in
+        # the backward pass (all of them, or at accum_steps > 1 the
+        # elementwise ones), "barrier" every bucket after it
+        if sync_schedule is None:
+            sync_schedule = ar_sync.schedule_mode(self.plans)
+        if sync_schedule not in ("overlap", "barrier"):
+            raise ValueError(f"sync_schedule must be 'overlap' or 'barrier', got "
+                             f"{sync_schedule!r}")
+        self.sync_schedule = sync_schedule
+        self.hook_buckets = []
+        if sync_schedule == "overlap":
+            self.hook_buckets = [b for b in self.buckets if not b.key.startswith("ps_")
+                                 and (self.accum_steps == 1 or ar_sync.elementwise(b))]
+        self.post_buckets = [b for b in self.buckets if b not in self.hook_buckets]
+        self.max_chunk_bytes = DEFAULT_BUCKET_BYTES   # the overlap schedule's chunks
+        self._sync_stream = (torch.cuda.Stream(self.device)
+                             if self.hook_buckets and self.device.type == "cuda" else None)
+        self.last_overlap = None   # the last backward pass's OverlapPass
+        logging.info("Transform plan: %d vars, %d buckets (%s schedule, %s hierarchy, %d "
+                     "sharded)", len(self.names), len(self.buckets), self.sync_schedule,
+                     self.sync_hierarchy, len(self.sharded_buckets))
+
+    def _normalise_hierarchy(self, data_axes, axis_sizes):
+        """JAX's hierarchy resolution (``graph_transformer.py:124-189``): a
+        ``schedule_ir`` is validated against the mesh, and a program
+        canonical to FLAT or TWO_LEVEL is pinned back to those knobs (its
+        core codec the compressor, or the DCN codec); any other keeps its
+        program with FLAT knobs.  TWO_LEVEL needs the two-level axes; AUTO
+        is TWO_LEVEL on them when ``replica_dcn > 1``, else FLAT; a DCN
+        codec that is not DCN-safe raises, and PowerSGD stays FLAT."""
+        hier = self.hier_spec
+        for name in self.names:
+            plan = self.plans[name]
+            if (plan.sync != part.SyncKind.ALL_REDUCE
+                    or plan.placement != part.Placement.REPLICATED or plan.sparse):
+                continue
+            if plan.schedule_ir:
+                try:
+                    prog = sir.loads(plan.schedule_ir)
+                    sir.validate(prog, data_axes=data_axes, axis_sizes=axis_sizes)
+                except ValueError as e:
+                    raise ValueError(f"{name!r}: invalid schedule_ir: {e}") from None
+                kind, core = sir.canonical_hierarchy(prog), sir.core_codec(prog)
+                if kind == _AR.FLAT:
+                    plan.schedule_ir, plan.hierarchy = "", _AR.FLAT
+                    plan.compressor, plan.dcn_compressor = core, 0
+                elif (kind == _AR.TWO_LEVEL and hier is not None
+                      and prog.phases[0].axes == (hier.ici,)
+                      and set(prog.phases[1].axes) == set(hier.dcn)
+                      and (core or not plan.compressor)):
+                    plan.schedule_ir, plan.hierarchy = "", _AR.TWO_LEVEL
+                    plan.dcn_compressor = core
+                else:   # runs verbatim: no two-level branch on these buckets
+                    plan.hierarchy, plan.dcn_compressor = _AR.FLAT, 0
+                    continue
+            h = plan.hierarchy
+            if h == _AR.TWO_LEVEL and hier is None:
+                raise ValueError(
+                    f"{name!r}: hierarchy=TWO_LEVEL needs a mesh factored into "
+                    f"'{AXIS_REPLICA_DCN}' x '{AXIS_REPLICA_ICI}' data sub-axes (a `mesh:` "
+                    f"request, or a spec of several hosts); mesh axes are {list(data_axes)}")
+            if h == _AR.AUTO_HIERARCHY:
+                h = (_AR.TWO_LEVEL if hier is not None
+                     and axis_sizes[AXIS_REPLICA_DCN] > 1 else _AR.FLAT)
+            if h == _AR.TWO_LEVEL:
+                if plan.dcn_compressor not in (0, *ar_sync.DCN_SAFE_CODECS):
+                    raise ValueError(
+                        f"{name!r}: dcn_compressor {plan.dcn_compressor} is not DCN-hop "
+                        f"safe; the cross-slice hop accepts only elementwise codecs "
+                        f"(none/bf16/bf16-EF) and int8 — block codecs like PowerSGD do "
+                        f"not decompose into a shard hop")
+                if plan.compressor == _AR.PowerSGDCompressor:
+                    h = _AR.FLAT   # its factor exchange never decomposes
+            plan.hierarchy = h
+
+    @property
+    def sync_hierarchy(self):
+        """``"searched"`` when a bucket runs an explicit schedule IR,
+        ``"two_level"`` when one runs the two-level program, else
+        ``"flat"``."""
+        if any(b.schedule_ir for b in self.buckets):
+            return "searched"
+        return ("two_level" if any(b.hierarchy == _AR.TWO_LEVEL for b in self.buckets)
+                else "flat")
 
     def _normalise_sharded_update(self):
         """JAX's eligibility pass: a plan that asks for the sharded update
@@ -230,7 +348,7 @@ class GraphTransformer:
             if tuple(plan.ps_axes) != data_axes:
                 raise NotImplementedError(
                     f"{name!r}: ps_axes {plan.ps_axes}, a subset of the data axes "
-                    f"{data_axes}, is a later slice of the port (ROADMAP, Queue A item 5)")
+                    f"{data_axes}, is a later slice of the port (ROADMAP, Queue A item 6)")
             plan.ps_axes = None
 
     def _shard(self, param, name, row):
@@ -250,8 +368,8 @@ class GraphTransformer:
         params = self.model_item.params
         full = OrderedDict((n, params[n].detach().to(self.device, copy=True))
                            for n in self.names)
-        rows = {n: ar_sync.shard_index(b, self.group) for b in self.sharded_buckets
-                for n in b.var_names}
+        rows = {n: ar_sync.shard_index(b, self.group, self.hier_spec, self.axes)
+                for b in self.sharded_buckets for n in b.var_names}
         shards = OrderedDict((n, self._shard(full[n], n, rows[n])) for n in self.names
                              if n in rows)
         storage = OrderedDict(
@@ -292,6 +410,16 @@ class GraphTransformer:
         """This replica's loss, new mutable state (None without one),
         gradients by name and aux values at ``state``, on its batch slice
         (every microbatch's, averaged); changes nothing."""
+        loss, mutable, grads, aux, _ = self._gradients(state, batch, ())
+        return loss, mutable, grads, aux
+
+    def _gradients(self, state, batch, hook_buckets):
+        """:meth:`gradients`, with the syncs of ``hook_buckets`` issued from
+        hooks in each microbatch's backward pass (the overlap schedule):
+        their variables' entries come back synced, averaged over the
+        microbatches (the mean of partial means), as the fifth value, and
+        their codec states are updated in ``state["comp"]``; the gradients
+        returned are the other variables'."""
         item = self.model_item
         storage = state["params"]
         params = list(storage.values())
@@ -301,7 +429,9 @@ class GraphTransformer:
         if isinstance(batch, dict) and BATCH_MASK_KEY in batch:
             real = coll.psum(batch[BATCH_MASK_KEY].float().sum(), self.group)
         replica = self.world.rank if self.num_replicas > 1 else None
-        loss = grads = None
+        hooked = frozenset(n for b in hook_buckets for n in b.var_names)
+        comp = {b.key: state["comp"][b.key] for b in hook_buckets}
+        loss = grads = synced = None
         auxs = []
         with seq_axis_context(self.seq_axis):
             for i, mb in enumerate([batch] if A == 1 else microbatches(batch, A)):
@@ -314,10 +444,27 @@ class GraphTransformer:
                     mb_loss = mb_loss * (mb[BATCH_MASK_KEY].float().sum()
                                          * (self.num_replicas * A)
                                          / torch.clamp(real, min=1.0))
-                mb_grads = torch.autograd.grad(mb_loss, params)
+                overlap = None
+                if hook_buckets:
+                    overlap = ar_sync.OverlapPass(
+                        hook_buckets, comp, self.group, self.hier_spec, self.axes,
+                        max_chunk_bytes=self.max_chunk_bytes, upcast=self._prec_names,
+                        stream=self._sync_stream)
+                with overlap.attached(storage) if overlap else contextlib.nullcontext():
+                    mb_grads = torch.autograd.grad(mb_loss, params)
                 if self._prec_names:   # bf16 compute copies: f32 from here on
                     mb_grads = [g.float() if n in self._prec_names else g
                                 for n, g in zip(self.names, mb_grads)]
+                mb_grads = dict(zip(self.names, mb_grads))
+                if overlap is not None:   # the mean of the microbatches' synced means
+                    mb_synced, comp = overlap.finish(mb_grads)
+                    self.last_overlap = overlap
+                    if A == 1:
+                        synced = mb_synced
+                    else:
+                        synced = {n: (0 if synced is None else synced[n]) + g / A
+                                  for n, g in mb_synced.items()}
+                    mb_grads = {n: g for n, g in mb_grads.items() if n not in hooked}
                 auxs.append({k: torch.as_tensor(v, device=self.device).detach()
                              for k, v in aux.items()} if isinstance(aux, dict) else {})
                 if mutable is not None:
@@ -326,21 +473,29 @@ class GraphTransformer:
                     loss, grads = mb_loss.detach(), mb_grads
                 elif grads is None:
                     loss = mb_loss.detach() / A
-                    grads = [g / A for g in mb_grads]
+                    grads = {n: g / A for n, g in mb_grads.items()}
                 else:
                     loss = loss + mb_loss.detach() / A
-                    grads = [a + g / A for a, g in zip(grads, mb_grads)]
+                    grads = {n: grads[n] + g / A for n, g in mb_grads.items()}
         aux = auxs[0] if A == 1 else {k: torch.stack([a[k] for a in auxs]).mean(0)
                                       for k in auxs[0]}
-        return loss, mutable, dict(zip(self.names, grads)), aux
+        if hook_buckets:
+            state["comp"] = {**state["comp"], **comp}
+        return loss, mutable, grads, aux, synced
 
-    def sync(self, grads, comp_states, impl=None):
+    def sync(self, grads, comp_states, impl=None, buckets=None):
         """The synced gradients (a sharded bucket's as this replica's flat
         shards, each the replica mean of its flat ``[r * ss, (r + 1) * ss)``
-        slice) and the new codec states (:func:`sync_bucketed` over this
-        world's replicas)."""
-        return ar_sync.sync_bucketed(grads, self.buckets, comp_states, self.group,
-                                     impl=impl)
+        slice) and the new codec states, of ``buckets`` (default: all)
+        after the backward pass: :func:`sync_overlapped` under the overlap
+        schedule (reverse order, chunks), else :func:`sync_bucketed`, over
+        this world's replicas and axis groups."""
+        buckets = self.buckets if buckets is None else buckets
+        kw = dict(impl=impl, hier=self.hier_spec, axes=self.axes)
+        if self.sync_schedule == "overlap":
+            return ar_sync.sync_overlapped(grads, buckets, comp_states, self.group,
+                                           max_chunk_bytes=self.max_chunk_bytes, **kw)
+        return ar_sync.sync_bucketed(grads, buckets, comp_states, self.group, **kw)
 
     def gather_buckets(self, state):
         """Write the updated shards of the sharded buckets without bf16
@@ -352,7 +507,8 @@ class GraphTransformer:
             for b in self.sharded_buckets:
                 if not b.precision:
                     ar_sync.gather_bucket_params(state["shards"], b, self.group,
-                                                 out=state["params"])
+                                                 out=state["params"], hier=self.hier_spec,
+                                                 axes=self.axes)
 
     def gather_compute_copies(self, state):
         """The top of the step for the bf16-master buckets: one all-gather
@@ -363,7 +519,8 @@ class GraphTransformer:
         with torch.no_grad():
             for b in self.precision_buckets:
                 ar_sync.gather_bucket_params(state["shards"], b, self.group, out=state["params"],
-                                             dtype=torch.bfloat16)
+                                             dtype=torch.bfloat16, hier=self.hier_spec,
+                                             axes=self.axes)
 
     def canonical_params(self, state):
         """The full, unpadded parameters by name, as the single-device
@@ -373,7 +530,8 @@ class GraphTransformer:
         out = OrderedDict(state["params"])
         with torch.no_grad():
             for b in self.precision_buckets:
-                out.update(ar_sync.gather_bucket_params(state["shards"], b, self.group))
+                out.update(ar_sync.gather_bucket_params(state["shards"], b, self.group,
+                                                        hier=self.hier_spec, axes=self.axes))
         return out
 
     def global_norm(self, update_grads):
@@ -390,10 +548,16 @@ class GraphTransformer:
                 sq = sq + s
         return torch.sqrt(sq + coll.psum(sq_sharded, self.group))
 
-    def update(self, state, grads):
+    def update(self, state, grads, presynced=None):
         """Sync ``grads`` (this replica's, by name), clip them, step the
-        optimizer and write the sharded buckets' shards back into storage; returns the extra metrics (``grad_norm`` when clipping)."""
-        synced, state["comp"] = self.sync(grads, state["comp"])
+        optimizer and write the sharded buckets' shards back into storage;
+        returns the extra metrics (``grad_norm`` when clipping).  With
+        ``presynced`` (the entries the overlap schedule's hooks synced) only
+        the other buckets sync here."""
+        synced, state["comp"] = self.sync(
+            grads, state["comp"], buckets=None if presynced is None else self.post_buckets)
+        if presynced:
+            synced.update(presynced)
         update_grads = OrderedDict((n, synced[n]) for n in self.names)
         metrics = {}
         if self.clip_global_norm is not None:
@@ -416,10 +580,10 @@ class GraphTransformer:
         """One training step on this replica's batch slice, already on the
         device; returns (state, metrics)."""
         self.gather_compute_copies(state)
-        loss, new_mutable, grads, aux = self.gradients(state, batch)
+        loss, new_mutable, grads, aux, synced = self._gradients(state, batch, self.hook_buckets)
         if new_mutable is not None:
             state["mutable"] = replica_mean_state(new_mutable, self.group)
-        extra = self.update(state, grads)
+        extra = self.update(state, grads, synced if self.hook_buckets else None)
         state["step"] += 1
         metrics = {"loss": coll.pmean(loss, self.group), "step": state["step"], **extra}
         for k, v in aux.items():

@@ -134,16 +134,31 @@ def build_var_plans(strategy, model_item, num_replicas, param_specs=None):
 def plan_sharded_update(plan):
     """Eligibility for the AllReduce family's sharded weight update: a
     dense, non-scalar, replicated AllReduce plan with ``sharded_update``
-    set whose wire codec is elementwise (``None``, ``BF16``, ``BF16EF``); a
-    block codec re-blocked per shard would approximate differently, so
-    those plans keep the replicated update."""
-    from autodist_tpu_torch.kernel.synchronization.all_reduce import ELEMENTWISE_CODECS
+    set whose every wire transform is elementwise (``None``, ``BF16``,
+    ``BF16EF``): the compressor, under TWO_LEVEL (or an unresolved AUTO)
+    the effective DCN codec too, and for a ``schedule_ir`` a program
+    canonical to FLAT or TWO_LEVEL with an elementwise core (JAX
+    ``partitioner.py:254-290``).  A block codec re-blocked per shard would
+    approximate differently, so those plans keep the replicated update."""
+    from autodist_tpu_torch.kernel.synchronization import schedule_ir as sir
+    from autodist_tpu_torch.kernel.synchronization.all_reduce import ELEMENTWISE_CODECS, _AR
 
     if not plan.sharded_update or plan.sync != SyncKind.ALL_REDUCE:
         return False
     if plan.placement != Placement.REPLICATED or plan.sparse or not plan.shape:
         return False
-    return plan.compressor in ELEMENTWISE_CODECS
+    if plan.compressor not in ELEMENTWISE_CODECS:
+        return False
+    if plan.schedule_ir:
+        try:
+            prog = sir.loads(plan.schedule_ir)
+        except ValueError:
+            return False
+        return (sir.canonical_hierarchy(prog) is not None
+                and sir.core_codec(prog) in ELEMENTWISE_CODECS)
+    if plan.hierarchy != _AR.FLAT:
+        return (plan.dcn_compressor or plan.compressor) in ELEMENTWISE_CODECS
+    return True
 
 
 def flat_shard_update(plan):

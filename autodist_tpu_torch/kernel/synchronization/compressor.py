@@ -23,7 +23,8 @@ their plain versions.  ``impl="plain"`` runs the plain versions on the
 card too, for the checks.  Buckets pad to R chunks of a multiple of
 ``BLOCK`` elements each, as the JAX package's jnp path does; the TPU's
 ``ROWS * BLOCK`` chunk rounding is a tiling rule the CUDA kernels do not
-need.  ``PowerSGDCompressor`` is a later slice (ROADMAP, Queue A item 5).
+need.  ``PowerSGDCompressor`` runs a rank-4 subspace iteration with error
+feedback, its state a dict ``{"Q", "residual"}``.
 """
 import math
 
@@ -169,17 +170,18 @@ class Int8CompressorEF(Int8Compressor):
 
 
 class PowerSGDCompressor(Compressor):
-    """Low-rank compression with error feedback (PowerSGD).  Its geometry
-    (``_dims``, ``_rank``) prices the wire in :func:`wire_byte_factor`; the
-    codec itself is a later slice."""
+    """Low-rank compression with error feedback (PowerSGD, Vogels et al.,
+    arXiv 1905.13727).  The flat bucket plus its residual is viewed as an
+    f32 matrix M (``_dims``: rows a power of two near sqrt(n), zero padded);
+    one subspace iteration from the carried Q approximates the replica mean
+    of M as P Q^T: ``P = orth(psum(M Q))``, ``Q = psum(M^T P) / R``.  State:
+    ``{"Q": (cols, r), "residual": (n,)}``, Q drawn as JAX draws it.  The
+    products and the QR are ``torch.matmul`` and ``torch.linalg.qr``, as
+    JAX computes them outside any Pallas kernel."""
 
     name = "powersgd"
     stateful = True
     RANK = 4
-
-    def __init__(self, impl=None):
-        raise NotImplementedError(
-            "PowerSGDCompressor is a later slice of the port (ROADMAP, Queue A item 5)")
 
     @staticmethod
     def _dims(size):
@@ -190,6 +192,35 @@ class PowerSGDCompressor(Compressor):
     def _rank(cls, size):
         rows, cols = cls._dims(size)
         return max(1, min(cls.RANK, rows, cols))
+
+    def init_state(self, size, device="cpu"):
+        import numpy as np
+
+        rows, cols = self._dims(size)
+        rng = np.random.RandomState(size % (2 ** 31))
+        q = (rng.randn(cols, self._rank(size)) / np.sqrt(cols)).astype(np.float32)
+        return {"Q": torch.from_numpy(q).to(device),
+                "residual": torch.zeros(size, dtype=torch.float32, device=device)}
+
+    def iterate(self, buf, state, group=None):
+        """One subspace iteration: (M, P, Q) with P orthonormal and P Q^T the
+        approximation of the replica mean of M."""
+        buf = buf.float()
+        n = buf.shape[0]
+        rows, cols = self._dims(n)
+        corrected = buf + state["residual"]
+        M = torch.nn.functional.pad(corrected, (0, rows * cols - n)).view(rows, cols)
+        P = coll.psum(M @ state["Q"], group)
+        P, _ = torch.linalg.qr(P)
+        Q = coll.psum(M.T @ P, group) / coll.axis_size(group)
+        return M, P, Q
+
+    def all_reduce(self, buf, state, group=None):
+        n = buf.shape[0]
+        M, P, Q = self.iterate(buf, state, group)
+        approx = P @ Q.T
+        residual = (M - approx).reshape(-1)[:n]
+        return approx.reshape(-1)[:n], {"Q": Q, "residual": residual}
 
 
 _REGISTRY = {

@@ -6,10 +6,22 @@ The JAX package binds ``jax.lax`` collectives to a mesh axis name inside
 ``shard_map``; here one process runs each replica and the collectives run
 over a ``torch.distributed`` process group (NCCL on CUDA, gloo on the
 CPU): the whole world for the gradient sync, a seq row for ring
-attention.  ``group=None`` means a group of one: every function is then
-the identity and needs no process group.
+attention, a node's ranks or one rank of each node for the two-level
+sync.  ``group=None`` means a group of one: every function is then the
+identity and needs no process group.
 
-- :func:`axis_size` -- the number of ranks (``jax.lax.axis_size``);
+:func:`psum_scatter`, :func:`all_gather_into_tensor`, :func:`psum` and
+:func:`axis_size` also take an :class:`AxisGroup`, a mesh axis tuple's
+ranks (:meth:`ReplicaWorld.axis_group
+<autodist_tpu_torch.parallel.mesh.ReplicaWorld.axis_group>`).  JAX's tiled
+collectives over a tuple order the blocks by the index along the tuple;
+a process group orders its ranks ascending, which differs for a tuple
+such as ``(replica_ici, replica_dcn)``: the blocks are permuted on the way
+in (scatter) or out (gather), so that each rank gets the block of its
+tuple index, as in JAX.
+
+- :func:`axis_size`, :func:`axis_index` -- the number of ranks and this
+  rank's index (``jax.lax.axis_size``, ``jax.lax.axis_index``);
 - :func:`psum`, :func:`pmean` -- sum and mean over the ranks;
 - :func:`all_to_all_single` -- tiled all-to-all over dim 0: rank d
   receives row block d of every peer, in peer order
@@ -28,19 +40,55 @@ the identity and needs no process group.
 
 Each returns new tensors and leaves its inputs as they were.
 """
+import dataclasses
 import warnings
+from typing import Any
 
 import torch
 import torch.distributed as dist
 
 
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """The ranks of a mesh axis tuple through this rank, as JAX's
+    collectives over the tuple see them: ``size`` ranks, this rank at
+    ``index`` along the tuple (``jax.lax.axis_index``: row-major over the
+    tuple's axes in its order), ``group`` their process group (None for
+    one rank), ``order[k]`` the tuple index of the group's k-th rank."""
+
+    group: Any
+    size: int
+    index: int
+    order: tuple
+
+    @property
+    def permuted(self):
+        """True when the group's rank order is not the tuple's."""
+        return self.order != tuple(range(self.size))
+
+
+def _process_group(group):
+    return group.group if isinstance(group, AxisGroup) else group
+
+
 def axis_size(group=None):
     """Ranks in ``group`` (1 for ``None``)."""
+    if isinstance(group, AxisGroup):
+        return group.size
     return 1 if group is None else dist.get_world_size(group)
+
+
+def axis_index(group=None):
+    """This rank's index in ``group``: along the tuple for an
+    :class:`AxisGroup` (``jax.lax.axis_index``), else its group rank."""
+    if isinstance(group, AxisGroup):
+        return group.index
+    return 0 if group is None else dist.get_rank(group)
 
 
 def psum(x, group=None):
     """Sum over the replicas."""
+    group = _process_group(group)
     if group is None:
         return x
     out = x.clone()
@@ -70,26 +118,40 @@ def all_to_all_single(x, group=None):
 
 def psum_scatter(x, group=None):
     """Tiled reduce-scatter over dim 0: dim 0 splits into one row block per
-    replica; replica d receives the sum of block d over the replicas."""
-    if group is None:
+    replica; replica d receives the sum of block d over the replicas (d its
+    index along the tuple of an :class:`AxisGroup`)."""
+    if _process_group(group) is None:
         return x
     r = axis_size(group)
     if x.shape[0] % r:
         raise ValueError(f"dim 0 ({x.shape[0]}) does not split over {r} replicas")
+    if isinstance(group, AxisGroup):
+        if group.permuted:   # the group's k-th rank receives block order[k]
+            x = x.unflatten(0, (r, -1))[list(group.order)].flatten(0, 1)
+        group = group.group
     out = x.new_empty((x.shape[0] // r,) + tuple(x.shape[1:]))
-    dist.reduce_scatter_tensor(out, x.contiguous(), op=dist.ReduceOp.SUM, group=group)
+    with warnings.catch_warnings():
+        # newer torch names it reduce_scatter_single; older releases lack that name
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, x.contiguous(), op=dist.ReduceOp.SUM, group=group)
     return out
 
 
 def all_gather_into_tensor(x, group=None):
-    """Tiled all-gather over dim 0: every replica's ``x`` in replica order."""
-    if group is None:
+    """Tiled all-gather over dim 0: every replica's ``x`` in replica order
+    (the order along the tuple of an :class:`AxisGroup`)."""
+    pg = _process_group(group)
+    if pg is None:
         return x
-    out = x.new_empty((axis_size(group) * x.shape[0],) + tuple(x.shape[1:]))
+    r = axis_size(group)
+    out = x.new_empty((r * x.shape[0],) + tuple(x.shape[1:]))
     with warnings.catch_warnings():
         # newer torch names it all_gather_single; older releases lack that name
         warnings.simplefilter("ignore", FutureWarning)
-        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        dist.all_gather_into_tensor(out, x.contiguous(), group=pg)
+    if isinstance(group, AxisGroup) and group.permuted:   # block k goes to order[k]
+        inverse = sorted(range(r), key=lambda k: group.order[k])
+        out = out.unflatten(0, (r, -1))[inverse].flatten(0, 1)
     return out
 
 

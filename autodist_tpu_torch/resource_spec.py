@@ -183,6 +183,14 @@ class ResourceSpec:
         return [(k, v) for k, v in self._devices.items() if v.device_type != DeviceType.CPU]
 
     @property
+    def num_hosts(self):
+        """Hosts of the spec: the nodes that carry accelerators, else (a
+        CPU spec) every node; the ``replica_dcn`` size of a two-level mesh
+        (:func:`~autodist_tpu_torch.parallel.mesh.hierarchical_axes`)."""
+        return (len({d.address for _, d in self.accelerator_devices})
+                or len(self.node_addresses))
+
+    @property
     def num_accelerators(self):
         return len(self.accelerator_devices)
 

@@ -5,10 +5,9 @@ Counterpart of ``autodist_tpu/strategy/base.py`` over the JSON schema of
 :class:`Strategy` by id, workers load it; :class:`StrategyCompiler` prunes
 node configs of non-trainable variables and resolves replica device
 strings to ``mesh:<index>``.  The ``resolve_*`` helpers map a builder's
-knobs to schema enums: the compressor knob takes the six codecs the port
-realises and the reference's aliases, ``sharded_update`` and
-``precision`` every value, the schedule and the hierarchy only their
-default values; the rest raise, naming their ROADMAP item.
+knobs to schema enums, with the JAX package's names, aliases and values
+(every one realised), and ``resolve_schedule_ir`` validates a schedule-IR
+program.
 """
 import copy
 import os
@@ -117,25 +116,18 @@ class StrategyBuilder(ABC):
 _AR = schema.AllReduceSynchronizer
 
 
-def _resolve(kind, value, aliases, accepted):
-    """Map a knob (alias name or enum value) to its enum; only ``accepted``
-    values are realised in this slice, the others raise."""
+def _resolve(kind, value, aliases):
+    """Map a knob (alias name or enum value) to its enum."""
     if isinstance(value, int) and not isinstance(value, bool):
         choices = {int(v): v for v in aliases.values()}
         if value not in choices:
-            raise ValueError(f"Unknown {kind} enum value {value}; accepted: "
+            raise ValueError(f"Unknown {kind} enum value {value}; accepted names/values: "
                              f"{sorted(aliases)}")
-        resolved = choices[value]
-    else:
-        key = value if kind == "compressor" else str(value).lower()
-        if key not in aliases:
-            raise ValueError(f"Unknown {kind} {value!r}; accepted names: {sorted(aliases)}")
-        resolved = aliases[key]
-    if resolved not in accepted:
-        raise NotImplementedError(
-            f"{kind}={value!r} is a later slice of the port (ROADMAP, Queue A "
-            f"item 5); this slice realises {[a.name for a in accepted]}")
-    return resolved
+        return choices[value]
+    key = value if kind == "compressor" else str(value).lower()
+    if key not in aliases:
+        raise ValueError(f"Unknown {kind} {value!r}; accepted names/values: {sorted(aliases)}")
+    return aliases[key]
 
 
 _COMPRESSOR_ALIASES = {
@@ -162,31 +154,49 @@ _PRECISION_ALIASES = {"f32": _AR.F32, "bf16_master": _AR.BF16_COMPUTE_F32_MASTER
 
 
 def resolve_compressor(name_or_value):
-    return _resolve("compressor", name_or_value, _COMPRESSOR_ALIASES,
-                    (_AR.NoneCompressor, _AR.BF16Compressor, _AR.BF16CompressorEF,
-                     _AR.Int8Compressor, _AR.Int8CompressorEF,
-                     _AR.EquarxInt8Compressor))
+    return _resolve("compressor", name_or_value, _COMPRESSOR_ALIASES)
 
 
 def resolve_schedule(name_or_value):
-    return _resolve("schedule", name_or_value, _SCHEDULE_ALIASES, (_AR.BARRIER,))
+    return _resolve("schedule", name_or_value, _SCHEDULE_ALIASES)
 
 
 def resolve_hierarchy(name_or_value):
-    return _resolve("hierarchy", name_or_value, _HIERARCHY_ALIASES,
-                    (_AR.AUTO_HIERARCHY, _AR.FLAT))
+    return _resolve("hierarchy", name_or_value, _HIERARCHY_ALIASES)
 
 
 def resolve_sharded_update(name_or_value):
     if isinstance(name_or_value, bool):
         name_or_value = "sharded" if name_or_value else "replicated"
-    return _resolve("sharded_update", name_or_value, _SHARDED_UPDATE_ALIASES,
-                    (_AR.REPLICATED_UPDATE, _AR.SHARDED))
+    return _resolve("sharded_update", name_or_value, _SHARDED_UPDATE_ALIASES)
 
 
 def resolve_precision(name_or_value):
-    return _resolve("precision", name_or_value, _PRECISION_ALIASES,
-                    (_AR.F32, _AR.BF16_COMPUTE_F32_MASTER))
+    return _resolve("precision", name_or_value, _PRECISION_ALIASES)
+
+
+def resolve_schedule_ir(value):
+    """A ``schedule_ir`` knob (a serialised phase list
+    ``"<op>@<axis>[+<axis>...][:<codec>];..."`` or a parsed ``ScheduleIR``)
+    as its canonical string, its grammar and codec placement validated;
+    ``None``, ``""`` and ``0`` mean "follow the hierarchy knob" (JAX
+    ``strategy/base.py:272-297``)."""
+    from autodist_tpu_torch.kernel.synchronization import schedule_ir as sir
+
+    if value is None or value == "" or value == 0:
+        return ""
+    if isinstance(value, sir.ScheduleIR):
+        prog = value
+    elif isinstance(value, int):
+        raise ValueError(
+            f"Unknown schedule_ir value {value!r}; expected a serialized phase list "
+            f"'<op>@<axis>[+<axis>...][:<codec>];...' with ops "
+            f"{', '.join(repr(o) for o in sir.OPS)} and codec names/values: "
+            f"{sorted(_COMPRESSOR_ALIASES)}")
+    else:
+        prog = sir.loads(value)
+    sir.validate(prog)
+    return sir.dumps(prog)
 
 
 class StrategyCompiler:

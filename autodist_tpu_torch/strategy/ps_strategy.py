@@ -12,7 +12,7 @@ all-gathered (:mod:`autodist_tpu_torch.kernel.graph_transformer`), so
 ``ps_axes`` names the mesh axes the scatter and gather span; the port
 takes it only when it is the whole data axis (``("replica",)``, which JAX
 normalises back to the default); a subset of a factored mesh is a later
-slice (ROADMAP, Queue A item 5).  ``sync=False`` and ``staleness > 0``
+slice (ROADMAP, Queue A item 6, with ``test_ps_mesh_subset.py``).  ``sync=False`` and ``staleness > 0``
 build, and raise at ``distribute`` (Queue A item 6).
 """
 from autodist_tpu_torch.const import AXIS_REPLICA
@@ -31,7 +31,7 @@ class PS(StrategyBuilder):
             raise NotImplementedError(
                 f"ps_axes={self._ps_axes}: a PS confined to a subset of the data axes "
                 f"(the replica_dcn x replica_ici mesh) is a later slice of the port "
-                f"(ROADMAP, Queue A item 5); the port takes ps_axes=('{AXIS_REPLICA}',)")
+                f"(ROADMAP, Queue A item 6); the port takes ps_axes=('{AXIS_REPLICA}',)")
 
     def _dest(self, anchor):
         return ("mesh:" + ",".join(self._ps_axes)) if self._ps_axes else anchor

@@ -164,7 +164,35 @@ Phases (each failure exits non-zero before the last line):
    memory, the profile and the sync's device time by parts (reduce-scatter,
    adamw on the shards, parameter all-gather; for the bf16 master the
    top-of-step bf16 gather);
-15. prints the ``{"kernels": [...]}`` line (nine kernels), then the
+15. trains GPT-2 small as in phase 5 (B=8, adamw, phase 5's weights and
+   batch) in a process of its own (``chip_smoke.py --sync-variants
+   PHASE5``), one ``AutoDist`` each: (a) ``AllReduce(schedule="overlap")``,
+   10 steps: each bucket's sync issued from the backward pass's hooks, in
+   reverse bucket order, in ``_chunk_sizes`` chunks of 32 MiB (9 and 7 for
+   the two f32 buckets; the last step's issue record is checked), losses
+   within 1e-5 / 1e-3 relative of phase 5's (at R = 1 every chunk reduces
+   by the identity; it prints whether they are bitwise equal), and the
+   after-backward sync's device time, chunked and barrier; (b) the same
+   with ``accum_steps=2``, 3 steps: step 1 within 1e-3 relative of phase
+   5's, 24 launches a step of each flash kernel; (c)
+   ``AllReduce(hierarchy="two_level")`` on ``mesh: {replica_dcn: 1,
+   replica_ici: 1}``, 5 steps, within 1e-5 / 1e-3 of phase 5's (bitwise
+   printed); (c') the same with ``dcn_compressor="EquarxInt8Compressor"``,
+   5 steps: step 1's synced gradients through the kernels bitwise equal to
+   the codec's plain versions, 2 ``quantize_int8`` + 2 ``equarx_hop`` a
+   step, losses finite and falling; (d) ``AllReduce(compressor=
+   "Int8Compressor", schedule="overlap")``, 3 steps: the hooks' synced
+   gradients bitwise equal to the barrier schedule's (kernels on both
+   sides), 4 ``quantize_int8`` + 2 ``dequant_sum`` a step; (e)
+   ``compressor="PowerSGDCompressor"``, 5 steps, finite losses; at step 1,
+   per bucket, ``approx + residual`` within 1e-6 of the corrected buffer
+   (relative to its largest magnitude), ``P^T P = I`` within 1e-5, and
+   ``approx`` within 1e-4 relative of the same iteration run in f64 from the
+   same M and Q, and the sync's device time split into the GEMMs, the QR
+   and the residual.  Every variant: 12 launches a step of each flash
+   kernel (24 with accumulation), ``check_replication() == []``, and its
+   step ms, tokens/s, peak memory and profile;
+16. prints the ``{"kernels": [...]}`` line (nine kernels), then the
    ``{"ok": true, ...}`` line.
 
 Tolerances, kernel vs plain version on the same inputs.  Flash, bf16
@@ -244,6 +272,14 @@ PS_FIT_STEPS, PS_ACCUM, PS_CLIP, PS_ACCUM_RUN = 12, 2, 1.0, 3
 # step 1 against the dense head and against phase 5, relative
 BENCH_BATCH, BENCH_B8_STEPS, BENCH_LOSS_TOL = 32, 3, 1e-4
 BF16_MASTER_TOL = 2e-2   # tests/test_mixed_precision.py:59, step 1 relative
+# phase 15's runs: the accumulation and Int8-overlap steps, and the
+# quantization launches a step of its codec variants (the EQuARX DCN hop:
+# one quantize and one hop a bucket; Int8: two quantizes and one dequant-sum)
+SYNC_ACCUM_STEPS, SYNC_INT8_STEPS = 3, 3
+SYNC_VARIANT_LAUNCHES = {
+    "two_level EquarxInt8 DCN": {"quantize_int8": 2, "equarx_hop": 2},
+    "Int8 overlap": CODECS["Int8Compressor"],
+}
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -1727,6 +1763,218 @@ def train_gpt2_sharded(torch, ad, mode, kernel_modules, phase5):
             "launches": {k: launches[k] for k in ("flash_fwd", "flash_dq", "flash_dkdv")}}
 
 
+def sync_run(torch, ad, tag, kernel_modules, phase5, steps, accum=1, before=None):
+    """One phase-15 variant: GPT-2 small on phase 5's weights and batch
+    under ``ad``'s builder; ``before(torch, sess, batch)`` (its checks, returning
+    numbers) runs first, then ``steps`` adamw steps, printed and checked
+    for finite losses and the launches of SYNC_VARIANT_LAUNCHES[tag], and
+    the profile of two more.  Returns (losses, numbers)."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.kernel.synchronization import all_reduce as ar_sync
+    from autodist_tpu_torch.models.gpt import GPTConfig
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+
+    config = GPTConfig()
+    loss_fn, params, sparse = gpt_capture(config, SEQ, seed=0)
+    batch = gpt2_batch(config, BATCH)
+    sess = ad.distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
+                         has_rng=True, accum_steps=accum)
+    t = sess.transformer
+    numbers = before(torch, sess, batch) if before is not None else {}
+    torch.cuda.empty_cache()
+    losses, step_ms, launches, peak_gb = timed_steps(torch, sess, batch, steps, kernel_modules)
+    steady = statistics.median(step_ms[1:])
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, phase5["losses"])]
+    print(f"{tag} ({t.sync_schedule} schedule, {t.sync_hierarchy} hierarchy, buckets "
+          f"{[b.key for b in t.buckets]}) losses: " + ", ".join(f"{x:.6f}" for x in losses))
+    print(f"{tag}: step ms " + ", ".join(f"{x:.2f}" for x in step_ms) + f"; median "
+          f"{steady:.2f} ms (steps 2-{steps}), {BATCH * SEQ / steady * 1e3:.0f} tokens/s, peak "
+          f"memory {peak_gb:.2f} GB (phase 5: {phase5['peak_gb']:.2f} GB), launches {launches}")
+    print(f"{tag} vs phase 5: step 1 relative difference {rel[0]:.3e}, largest "
+          f"{max(rel):.3e}; bitwise equal losses: {losses == phase5['losses'][:steps]}")
+    check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss in {losses}")
+    want = flash_launches(config, steps * accum)
+    want.update({k: v * steps for k, v in SYNC_VARIANT_LAUNCHES.get(tag, {}).items()})
+    check(launches == want, f"{tag}: expected launches {want}, got {launches}")
+    if tag == "overlap":   # the last step's hook-issued syncs, against _chunk_sizes
+        issued, expected = t.last_overlap.issued, [
+            (b.key, len(ar_sync.bucket_chunks(b))) for b in reversed(t.buckets)]
+        print(f"overlap: the last step's hook-issued syncs (bucket, chunks), in issue order: "
+              f"{issued}; {t.last_overlap.issued_in_backward} of {len(t.buckets)} buckets "
+              f"issued before the backward pass returned")
+        check(issued == expected and t.last_overlap.issued_in_backward == len(t.buckets),
+              f"overlap: issued {issued}, expected {expected}, all from the hooks")
+        numbers["issued"] = issued
+    profile_steps(torch, sess, batch)
+    bad = sess.check_replication()
+    check(bad == [], f"{tag}: check_replication names {bad}")
+    del sess, t
+    torch.cuda.empty_cache()
+    return losses, dict(numbers, losses=losses, step_ms=steady, peak_gb=peak_gb,
+                        launches={k: launches[k] for k in launches if launches[k]},
+                        bitwise_phase5=losses == phase5["losses"][:steps])
+
+
+def sync_ms(torch, sync, group=None):
+    """Device time of one after-backward sync (``sync()``; the codecs leave
+    their input states as they were)."""
+    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
+    ms = time_ms(sync, torch, flush, reps=10, group=group)
+    del flush
+    return ms
+
+
+def overlap_checks(torch, sess, batch):
+    """(a): the device time of the overlap schedule's after-backward sync
+    (``sync_overlapped``: the chunks in reverse order) and of the barrier's
+    over the same gradients."""
+    from autodist_tpu_torch.kernel.synchronization import all_reduce as ar_sync
+
+    t = sess.transformer
+    _, _, grads, _ = t.gradients(sess.state, sess.shard_batch(batch))
+    states = sess.state["comp"]
+    times = {"overlapped chunks": sync_ms(torch, lambda: t.sync(grads, states), t.group),
+             "barrier": sync_ms(torch, lambda: ar_sync.sync_bucketed(
+                 grads, t.buckets, states, t.group), t.group)}
+    print("overlap: the after-backward sync's device time over both buckets: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in times.items()))
+    return {"sync_ms": times}
+
+
+def codec_checks(torch, sess, batch):
+    """(c') and (d): step 1's synced gradients, bitwise: through the
+    kernels against the codec's plain versions (the two-level EQuARX DCN
+    hop), or from the overlap hooks against the barrier schedule (Int8
+    under overlap, kernels on both sides); and the sync's device time."""
+    from autodist_tpu_torch.kernel.synchronization import all_reduce as ar_sync
+
+    t = sess.transformer
+    dev_batch = sess.shard_batch(batch)
+    _, _, grads, _ = t.gradients(sess.state, dev_batch)
+    states = sess.state["comp"]
+    if t.hook_buckets:
+        _, _, _, _, got = t._gradients(dict(sess.state), dev_batch, t.hook_buckets)
+        want, _ = ar_sync.sync_bucketed(grads, t.buckets, states, t.group)
+        label = "the overlap hooks' synced gradients vs the barrier schedule's"
+    else:
+        got, _ = t.sync(grads, states)
+        want, _ = t.sync(grads, states, impl="plain")
+        label = "step 1's synced gradients through the kernels vs the codec's plain versions"
+    torch.cuda.synchronize()
+    err = bitwise_error(label, [got[n] for n in t.names], [want[n] for n in t.names])
+    ms = sync_ms(torch, lambda: t.sync(grads, states), t.group)
+    print(f"{label}: bitwise equal ({len(t.names)} tensors); the sync's device time "
+          f"{ms:.4f} ms")
+    return {"sync_max_abs_err": err, "sync_ms": ms}
+
+
+def powersgd_checks(torch, sess, batch):
+    """(e): step 1's PowerSGD iteration on each bucket from the initial Q:
+    approx + residual recovers the corrected buffer, P is orthonormal, and
+    approx matches an f64 run of the same iteration from the same M and Q;
+    then the device time of the sync and of its parts."""
+    from autodist_tpu_torch.kernel.synchronization import all_reduce as ar_sync
+    from autodist_tpu_torch.kernel.synchronization.compressor import get_compressor
+
+    t = sess.transformer
+    _, _, grads, _ = t.gradients(sess.state, sess.shard_batch(batch))
+    comp = get_compressor(ar_sync._AR.PowerSGDCompressor)
+    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
+    parts = dict.fromkeys(("whole sync", "GEMMs", "QR", "residual"), 0.0)
+    worst = {"recovery": 0.0, "orthonormality": 0.0, "f64": 0.0}
+    for b in t.buckets:
+        buf = ar_sync._bucket_buf(grads, b)
+        st0 = sess.state["comp"][b.key]
+        approx, st = comp.all_reduce(buf, st0, t.group)
+        M, P, Q = comp.iterate(buf, st0, t.group)
+        corrected = buf.float() + st0["residual"]
+        worst["recovery"] = max(worst["recovery"], float(
+            (approx + st["residual"] - corrected).abs().max() / corrected.abs().max()))
+        eye = torch.eye(P.shape[1], device=P.device)
+        worst["orthonormality"] = max(worst["orthonormality"],
+                                      float((P.T @ P - eye).abs().max()))
+        M64 = M.double()
+        P64, _ = torch.linalg.qr(M64 @ st0["Q"].double())
+        ref = (P64 @ (M64.T @ P64).T).reshape(-1)[:buf.shape[0]]
+        worst["f64"] = max(worst["f64"], float((approx.double() - ref).abs().max()
+                                               / ref.abs().max()))
+        del M64, P64, ref
+        MQ = M @ st0["Q"]
+        full = P @ Q.T
+        parts["whole sync"] += time_ms(lambda: comp.all_reduce(buf, st0, t.group), torch,
+                                       flush, reps=10)
+        parts["GEMMs"] += time_ms(lambda: (M @ st0["Q"], M.T @ P, P @ Q.T), torch, flush,
+                                  reps=10)
+        parts["QR"] += time_ms(lambda: torch.linalg.qr(MQ), torch, flush, reps=10)
+        parts["residual"] += time_ms(lambda: (M - full).reshape(-1)[:buf.shape[0]], torch,
+                                     flush, reps=10)
+        del M, P, Q, MQ, full, approx, st, buf
+    print(f"PowerSGD step 1 over {len(t.buckets)} buckets: max |approx + residual - corrected| "
+          f"/ max|corrected| {worst['recovery']:.3e}, max |P^T P - I| "
+          f"{worst['orthonormality']:.3e}, approx vs the same iteration in f64 (relative) "
+          f"{worst['f64']:.3e}")
+    print("PowerSGD sync device time per step (both buckets): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in parts.items()))
+    check(worst["recovery"] <= 1e-6, f"PowerSGD: approx + residual off by {worst['recovery']}")
+    check(worst["orthonormality"] <= 1e-5, f"PowerSGD: P^T P - I reaches "
+                                           f"{worst['orthonormality']}")
+    check(worst["f64"] <= 1e-4, f"PowerSGD: approx differs from f64 by {worst['f64']}")
+    del flush, grads
+    return {"checks": worst, "sync_ms": parts}
+
+
+def train_gpt2_sync_variants(torch, m, kernel_modules, phase5):
+    """Phase 15: the AllReduce family's overlap schedule (with and without
+    accumulation), two-level hierarchy (with and without an EQuARX DCN
+    codec), the Int8 codec under overlap and PowerSGD, each its own
+    ``AutoDist`` on phase 5's weights and batch."""
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+
+    AllReduce = m["AllReduce"]
+    two_level_spec = ResourceSpec(resource_info={"nodes": [
+        {"address": "localhost", "gpus": [0], "chief": True}],
+        "mesh": {"replica_dcn": 1, "replica_ici": 1}})
+    flat = phase5["losses"]
+    out = {}
+
+    def within(tag, losses, step1_tol, later_tol):
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, flat)]
+        check(rel[0] <= step1_tol, f"{tag}: step 1 differs from phase 5's by {rel[0]}")
+        check(max(rel) <= later_tol, f"{tag}: a loss differs from phase 5's by {max(rel)}")
+
+    runs = (   # tag, builder, spec, steps, accum_steps, checks first, (step 1, later) tolerance
+        ("overlap", AllReduce(schedule="overlap"), None, STEPS, 1, overlap_checks,
+         (PS_STEP1_TOL, PS_LOSS_TOL)),
+        ("overlap accum_steps=2", AllReduce(schedule="overlap"), None, SYNC_ACCUM_STEPS, 2,
+         None, (PS_ACCUM_TOL, None)),
+        ("two_level", AllReduce(hierarchy="two_level"), two_level_spec, CODEC_STEPS, 1, None,
+         (PS_STEP1_TOL, PS_LOSS_TOL)),
+        ("two_level EquarxInt8 DCN", AllReduce(hierarchy="two_level",
+                                               dcn_compressor="EquarxInt8Compressor"),
+         two_level_spec, CODEC_STEPS, 1, codec_checks, None),
+        ("Int8 overlap", AllReduce(compressor="Int8Compressor", schedule="overlap"), None,
+         SYNC_INT8_STEPS, 1, codec_checks, None),
+        ("PowerSGD", AllReduce(compressor="PowerSGDCompressor"), None, CODEC_STEPS, 1,
+         powersgd_checks, None),
+    )
+    for tag, builder, spec, steps, accum, before, tol in runs:
+        ad = m["AutoDist"](resource_spec=spec or m["spec"], strategy_builder=builder)
+        losses, out[tag] = sync_run(torch, ad, tag, kernel_modules, phase5, steps, accum,
+                                    before)
+        if tol and tol[1] is not None:
+            within(tag, losses, *tol)
+        elif tol:
+            within(tag, losses[:1], tol[0], tol[0])
+        if tag == "two_level EquarxInt8 DCN":
+            check(statistics.mean(losses[-3:]) < losses[0],
+                  f"{tag}: the last three losses do not average below the first: {losses}")
+        del ad
+        torch.cuda.empty_cache()
+    out["launches"] = {k: sum(r["launches"].get(k, 0) for r in out.values())
+                       for k in ("quantize_int8", "dequant_sum", "equarx_hop")}
+    return out
+
+
 def run_child(args, marker):
     """``chip_smoke.py ARGS`` in a process of its own (``AutoDist`` is one
     instance per process); forwards its output and returns its ``MARKER``
@@ -1902,6 +2150,26 @@ def sharded_main(phase5):
     return 0
 
 
+def sync_variants_main(phase5):
+    """``chip_smoke.py --sync-variants PHASE5``: the overlap schedule, the
+    two-level hierarchy, the Int8 codec under overlap and PowerSGD (phase
+    15), one ``AutoDist`` each in this process."""
+    import torch
+
+    os.environ["AUTODIST_IS_TESTING"] = "1"   # several AutoDists in this process
+    m = setup(torch)
+    if m is None:
+        return 1
+    try:
+        result = train_gpt2_sync_variants(torch, m, (m["fa"], m["fn"], m["tq"]),
+                                          json.loads(phase5))
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    print("SYNC_VARIANTS_RESULT " + json.dumps(result))
+    return 0
+
+
 def main():
     try:
         import torch
@@ -1949,6 +2217,9 @@ def main():
         run_child(["--ps", json.dumps(flat_losses)], "PS_RESULT")
         run_child(["--bench-gpt", json.dumps(phase5)], "BENCH_GPT_RESULT")
         run_child(["--sharded", json.dumps(phase5)], "SHARDED_RESULT")
+        variants = run_child(["--sync-variants", json.dumps(phase5)], "SYNC_VARIANTS_RESULT")
+        for k, v in variants["launches"].items():   # the codec runs' quantization launches
+            launches[k] += v
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1977,4 +2248,6 @@ if __name__ == "__main__":
         sys.exit(bench_gpt_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--sharded":
         sys.exit(sharded_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--sync-variants":
+        sys.exit(sync_variants_main(sys.argv[2]))
     sys.exit(main())

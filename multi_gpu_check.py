@@ -10,6 +10,8 @@ process per GPU (NCCL)::
         multi_gpu_check.py ps
     python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
         multi_gpu_check.py sharded
+    python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        multi_gpu_check.py sync
 
 ``CODEC`` (one of ``chip_smoke.CODECS``): each rank runs
 ``chip_smoke.train_gpt2_codec`` on its own GPU: GPT-2 small at full width
@@ -56,6 +58,27 @@ within 2e-2), the sharded update's losses against ``AllReduce()``'s
 flash kernel, and every rank ending with the same full parameters.  Prints each
 median step, peak memory and the flat-shard and optimizer-state bytes a
 rank holds.
+
+``sync``: the rest of the AllReduce family.  GPT-2 small (adamw 3e-4, 8
+sequences of 1024 tokens per rank, 5 steps), each its own ``AutoDist``:
+``AllReduce()`` and ``AllReduce(schedule="overlap")`` on ``{replica: R}``
+in turns (barrier, overlap, overlap, barrier); then on ``{replica_dcn: 2,
+replica_ici: R / 2}`` ``AllReduce(hierarchy="two_level")`` and the same
+with ``dcn_compressor="EquarxInt8Compressor"``; then
+``AllReduce(compressor="PowerSGDCompressor")`` on ``{replica: R}``.  On
+one host the "DCN" hop is NVLink like the ICI hop: the run checks the
+two-level program's collectives and numbers, not a slow link.  Checks:
+``check_replication() == []`` after step 1; finite losses (falling,
+but for PowerSGD); 12 launches a step of each flash kernel (and the
+EQuARX hop's 2 ``quantize_int8`` + 2 ``equarx_hop``); the overlap's and
+the two-level's losses against the barrier's on ``{replica: R}``, step 1
+within 1e-5 relative and the later steps 1e-3 (the chunked or
+three-hop NCCL reduction adds the 4 ranks' gradients in another order,
+and adamw turns a last-bit difference into lr-sized steps); every rank
+ending with the same parameters.  Prints each
+median step, and for the barrier and the overlap the share of NCCL kernel
+time that ran while a compute kernel ran, from one ``torch.profiler``
+window of two steps.
 
 Rank 0 builds the kernels and prints; the run ends with a ``RESULT {...}``
 JSON line.  A failed check exits non-zero.
@@ -124,11 +147,14 @@ def train_gpt2_mesh(torch, ad, kernel_modules):
             "launches_per_step": {k: v // RING_STEPS for k, v in launches.items() if v}}
 
 
-def train_gpt2_sync(torch, ad, kernel_modules, tag, flat_loss=None, step1_tol=None):
+def train_gpt2_sync(torch, ad, kernel_modules, tag, flat_loss=None, step1_tol=None,
+                    extra_launches=None, falls=True, profile=False):
     """GPT-2 small at 8 sequences per rank under ``ad``'s builder, PS_STEPS
     adamw steps; ``check_replication`` after step 1, and with
     ``flat_loss`` step 1's loss within ``step1_tol`` relative of it;
-    returns the run's numbers."""
+    ``extra_launches`` are the kernel launches a step besides the flash
+    kernels; ``profile`` adds the NCCL overlap share of two more steps.
+    Returns the run's numbers."""
     import numpy as np
 
     from autodist_tpu_torch import optim
@@ -163,17 +189,97 @@ def train_gpt2_sync(torch, ad, kernel_modules, tag, flat_loss=None, step1_tol=No
           f"after step 1; this rank holds {shard_bytes / 1e9:.3f} GB of flat shards and "
           f"{opt_bytes / 1e9:.3f} GB of optimizer state")
     smoke.check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss {losses}")
-    smoke.check(losses[-1] < losses[0], f"{tag}: loss did not fall: {losses}")
+    smoke.check(losses[-1] < losses[0] or not falls, f"{tag}: loss did not fall: {losses}")
     per_step = config.num_layers * (PS_STEPS - 1)
     want = dict(smoke.NO_LAUNCHES, flash_fwd=per_step, flash_dq=per_step,
                 flash_dkdv=per_step)
+    want.update({k: v * (PS_STEPS - 1) for k, v in (extra_launches or {}).items()})
     smoke.check(launches == want, f"{tag}: expected launches {want}, got {launches}")
     full = sess.transformer.canonical_params(sess.state)   # bf16 master: gathered in f32
     smoke.check(smoke.same_on_every_rank(torch, list(full.values()), sess.transformer.group),
                 f"{tag}: the ranks hold different parameters")
     print(f"{tag}: all {ad.world.size} ranks hold the same parameters")
-    return {"losses": losses, "step_ms": steady, "steps_ms": step_ms, "peak_gb": peak_gb,
-            "shard_bytes": shard_bytes, "opt_bytes": opt_bytes}
+    result = {"losses": losses, "step_ms": steady, "steps_ms": step_ms, "peak_gb": peak_gb,
+              "shard_bytes": shard_bytes, "opt_bytes": opt_bytes}
+    if profile:
+        result["nccl_overlap"] = nccl_overlap_share(torch, sess, batch)
+        share = result["nccl_overlap"]
+        print(f"{tag}: NCCL kernels {share['nccl_ms']:.2f} ms a step, "
+              f"{100 * share['share']:.1f} % of it while a compute kernel ran; compute kernels "
+              f"{share['compute_ms']:.2f} ms a step (torch.profiler, two steps)")
+    return result
+
+
+def nccl_overlap_share(torch, sess, batch, steps=2):
+    """The share of NCCL kernel time during which a compute kernel also ran,
+    over ``steps`` profiled steps, from ``torch.profiler``'s device events
+    (copies and fills are neither)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            sess.run(batch)["loss"].item()
+    nccl, compute = [], []
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA":
+            continue
+        name = e.name.lower()
+        if name.startswith(("memcpy", "memset")):
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        (nccl if "nccl" in name else compute).append(span)
+    merged = []
+    for start, end in sorted(compute):
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([start, end])
+    total = sum(end - start for start, end in nccl)
+    both = sum(max(0, min(end, b) - max(start, a)) for start, end in nccl for a, b in merged)
+    busy = sum(end - start for start, end in merged)
+    return {"nccl_ms": total / 1e3 / steps, "compute_ms": busy / 1e3 / steps,
+            "share": both / total if total else 0.0}
+
+
+SYNC_RUNS = (   # tag -> (mesh, AllReduce options)
+    ("barrier", None, {}),
+    ("overlap", None, {"schedule": "overlap"}),
+    ("two_level", "2x", {"hierarchy": "two_level"}),
+    ("two_level EquarxInt8 DCN", "2x", {"hierarchy": "two_level",
+                                        "dcn_compressor": "EquarxInt8Compressor"}),
+    ("PowerSGD", None, {"compressor": "PowerSGDCompressor"}),
+)
+
+
+def compare_sync(torch, ads, modules):
+    """SYNC_RUNS in turns (barrier, overlap, overlap, barrier, then the
+    others once): the overlap's and the two-level's losses against the
+    barrier's; returns the runs by tag."""
+    names = [tag for tag, _, _ in SYNC_RUNS]
+    result = {name: [] for name in names}
+    for i in (0, 1, 1, 0, 2, 3, 4):
+        tag = names[i]
+        extra = smoke.SYNC_VARIANT_LAUNCHES.get(tag, {})
+        result[tag].append(train_gpt2_sync(torch, ads[i], modules, tag, extra_launches=extra,
+                                           falls=tag != "PowerSGD",
+                                           profile=tag in ("barrier", "overlap")
+                                           and not result[tag]))
+        torch.cuda.empty_cache()
+    barrier = result["barrier"][0]["losses"]
+    for tag in ("overlap", "two_level"):
+        rel = [abs(a - b) / abs(b) for a, b in zip(result[tag][0]["losses"], barrier)]
+        print(f"{tag} vs barrier: relative loss differences "
+              + ", ".join(f"{x:.3e}" for x in rel)
+              + f" (bitwise equal: {result[tag][0]['losses'] == barrier})")
+        smoke.check(rel[0] <= smoke.PS_STEP1_TOL,
+                    f"{tag}: step 1 differs from the barrier's by {rel[0]}")
+        smoke.check(max(rel[1:]) <= smoke.PS_LOSS_TOL,
+                    f"{tag}: a later loss differs from the barrier's by {max(rel[1:])}")
+    for name, runs in result.items():
+        pooled = statistics.median(x for r in runs for x in r["steps_ms"])
+        print(f"{name}: {pooled:.2f} ms a step (median of steps 2-{PS_STEPS} of {len(runs)} "
+              f"run(s)), peak memory {runs[0]['peak_gb']:.2f} GB")
+    return result
 
 
 def compare_ps_allreduce(ps_runs, ar_runs):
@@ -248,16 +354,16 @@ def compare_sharded(torch, ads, modules, world_size):
 def main(argv):
     import torch
 
-    if len(argv) != 1 or argv[0] not in (*smoke.CODECS, "ring", "ps", "sharded"):
+    if len(argv) != 1 or argv[0] not in (*smoke.CODECS, "ring", "ps", "sharded", "sync"):
         print(__doc__ + f"\nCODEC is one of {list(smoke.CODECS)}", file=sys.stderr)
         return 2
     mode = argv[0]
     world_size = int(os.environ.get("WORLD_SIZE", "1"))
-    if world_size < 2 or (mode == "ring" and world_size % 2):
-        print("FAIL: run under torchrun with --nproc-per-node >= 2 (even for ring)",
+    if world_size < 2 or (mode in ("ring", "sync") and world_size % 2):
+        print("FAIL: run under torchrun with --nproc-per-node >= 2 (even for ring and sync)",
               file=sys.stderr)
         return 1
-    if mode in ("ring", "ps", "sharded"):   # several AutoDists in this process
+    if mode in ("ring", "ps", "sharded", "sync"):   # several AutoDists in this process
         os.environ["AUTODIST_IS_TESTING"] = "1"
     m = smoke.setup(torch)
     if m is None:
@@ -273,6 +379,9 @@ def main(argv):
         runs = [(None, None), (None, m["AllReduce"]())]
     elif mode == "sharded":
         runs = [(None, m["AllReduce"](**opts)) for opts, _ in SHARDED_MODES.values()]
+    elif mode == "sync":
+        runs = [(None if mesh is None else {"replica_dcn": 2, "replica_ici": world_size // 2},
+                 m["AllReduce"](**opts)) for _, mesh, opts in SYNC_RUNS]
     else:
         runs = [(None, m["AllReduce"](compressor=mode))]
     ads = [m["AutoDist"](resource_spec=ResourceSpec(resource_info=dict(
@@ -305,6 +414,8 @@ def main(argv):
                       "all_reduce": by_builder["AllReduce"]}
         elif mode == "sharded":
             result = compare_sharded(torch, ads, modules, world_size)
+        elif mode == "sync":
+            result = compare_sync(torch, ads, modules)
         else:
             result = smoke.train_gpt2_codec(torch, ads[0], mode, modules)
     except smoke.SmokeFailure as e:

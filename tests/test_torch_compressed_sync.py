@@ -125,12 +125,12 @@ def test_registry_and_wire_factors_match_jax():
         for size in (1, 1000, 73_244_160):
             assert wire_byte_factor(getattr(schema.AllReduceSynchronizer, name), size) == \
                 jwire(_enum(name), size), (name, size)
-    for name in ranks.CODECS:
+    for name in ranks.CODECS + ("PowerSGDCompressor",):
         comp, jcomp = get_compressor(getattr(schema.AllReduceSynchronizer, name)), jget(
             _enum(name))
         assert (comp.name, comp.stateful) == (jcomp.name, jcomp.stateful)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_compressor(schema.AllReduceSynchronizer.PowerSGDCompressor)
+    with pytest.raises(ValueError, match="Unknown compressor"):
+        get_compressor(99)
 
 
 # -- (c) a 4-rank gloo world --------------------------------------------------

@@ -19,11 +19,11 @@
 - The package imports no JAX, flax, optax, protobuf or ``autodist_tpu``,
   and its entry points (``gpt_capture`` and ``classifier_capture`` too)
   raise without a GPU unless given ``device="cpu"``.
-- The knobs of later slices raise (``PowerSGDCompressor``, the overlap
-  schedule, two-level, ``PSLoadBalancing(sync=False)`` and
-  ``sync_schedule`` among them), and
-  a spec of two replicas in a one-process world raises the world-size
-  error instead of running one replica.
+- The AllReduce knobs (``PowerSGDCompressor``, the overlap schedule,
+  two-level) build; the knobs of later slices raise
+  (``PSLoadBalancing(sync=False)`` and the ``data_axes`` option among
+  them), and a spec of two replicas in a one-process world raises the
+  world-size error instead of running one replica.
 """
 import ast
 import dataclasses
@@ -56,6 +56,7 @@ from autodist_tpu_torch.models import convert
 from autodist_tpu_torch.models import gpt as tgpt
 from autodist_tpu_torch.models.resnet import ResNet18
 from autodist_tpu_torch.models.train_lib import classifier_capture, gpt_capture
+from autodist_tpu_torch.proto import schema
 from autodist_tpu_torch.resource_spec import ResourceSpec, ResourceSpecError
 from autodist_tpu_torch.strategy import AllReduce, PSLoadBalancing
 from autodist_tpu_torch.strategy.base import Strategy
@@ -301,10 +302,14 @@ def test_strategy_json_roundtrip_and_later_slices_raise(tmp_path):
     assert back.proto == s.proto and back.id == s.id
     assert back.graph_config.replicas == ["localhost:GPU:0", "localhost:GPU:1"]
     assert back.node_config[-1].WhichOneof("synchronizer") == "AllReduceSynchronizer"
-    for kwargs in ({"compressor": "PowerSGDCompressor"}, {"schedule": "overlap"},
-                   {"hierarchy": "two_level"}):
-        with pytest.raises(NotImplementedError, match="Queue A item 5"):
-            AllReduce(**kwargs)
+    for field, kwargs in (("compressor", {"compressor": "PowerSGDCompressor"}),
+                          ("schedule", {"schedule": "overlap"}),
+                          ("hierarchy", {"hierarchy": "two_level"})):
+        built = AllReduce(**kwargs).build(item, ResourceSpec(resource_info=CPU_SPEC))
+        assert {int(getattr(n.AllReduceSynchronizer, field)) for n in built.node_config} == {
+            int(getattr(schema.AllReduceSynchronizer, {"compressor": "PowerSGDCompressor",
+                                                       "schedule": "OVERLAP",
+                                                       "hierarchy": "TWO_LEVEL"}[field]))}
     loss_fn, params, _ = gpt_capture(dataclasses.replace(tgpt.GPT_TINY, num_layers=1),
                                      SEQ, device="cpu")
     with pytest.raises(NotImplementedError, match="sync=False"):
@@ -316,8 +321,8 @@ def test_strategy_json_roundtrip_and_later_slices_raise(tmp_path):
         strategy_builder=AllReduce(), device="cpu")
     with pytest.raises(ValueError, match="2 replicas but this launch has WORLD_SIZE=1"):
         ad.distribute(loss_fn, params, optim.sgd(0.1))
-    with pytest.raises(NotImplementedError, match="sync_schedule"):
-        ad.distribute(loss_fn, params, optim.sgd(0.1), sync_schedule="overlap")
+    with pytest.raises(NotImplementedError, match="data_axes"):
+        ad.distribute(loss_fn, params, optim.sgd(0.1), data_axes=("replica",))
 
 
 def test_resource_spec_yaml_matches_dict(tmp_path):

@@ -14,7 +14,7 @@
   ``test_three_steps_match_jax_autodist``'s tolerances.
 - The knobs of later slices raise: ``PS(sync=False)`` and
   ``PS(staleness=2)`` at ``distribute`` (Queue A item 6), a ``ps_axes``
-  subset at construction (item 5), ``fit(checkpoint_path=...)`` (item 7).
+  subset at construction (item 6), ``fit(checkpoint_path=...)`` (item 7).
 - In the 4-rank gloo world (``tests/torch_gloo_ranks.py``, started once
   per test process), against the single-device optax oracles of the JAX
   package's tests on the same numpy inputs:
@@ -182,7 +182,7 @@ def test_async_and_stale_ps_raise_at_distribute(kwargs, item):
 
 
 def test_ps_axes_subset_raises_and_whole_axis_runs():
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         PSLoadBalancing(ps_axes=("replica_ici",))
     sess = _linear_session(PS(ps_axes=("replica",)))
     node = sess.transformer.strategy.node_config[0]

@@ -40,7 +40,22 @@ the CPU), runs the cases below and writes ``DIR/rank<r>.pkl``:
   ``tests/test_uneven_batch.py`` (B = 13 and 9 under AllReduce and PS,
   with accumulation, ``predict``'s trim, the even batch, the error without
   the opt-in), ``run_steps``, ``fit`` and ``check_replication`` before and
-  after rank 1 perturbs its copy.
+  after rank 1 perturbs its copy;
+- ``sharded`` (one dict): the AllReduce family's sharded update and bf16
+  master on ``tests/test_sharded_update.py::_train``'s tanh MLP;
+- ``hier`` (one dict), on the 2 x 2 mesh ``{replica_dcn: 2, replica_ici:
+  2}``: each rank's ``AxisGroup`` of every axis tuple; the barrier and
+  overlap syncs (flat, two-level) of ``tests/test_hierarchical_sync.py``'s
+  buckets over its codec cases, two steps so that codec state carries, the
+  overlap at a 64-byte chunk; the schedule-IR programs of
+  ``tests/test_schedule_ir.py::test_searched_programs_match_flat`` through
+  ``sync_bucketed``; PowerSGD's ``all_reduce`` over the 4 ranks; the tanh
+  MLP (2 sgd steps) under two-level x barrier/overlap x the elementwise
+  codecs, ``accum_steps=2`` under both schedules, bf16 EF on the DCN hop
+  under overlap with accumulation, an int8 DCN codec, the sharded update,
+  each IR program, and on the flat mesh the overlap schedule's issue
+  record and the barrier's run; the dtypes that reach ``all_reduce`` for
+  bf16 and f32 gradients (``tests/test_wire_dtype.py``).
 
 Every ``AutoDist`` case records its strategy id and final parameters, so
 the test can check that the ranks agree.
@@ -89,6 +104,24 @@ UNEVEN_SIZES = (13, 9)
 SHARDED_OPTS = ("sgd", "momentum", "adam")
 SHARDED_CODECS = ("BF16Compressor", "BF16CompressorEF", "Int8Compressor")
 SHARDED_STEPS, SHARDED_CLIP = 2, 0.5
+# the two-level cases: the mesh, tests/test_hierarchical_sync.py's bucket
+# shapes and (codec, DCN codec) cases, tests/test_schedule_ir.py's
+# synthesized programs, the overlap's forced chunk and the engine's codecs
+HIER_MESH = {"replica_dcn": 2, "replica_ici": 2}
+HIER_SHAPES = {"a": (33,), "b": (17, 3), "c": (41,), "d": (8, 8)}
+HIER_CASES = (("NoneCompressor", 0), ("BF16Compressor", 0), ("BF16CompressorEF", 0),
+              ("Int8Compressor", 0), ("NoneCompressor", 3), ("NoneCompressor", 1))
+IR_PROGRAMS = (
+    "reduce_scatter@replica_ici:BF16Compressor;all_reduce@replica_dcn;"
+    "all_gather@replica_ici:BF16Compressor",
+    "reduce_scatter@replica_ici;ppermute_ring@replica_dcn;all_gather@replica_ici",
+    "reduce_scatter@replica_ici;reduce_scatter@replica_dcn;all_gather@replica_dcn;"
+    "all_gather@replica_ici",
+    "reduce_scatter@replica_ici:BF16Compressor;all_reduce@replica_dcn:Int8Compressor;"
+    "all_gather@replica_ici:BF16Compressor")
+HIER_CHUNK_BYTES = 64
+HIER_CODECS = ("NoneCompressor", "BF16Compressor", "BF16CompressorEF")
+POWERSGD_SIZE = 5000
 
 
 def codec_inputs(r, n, seed):
@@ -165,10 +198,22 @@ def make_inputs(jax_gpt_params):
     }
     inputs["mlp_params"], inputs["mlp_batch"] = mlp_inputs()
     inputs["sharded_clip_params"], inputs["sharded_clip_batch"] = sharded_clip_inputs()
+    inputs["hier_grads"] = hier_grads()
     for i, n in enumerate(CODEC_SIZES):
         inputs["codec_bufs"][n], inputs["codec_states"][n] = codec_inputs(WORLD, n,
                                                                           seed=40 + i)
     return inputs
+
+
+def hier_grads():
+    """``tests/test_hierarchical_sync.py::_run_sync``'s per-device gradients
+    (one RandomState(0), (4, n) per shape in order) and their second step
+    ``g * 1.7 - 0.3``, computed here once for both packages."""
+    r = np.random.RandomState(0)
+    g1 = {n: r.randn(WORLD, int(np.prod(s))).astype(np.float32)
+          for n, s in HIER_SHAPES.items()}
+    return g1, {n: (g * np.float32(1.7) - np.float32(0.3)).astype(np.float32)
+                for n, g in g1.items()}
 
 
 _WORLD = {}
@@ -292,6 +337,7 @@ def main(workdir):
     results["seq_parallel"] = seq_parallel_cases(inputs, world, autodist)
     results["ps"] = ps_cases(inputs, world, autodist)
     results["sharded"] = sharded_cases(inputs, autodist)
+    results["hier"] = hier_cases(inputs, world, autodist)
 
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
@@ -544,6 +590,127 @@ def sharded_cases(inputs, autodist):
         out["clip", mode] = run(AllReduce(sharded_update=mode), loss=clip_loss,
                                 params="sharded_clip_params", batch="sharded_clip_batch",
                                 steps=1, clip_global_norm=SHARDED_CLIP)
+    return out
+
+
+def hier_buckets(comp, hierarchy, dcn=0, schedule_ir=""):
+    """``tests/test_hierarchical_sync.py::_hier_buckets`` (two variables a
+    group) through the port's ``plan_buckets``."""
+    from autodist_tpu_torch.kernel import partitioner as part
+    from autodist_tpu_torch.kernel.synchronization import all_reduce as ar
+
+    plans = {name: part.VarPlan(name=name, shape=HIER_SHAPES[name], dtype="float32",
+                                placement=part.Placement.REPLICATED,
+                                sync=part.SyncKind.ALL_REDUCE, group=i // 2,
+                                compressor=comp, hierarchy=hierarchy, dcn_compressor=dcn,
+                                schedule_ir=schedule_ir)
+             for i, name in enumerate(sorted(HIER_SHAPES))}
+    return ar.plan_buckets(plans, HIER_SHAPES, dict.fromkeys(HIER_SHAPES, "float32"))
+
+
+def hier_cases(inputs, world, autodist):
+    import torch
+    import torch.distributed as dist
+
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.kernel.synchronization import all_reduce as ar
+    from autodist_tpu_torch.kernel.synchronization.compressor import get_compressor
+    from autodist_tpu_torch.parallel.mesh import mesh_world
+    from autodist_tpu_torch.proto import schema
+    from autodist_tpu_torch.strategy import AllReduce
+
+    C = schema.AllReduceSynchronizer
+    rank = world.rank
+    w = mesh_world(world, tuple(HIER_MESH), tuple(HIER_MESH.values()))
+    hier = ar.HierAxes(ici="replica_ici", dcn=("replica_dcn",))
+    out = {"axis_groups": {axes: (g.index, g.size, g.order) for axes in (
+        ("replica_dcn",), ("replica_ici",), ("replica_dcn", "replica_ici"),
+        ("replica_ici", "replica_dcn")) for g in [w.axis_group(axes)]}}
+    g1, g2 = ({n: torch.from_numpy(g[n][rank].reshape(HIER_SHAPES[n]).copy())
+               for n in HIER_SHAPES} for g in inputs["hier_grads"])
+
+    def two_steps(buckets, fn, **kw):
+        states = ar.init_compressor_states(buckets)
+        s1, states = fn(g1, buckets, states, w.group, axes=w.axis_group, **kw)
+        s2, _ = fn(g2, buckets, states, w.group, axes=w.axis_group, **kw)
+        return [{n: t.numpy() for n, t in s.items()} for s in (s1, s2)]
+
+    for comp, dcn in HIER_CASES:
+        c = getattr(C, comp)
+        flat, two = hier_buckets(c, C.FLAT), hier_buckets(c, C.TWO_LEVEL, dcn)
+        out["sync", comp, dcn] = {
+            "flat": two_steps(flat, ar.sync_bucketed),
+            "flat_overlap": two_steps(flat, ar.sync_overlapped,
+                                      max_chunk_bytes=HIER_CHUNK_BYTES),
+            "two": two_steps(two, ar.sync_hierarchical, hier=hier),
+            "two_overlap": two_steps(two, ar.sync_overlapped, hier=hier,
+                                     max_chunk_bytes=HIER_CHUNK_BYTES)}
+    for ir in IR_PROGRAMS:
+        out["ir_sync", ir] = two_steps(hier_buckets(0, C.FLAT, schedule_ir=ir),
+                                       ar.sync_bucketed)
+
+    comp = get_compressor(C.PowerSGDCompressor)
+    buf = torch.from_numpy(inputs["codec_bufs"][POWERSGD_SIZE][rank])
+    approx, state = comp.all_reduce(buf, comp.init_state(POWERSGD_SIZE), world.group)
+    out["powersgd"] = (approx.numpy(), state["Q"].numpy(), state["residual"].numpy())
+
+    hspec = dict(SPEC, mesh=HIER_MESH)
+
+    def mlp_loss(p, b):
+        h = torch.tanh(b["x"] @ p["w1"].float() + p["b1"])
+        return torch.mean((h @ p["w2"].float() - b["y"]) ** 2)
+
+    def train(builder, spec=hspec, **options):
+        sess = autodist(builder, spec).distribute(
+            mlp_loss, {k: torch.from_numpy(v.copy()) for k, v in inputs["mlp_params"].items()},
+            optim.sgd(0.1), **options)
+        for _ in range(2):
+            metrics = sess.run(inputs["mlp_batch"])
+        t = sess.transformer
+        return dict(_session_result(sess, metrics), hierarchy=t.sync_hierarchy,
+                    schedule=t.sync_schedule, replication=sess.check_replication(),
+                    sharded=t.sync_sharded_update, keys=[b.key for b in t.buckets],
+                    issued=None if t.last_overlap is None else (
+                        t.last_overlap.issued, t.last_overlap.issued_in_backward))
+
+    for codec in HIER_CODECS:
+        for sched in ("barrier", "overlap"):
+            out["engine", codec, sched] = train(AllReduce(
+                compressor=codec, schedule=sched, hierarchy="two_level"))
+    for sched in ("barrier", "overlap"):
+        out["engine_accum", sched] = train(AllReduce(schedule=sched, hierarchy="two_level"),
+                                           accum_steps=2)
+        out["engine_flat", sched] = train(AllReduce(chunk_size=1, schedule=sched), SPEC)
+    out["engine_ef_scan"] = train(AllReduce(schedule="overlap", hierarchy="two_level",
+                                            compressor="BF16CompressorEF"), accum_steps=2)
+    out["engine_int8_dcn"] = train(AllReduce(hierarchy="two_level",
+                                             dcn_compressor="Int8Compressor"))
+    for sched in ("barrier", "overlap"):
+        out["engine_sharded", sched] = train(AllReduce(
+            hierarchy="two_level", sharded_update="sharded", schedule=sched))
+    for ir in IR_PROGRAMS:
+        out["engine_ir", ir] = train(AllReduce(schedule_ir=ir))
+    out["engine_sync_schedule"] = train(AllReduce(hierarchy="two_level"),
+                                        sync_schedule="overlap")
+
+    seen, all_reduce = [], dist.all_reduce
+
+    def recording(tensor, *args, **kwargs):
+        if tensor.numel() > 1:
+            seen.append(str(tensor.dtype))
+        return all_reduce(tensor, *args, **kwargs)
+
+    dist.all_reduce = recording
+    try:
+        for dtype in (torch.bfloat16, torch.float32):
+            seen.clear()
+            sess = autodist(AllReduce()).distribute(
+                lambda p, b: torch.mean((b.to(p["w"].dtype) @ p["w"]) ** 2).float(),
+                {"w": torch.ones(16, 4, dtype=dtype)}, optim.sgd(0.1))
+            sess.run(np.ones((16, 16), np.float32))
+            out["wire_dtypes", str(dtype)] = sorted(set(seen))
+    finally:
+        dist.all_reduce = all_reduce
     return out
 
 
