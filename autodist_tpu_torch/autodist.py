@@ -33,11 +33,13 @@ for, or factored from a spec of several hosts by
 ``AllReduce(hierarchy="two_level")``) gives the two-level sync its node
 groups.  A rank runs on ``cuda:LOCAL_RANK``; a
 one-process run on the spec's first GPU; ``device="cpu"`` runs on the
-CPU.  Without a GPU and without that request it raises.  ``launch``,
-``serve``, ``aot_compile``, the async and stale PS (``PS(sync=False)``,
-``staleness > 0``) and the options ``data_axes``, ``batch_spec``,
-``param_specs``, ``verify`` and ``sparse_vars`` are
-later slices of the port (ROADMAP, Queue A); they raise
+CPU.  Without a GPU and without that request it raises.  ``sparse_vars``
+names the variables used only through
+:func:`~autodist_tpu_torch.ops.sparse.embedding_lookup`, whose backward
+syncs their rows.  ``launch``, ``serve``, ``aot_compile``, the async and
+stale PS (``PS(sync=False)``, ``staleness > 0``) and the options
+``data_axes``, ``batch_spec``, ``param_specs`` and ``verify`` are later
+slices of the port (ROADMAP, Queue A); they raise
 ``NotImplementedError``.
 """
 import functools
@@ -174,8 +176,6 @@ class AutoDist:
             raise TypeError(f"distribute() got unexpected options {sorted(unknown)}")
         later = {k: _LATER_OPTIONS[k][1] for k, v in options.items()
                  if v != _LATER_OPTIONS[k][0]}
-        if sparse_vars:
-            later["sparse_vars"] = 6
         if later:
             raise NotImplementedError(
                 "distribute options are later slices of the port: " + ", ".join(

@@ -3,18 +3,25 @@
 Counterpart of ``autodist_tpu/kernel/graph_transformer.py`` (``init_state``
 and the train step of ``_spmd_step``) for the plans the port realises
 (:mod:`autodist_tpu_torch.kernel.partitioner`): REPLICATED storage
-synchronised by the bucketed all-reduce, and weight-update sharding, the
-synchronous PS's and the AllReduce family's ``sharded_update`` (with or
-without ``precision="bf16_master"``).  Each process runs one replica on
-its slice of the global batch; the replicas meet in the collectives of
-``world.group`` (:mod:`autodist_tpu_torch.parallel.mesh`).  One step is
+synchronised by the bucketed all-reduce; weight-update sharding, the
+synchronous PS's (over every data axis, or a subset of them) and the
+AllReduce family's ``sharded_update`` (with or without
+``precision="bf16_master"``); SHARDED storage of partitioned variables;
+sparse variables synced in their lookups.  Each process runs one replica
+on its slice of the global batch; the replicas meet in the collectives of
+``world.group`` and of its axis groups
+(:mod:`autodist_tpu_torch.parallel.mesh`).  One step is
 
-1. materialise: the stored full-shape parameters are what the loss sees.
-   A bf16-master bucket stores its f32 master only as the flat shards
-   (``state["shards"]``); its full-shape parameters in ``state["params"]``
-   are a bf16 compute copy, all-gathered per bucket from the bf16 cast of
-   the shards here, at the top of the step
-   (:meth:`GraphTransformer.gather_compute_copies`);
+1. materialise (:meth:`GraphTransformer.materialize`): the stored
+   full-shape parameters are what the loss sees.  A bf16-master bucket
+   stores its f32 master only as the flat shards (``state["shards"]``);
+   its full-shape parameters in ``state["params"]`` are a bf16 compute
+   copy, all-gathered per bucket from the bf16 cast of the shards here,
+   at the top of the step (:meth:`GraphTransformer.gather_compute_copies`).
+   A SHARDED variable stores this replica's block of its partition axis,
+   padded to a multiple of R; the loss sees the blocks all-gathered and
+   cut to the variable's shape, or, for a sparse table split on dim 0,
+   the block itself as a :class:`~autodist_tpu_torch.ops.sparse.ShardedTable`;
 2. value and gradient (:meth:`GraphTransformer.gradients`):
    ``loss_fn(params, batch[, generator])``, then ``torch.autograd.grad``
    with respect to the parameters.  With ``accum_steps = A > 1`` the
@@ -53,7 +60,12 @@ its slice of the global batch; the replicas meet in the collectives of
    FLAT or TWO_LEVEL is pinned back to those knobs, any other runs
    verbatim), and a TWO_LEVEL bucket runs ICI reduce-scatter -> DCN shard
    all-reduce -> ICI all-gather.
-   The PS variables form one bucket per dtype, without a codec.  A
+   The loss runs inside :func:`~autodist_tpu_torch.ops.sparse.
+   replica_axis_context`, so a sparse variable's lookup syncs its rows in
+   the backward pass and no bucket holds it.
+   The dense PS variables form one bucket per dtype (and PS axes), without
+   a codec; a PS over a subset of the data axes scatters within them and
+   sums the shards over the others.  A
    sharded bucket (a PS group, or AllReduce's ``sharded_update``)
    reduce-scatters: each variable's zero-padded flat gradient as an
    ``(R, ceil(n/R))`` matrix, the bucket's matrices side by side, so that
@@ -65,7 +77,11 @@ its slice of the global batch; the replicas meet in the collectives of
    gradient counted once) scales every gradient by ``min(1, max_norm /
    max(norm, 1e-12))`` and is reported as ``grad_norm``;
 5. optimizer update: the replicated AllReduce variables in place in
-   storage; the PS and sharded-update variables on their flat shards
+   storage; a SHARDED variable on its block, its gradient reduce-scattered
+   along the partition axis (a sparse one's sliced from the synced
+   gradient, or the row exchange's block gradient); a sparse PS
+   variable on its flat shard of the synced gradient, gathered back by a
+   bucket of its own; the PS and sharded-update variables on their flat shards
    (``state["shards"]``, separate leaf tensors, so the optimizer state
    lives sharded too), whose updated values come back by one all-gather
    per sharded bucket, in the shards' dtype
@@ -87,6 +103,7 @@ replicas (the JAX step's ``pmean(loss)``), with ``grad_norm`` when
 clipping and every aux value's mean over the replicas.
 """
 import contextlib
+import dataclasses
 import functools
 import math
 from collections import OrderedDict
@@ -99,6 +116,7 @@ from autodist_tpu_torch.kernel import partitioner as part
 from autodist_tpu_torch.kernel.synchronization import all_reduce as ar_sync
 from autodist_tpu_torch.kernel.synchronization import schedule_ir as sir
 from autodist_tpu_torch.model_item import dtype_name
+from autodist_tpu_torch.ops.sparse import ShardedTable, replica_axis_context
 from autodist_tpu_torch.parallel import collectives as coll
 from autodist_tpu_torch.parallel.context import seq_axis_context
 from autodist_tpu_torch.parallel.mesh import ReplicaWorld, check_replicas
@@ -108,6 +126,17 @@ from autodist_tpu_torch.utils.rng import step_generator
 from autodist_tpu_torch.utils.tree import map_batch
 
 _AR = ar_sync._AR
+
+
+def _pad_axis(x, axis, size):
+    """``x`` zero-padded at the end of ``axis`` to ``size`` (JAX
+    ``_pad_axis``)."""
+    pad = size - x.shape[axis]
+    if pad <= 0:
+        return x
+    shape = list(x.shape)
+    shape[axis] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=axis)
 
 
 def replica_mean_state(new_state, group=None):
@@ -164,6 +193,7 @@ class GraphTransformer:
         mesh = strategy.graph_config.mesh
         data_axes = tuple(mesh.axis_names)
         axis_sizes = dict(zip(data_axes, (int(x) for x in mesh.axis_sizes)))
+        self.data_axes, self.axis_sizes = data_axes, axis_sizes
         self._normalise_ps_axes(data_axes)
         # the two-level split: the ICI sub-axis, and the cross-node hop over
         # every other data axis
@@ -173,32 +203,38 @@ class GraphTransformer:
                 ici=AXIS_REPLICA_ICI, dcn=tuple(a for a in data_axes if a != AXIS_REPLICA_ICI))
         self._normalise_hierarchy(data_axes, axis_sizes)
         self._normalise_sharded_update()
-        infos = {v.name: v for v in model_item.var_infos}
-        # fused PS groups: dtype -> the names of its flat-shard vars, in order
+        # fused PS groups: the dtype (and the PS axes of a subset, as
+        # "float32_replica_ici") -> the names of its dense flat-shard vars
         self.ps_groups = OrderedDict()
         for name in self.names:
             plan = self.plans[name]
-            if plan.sync == part.SyncKind.PS and part.flat_shard_update(plan):
-                self.ps_groups.setdefault(dtype_name(plan.dtype), []).append(name)
+            if (plan.sync == part.SyncKind.PS and part.flat_shard_update(plan)
+                    and not plan.sparse):
+                key = "_".join((dtype_name(plan.dtype),) + (plan.ps_axes or ()))
+                self.ps_groups.setdefault(key, []).append(name)
         # the AllReduce buckets, then each PS group as a sharded bucket
         # without a codec
         self.buckets = ar_sync.plan_buckets(
-            self.plans, {n: infos[n].shape for n in self.names},
-            {n: infos[n].dtype for n in self.names}, num_replicas=self.num_replicas)
-        self.buckets += [ar_sync.Bucket(
-            key=f"ps_{dtype}", var_names=tuple(names),
-            sizes=tuple(math.prod(infos[n].shape) for n in names),
-            shapes=tuple(tuple(infos[n].shape) for n in names), compressor=0, dtype=dtype,
-            sharded_update=1, num_shards=self.num_replicas,
-            shard_sizes=tuple(part.shard_len(self.plans[n], self.num_replicas)
-                              for n in names))
-            for dtype, names in self.ps_groups.items()]
+            self.plans, {n: self.plans[n].shape for n in self.names},
+            {n: self.plans[n].dtype for n in self.names}, num_replicas=self.num_replicas)
+        self.buckets += [self._ps_bucket(f"ps_{key}", names)
+                         for key, names in self.ps_groups.items()]
+        # a sparse PS variable's gradient comes synced from its lookup: its
+        # flat shard is sliced from it, and a bucket of its own gathers the
+        # updated shards (it takes no part in the sync)
+        self.sparse_ps_buckets = [
+            self._ps_bucket(f"ps_sparse_{n}", [n]) for n in self.names
+            if self.plans[n].sync == part.SyncKind.PS and self.plans[n].sparse
+            and part.flat_shard_update(self.plans[n])]
+        # SHARDED storage: this replica's block of the padded partition axis
+        self.sharded_names = [n for n in self.names
+                              if self.plans[n].placement == part.Placement.SHARDED]
         self.sharded_buckets = [b for b in self.buckets if ar_sync.bucket_sharded(b)]
         # bf16-master buckets: the f32 master lives only as the flat shards
         self.precision_buckets = [b for b in self.sharded_buckets if b.precision]
         self._prec_names = frozenset(n for b in self.precision_buckets for n in b.var_names)
         # every flat-shard var's ceil(n / R)
-        self.shard_len = {n: ss for b in self.sharded_buckets
+        self.shard_len = {n: ss for b in self.sharded_buckets + self.sparse_ps_buckets
                           for n, ss in zip(b.var_names, b.shard_sizes)}
         # the issue schedule: "overlap" syncs AllReduce buckets from hooks in
         # the backward pass (all of them, or at accum_steps > 1 the
@@ -335,43 +371,134 @@ class GraphTransformer:
         return out
 
     def _normalise_ps_axes(self, data_axes):
-        """A PS destination ``mesh:<axes>`` naming every data axis is the
-        default realisation (JAX ``graph_transformer.py:297``); axes that
-        are no data axes raise, as in JAX, and a subset is a later slice."""
+        """A PS destination ``mesh:<axes>`` (JAX ``graph_transformer.py:
+        284-298``): axes that are no data axes raise; every data axis is
+        the default realisation; a subset is kept, in the mesh's order."""
         for name, plan in self.plans.items():
-            if not plan.ps_axes:
+            if plan.sync != part.SyncKind.PS or not plan.ps_axes:
                 continue
             bad = set(plan.ps_axes) - set(data_axes)
             if bad:
                 raise ValueError(f"{name!r}: ps_axes {sorted(bad)} are not data axes "
                                  f"{data_axes} of the mesh")
-            if tuple(plan.ps_axes) != data_axes:
-                raise NotImplementedError(
-                    f"{name!r}: ps_axes {plan.ps_axes}, a subset of the data axes "
-                    f"{data_axes}, is a later slice of the port (ROADMAP, Queue A item 6)")
-            plan.ps_axes = None
+            axes = tuple(a for a in data_axes if a in plan.ps_axes)
+            plan.ps_axes = None if axes == data_axes else axes
 
-    def _shard(self, param, name, row):
-        """Row ``row`` of ``param``'s flat shards: elements ``[row * ss, (row
-        + 1) * ss)`` of its flat form zero-padded to ``ss * R``."""
-        rows = padded_rows(param.detach(), self.num_replicas, self.shard_len[name])
+    def _R_for(self, plan):
+        """The replicas a flat-shard PS plan's update space shards over:
+        its PS axes' size, else every replica."""
+        if plan.ps_axes and plan.placement == part.Placement.REPLICATED:
+            return math.prod(self.axis_sizes[a] for a in plan.ps_axes)
+        return self.num_replicas
+
+    def _ps_bucket(self, key, names):
+        """A sharded bucket without a codec over the PS variables ``names``
+        (one dtype and one ``ps_axes``)."""
+        plan = self.plans[names[0]]
+        r = self._R_for(plan)
+        axes = plan.ps_axes or ()
+        return ar_sync.Bucket(
+            key=key, var_names=tuple(names),
+            sizes=tuple(math.prod(self.plans[n].shape) for n in names),
+            shapes=tuple(tuple(self.plans[n].shape) for n in names), compressor=0,
+            dtype=dtype_name(plan.dtype), sharded_update=1, num_shards=r,
+            shard_sizes=tuple(part.shard_len(self.plans[n], r) for n in names),
+            ps_axes=axes, other_axes=tuple(a for a in self.data_axes if a not in axes)
+            if axes else ())
+
+    def _shard(self, param, name, b, row):
+        """Row ``row`` of ``param``'s flat shards in bucket ``b``: elements
+        ``[row * ss, (row + 1) * ss)`` of its flat form zero-padded to ``ss *
+        R``, R the replicas the bucket shards over."""
+        rows = padded_rows(param.detach(), b.num_shards, self.shard_len[name])
         return rows[row].clone()
+
+    def _block(self, t, plan):
+        """This replica's block of ``t``, a SHARDED variable or a tensor of
+        its shape: rows ``[i * blk, (i + 1) * blk)`` of the partition axis,
+        zero-padded to ``blk = padded_dim / R``, copied to the device from
+        that slice alone (the full variable is never copied)."""
+        axis, blk = plan.partition_axis, plan.padded_dim // self.num_replicas
+        start = min(self.world.rank * blk, plan.shape[axis])
+        piece = t.detach().narrow(axis, start, min(blk, plan.shape[axis] - start))
+        return _pad_axis(piece.to(self.device, copy=True), axis, blk)
+
+    def _gather_block(self, block, plan):
+        """The full variable from every replica's block: the all-gather of
+        the partition axis, its padding cut off."""
+        axis = plan.partition_axis
+        full = coll.all_gather_into_tensor(block.detach().movedim(axis, 0), self.group)
+        return full[:plan.shape[axis]].movedim(0, axis)
+
+    def _scatter_block(self, grad, plan):
+        """This replica's block of the replicas' mean of a full gradient:
+        the partition axis zero-padded, reduce-scattered, divided by R."""
+        axis = plan.partition_axis
+        g = _pad_axis(grad, axis, plan.padded_dim).movedim(axis, 0)
+        out = coll.psum_scatter(g, self.group).movedim(0, axis)
+        return out / self.num_replicas if self.num_replicas > 1 else out
+
+    def _flat_bucket(self, name):
+        """The sharded bucket of flat-shard variable ``name``, narrowed to it."""
+        b = next(b for b in self.sharded_buckets + self.sparse_ps_buckets
+                 if name in b.var_names)
+        i = b.var_names.index(name)
+        return dataclasses.replace(b, var_names=(name,), sizes=(b.sizes[i],),
+                                   shapes=(b.shapes[i],), shard_sizes=(b.shard_sizes[i],))
+
+    def canonical_leaf(self, leaf, name):
+        """Variable ``name``'s update-space tensor on this replica (its
+        stored block, its flat shard, or an optimizer moment of that shape)
+        -> the variable's full, unpadded shape, as the single-device program
+        holds it (JAX ``_canon_leaf``): blocks and flat shards gathered over
+        the replicas.  A tensor of another shape (a scalar statistic) comes
+        back as it is."""
+        plan = self.plans[name]
+        with torch.no_grad():
+            if plan.placement == part.Placement.SHARDED:
+                blk = list(plan.shape)
+                blk[plan.partition_axis] = plan.padded_dim // self.num_replicas
+                return self._gather_block(leaf, plan) if list(leaf.shape) == blk else leaf
+            if name in self.shard_len and tuple(leaf.shape) == (self.shard_len[name],):
+                return ar_sync.gather_bucket_params({name: leaf}, self._flat_bucket(name),
+                                                    self.group, hier=self.hier_spec,
+                                                    axes=self.axes)[name]
+        return leaf
+
+    def uncanonical_leaf(self, full, name):
+        """The inverse of :meth:`canonical_leaf` (JAX ``_uncanon_leaf``): a
+        tensor of variable ``name``'s shape -> this replica's piece of its
+        update space (its block, or its flat shard); another shape as it
+        is."""
+        plan = self.plans[name]
+        if tuple(full.shape) != tuple(plan.shape):
+            return full
+        if plan.placement == part.Placement.SHARDED:
+            return self._block(full, plan)
+        if name in self.shard_len:
+            b = self._flat_bucket(name)
+            row = ar_sync.shard_index(b, self.group, self.hier_spec, self.axes)
+            return padded_rows(full.detach(), b.num_shards, self.shard_len[name])[row].clone()
+        return full
 
     def init_state(self, seed=0):
         """The session state: stored parameters (fresh copies on the device,
         never aliasing the caller's tensors; a bf16-master variable's is
-        its bf16 compute copy), the flat shards of the PS and
+        its bf16 compute copy, a SHARDED variable's this replica's block),
+        the flat shards of the PS and
         sharded-update variables (a bf16-master variable's f32 master),
         the optimizer over the update spaces (the shards where there are,
         else the stored tensors), codec state, the step counter and the
         rng seed."""
         params = self.model_item.params
-        full = OrderedDict((n, params[n].detach().to(self.device, copy=True))
-                           for n in self.names)
-        rows = {n: ar_sync.shard_index(b, self.group, self.hier_spec, self.axes)
-                for b in self.sharded_buckets for n in b.var_names}
-        shards = OrderedDict((n, self._shard(full[n], n, rows[n])) for n in self.names
-                             if n in rows)
+        full = OrderedDict(
+            (n, self._block(params[n], self.plans[n]) if n in self.sharded_names
+             else params[n].detach().to(self.device, copy=True)) for n in self.names)
+        shards = {}
+        for b in self.sharded_buckets + self.sparse_ps_buckets:
+            row = ar_sync.shard_index(b, self.group, self.hier_spec, self.axes)
+            shards.update((n, self._shard(full[n], n, b, row)) for n in b.var_names)
+        shards = OrderedDict((n, shards[n]) for n in self.names if n in shards)
         storage = OrderedDict(
             (n, (t.to(torch.bfloat16) if n in self._prec_names else t).requires_grad_(True))
             for n, t in full.items())
@@ -406,6 +533,27 @@ class GraphTransformer:
             loss = out
         return loss, new_mutable, aux
 
+    def materialize(self, state):
+        """(what the loss sees by name, the tensors its gradients are taken
+        of, in name order): a stored tensor as it is; a SHARDED variable
+        gathered and cut to its shape, as a new leaf (its gradient is
+        reduce-scattered in :meth:`update`), or for a sparse table split on
+        dim 0 its block as a :class:`ShardedTable` (the gradient is the
+        block's)."""
+        seen, leaves = OrderedDict(), []
+        for name, t in state["params"].items():
+            plan = self.plans[name]
+            if plan.placement != part.Placement.SHARDED:
+                seen[name] = t
+            elif plan.sparse and plan.partition_axis == 0:
+                seen[name] = ShardedTable(t, self.group, plan.shape)
+            else:
+                with torch.no_grad():
+                    t = self._gather_block(t, plan)
+                seen[name] = t.requires_grad_(True)
+            leaves.append(t)
+        return seen, leaves
+
     def gradients(self, state, batch):
         """This replica's loss, new mutable state (None without one),
         gradients by name and aux values at ``state``, on its batch slice
@@ -421,8 +569,7 @@ class GraphTransformer:
         their codec states are updated in ``state["comp"]``; the gradients
         returned are the other variables'."""
         item = self.model_item
-        storage = state["params"]
-        params = list(storage.values())
+        storage, params = self.materialize(state)
         mutable = state["mutable"]
         A = self.accum_steps
         real = None
@@ -433,7 +580,7 @@ class GraphTransformer:
         comp = {b.key: state["comp"][b.key] for b in hook_buckets}
         loss = grads = synced = None
         auxs = []
-        with seq_axis_context(self.seq_axis):
+        with seq_axis_context(self.seq_axis), replica_axis_context(self.group):
             for i, mb in enumerate([batch] if A == 1 else microbatches(batch, A)):
                 generator = None
                 if item.has_rng:
@@ -504,7 +651,7 @@ class GraphTransformer:
         each variable's new value
         (:func:`~autodist_tpu_torch.kernel.synchronization.all_reduce.gather_bucket_params`)."""
         with torch.no_grad():
-            for b in self.sharded_buckets:
+            for b in self.sharded_buckets + self.sparse_ps_buckets:
                 if not b.precision:
                     ar_sync.gather_bucket_params(state["shards"], b, self.group,
                                                  out=state["params"], hier=self.hier_spec,
@@ -524,29 +671,53 @@ class GraphTransformer:
 
     def canonical_params(self, state):
         """The full, unpadded parameters by name, as the single-device
-        program sees them: the stored tensors, and for the bf16-master
+        program sees them: the stored tensors, for the bf16-master
         variables the f32 masters all-gathered from the shards (no full f32
-        copy lives in the state)."""
+        copy lives in the state), and the SHARDED variables gathered from
+        their blocks."""
         out = OrderedDict(state["params"])
         with torch.no_grad():
             for b in self.precision_buckets:
                 out.update(ar_sync.gather_bucket_params(state["shards"], b, self.group,
                                                         hier=self.hier_spec, axes=self.axes))
+            for n in self.sharded_names:
+                out[n] = self.canonical_leaf(out[n], n)
         return out
 
     def global_norm(self, update_grads):
         """The global norm of the update-space gradients: flat shards (PS
-        and sharded-update) summed over the replicas, replicated gradients
-        counted once."""
+        and sharded-update) and SHARDED blocks summed over the replicas (a
+        shard of a PS confined to a subset of the data axes divided by its
+        copies across the others), replicated gradients counted once."""
         sq = torch.zeros((), device=self.device)
         sq_sharded = torch.zeros((), device=self.device)
         for name, g in update_grads.items():
             s = g.float().square().sum()
-            if part.flat_shard_update(self.plans[name]):
-                sq_sharded = sq_sharded + s
+            plan = self.plans[name]
+            if plan.placement == part.Placement.SHARDED or part.flat_shard_update(plan):
+                copies = self.num_replicas // self._R_for(plan)
+                sq_sharded = sq_sharded + (s / copies if copies > 1 else s)
             else:
                 sq = sq + s
         return torch.sqrt(sq + coll.psum(sq_sharded, self.group))
+
+    def _update_grad(self, name, grads, synced, state):
+        """Variable ``name``'s gradient in its update space: a bucket's
+        synced entry; a SHARDED variable's block (reduce-scattered, or
+        sliced from a sparse gradient the lookup synced, or the row
+        exchange's block gradient as it is); a sparse PS variable's flat
+        shard of its synced gradient; a sparse AllReduce variable's synced
+        gradient as it is."""
+        if name in synced:
+            return synced[name]
+        plan, g = self.plans[name], grads[name]
+        if plan.placement == part.Placement.SHARDED:
+            if not plan.sparse:
+                return self._scatter_block(g, plan)
+            return g if plan.partition_axis == 0 else self._block(g, plan)
+        if name in self.shard_len:   # a sparse PS variable: its row of the synced mean
+            return self.uncanonical_leaf(g, name)
+        return g
 
     def update(self, state, grads, presynced=None):
         """Sync ``grads`` (this replica's, by name), clip them, step the
@@ -558,7 +729,8 @@ class GraphTransformer:
             grads, state["comp"], buckets=None if presynced is None else self.post_buckets)
         if presynced:
             synced.update(presynced)
-        update_grads = OrderedDict((n, synced[n]) for n in self.names)
+        update_grads = OrderedDict((n, self._update_grad(n, grads, synced, state))
+                                   for n in self.names)
         metrics = {}
         if self.clip_global_norm is not None:
             norm = self.global_norm(update_grads)

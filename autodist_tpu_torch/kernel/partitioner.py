@@ -1,23 +1,35 @@
 """Variable placement planning: strategy nodes -> per-variable plans.
 
 Counterpart of ``autodist_tpu/kernel/partitioner.py``.  The port realises
-these plans, all with REPLICATED storage:
+these plans:
 
-- AllReduce: the gradient is synchronised by the bucketed all-reduce and
-  every replica runs the same full update;
+- AllReduce, unpartitioned: REPLICATED storage, the gradient synchronised
+  by the bucketed all-reduce and every replica running the same full
+  update;
 - weight-update sharding (:func:`flat_shard_update`): the gradients are
   reduce-scattered, each replica updates its flat 1/R shard of the
   variable (the optimizer state lives on the shard,
   :func:`update_space_shape`), and the fresh shards are all-gathered.  The
-  synchronous PS realises every variable so; the AllReduce family does
-  with ``sharded_update`` where its wire codec is elementwise
+  synchronous PS realises every unpartitioned variable so (over a subset
+  of the data axes with ``ps_axes``: ``mesh:<axes>``); the AllReduce
+  family does with ``sharded_update`` where its wire codec is elementwise
   (:func:`plan_sharded_update`), and with ``precision="bf16_master"`` the
   f32 master lives only as that shard (:func:`master_shard_storage`).  A
-  scalar is always AllReduce with the replicated update, as in JAX.
+  scalar is always AllReduce with the replicated update, as in JAX;
+- any partitioned variable (``partition`` with one entry > 1, the
+  synchronizer on its ``part_config``): SHARDED storage, the partition
+  axis padded to a multiple of R and split in R blocks, one a replica
+  (:func:`storage_shape`); the loss sees the gathered variable (or, for a
+  sparse table split on dim 0, the block itself,
+  :class:`~autodist_tpu_torch.ops.sparse.ShardedTable`), the gradient is
+  reduce-scattered along the axis and each replica updates its block;
+- a sparse variable (``sparse_vars``): its lookup's backward syncs the
+  gradient (:func:`~autodist_tpu_torch.ops.sparse.embedding_lookup`), so
+  no collective of the step touches it again.
 
-Sharded (partitioned), divergent (PS with ``sync=False`` or ``staleness >
-0``), sparse and custom (tensor-parallel) placements are later slices and
-raise ``NotImplementedError``.
+Divergent (PS with ``sync=False`` or ``staleness > 0``) and custom
+(tensor-parallel) placements are later slices and raise
+``NotImplementedError``.
 """
 import dataclasses
 import enum
@@ -65,8 +77,27 @@ class VarPlan:
     staleness: int = 0
     local_replication: bool = False
     reduction_destination: str = ""
-    # "mesh:<axes>" destinations: the axes the PS scatter and gather span
+    # "mesh:<axes>" destinations: the axes the PS scatter and gather span;
+    # the shards cross the other data axes by a sum (None: every data axis)
     ps_axes: Optional[tuple] = None
+    # SHARDED fields: the partitioned axis, its size padded to a multiple of
+    # R, and the strategy's shard count (metadata, as in JAX)
+    partition_axis: int = 0
+    padded_dim: Optional[int] = None
+    logical_shards: int = 1
+
+
+def _partition_axis_of(node):
+    """(axis, count) of a partition list like ``[1, 2, 1]``; ``(None, 1)``
+    when unpartitioned.  More than one partitioned axis raises."""
+    parts = list(node.partition)
+    active = [i for i, k in enumerate(parts) if k > 1]
+    if not active:
+        return None, 1
+    if len(active) > 1:
+        raise ValueError(f"Variable {node.var_name!r}: only one partition axis is "
+                         f"supported, got {parts}")
+    return active[0], parts[active[0]]
 
 
 def build_var_plans(strategy, model_item, num_replicas, param_specs=None):
@@ -88,14 +119,14 @@ def build_var_plans(strategy, model_item, num_replicas, param_specs=None):
             plans[v.name] = plan
             continue
         plan.sparse = plan.sparse or node.sparse
+        axis, k = _partition_axis_of(node)
         which = node.WhichOneof("synchronizer")
-        if any(k > 1 for k in node.partition) or node.part_config:
-            raise NotImplementedError(
-                f"{v.name!r}: partitioned variables are a later slice of the port "
-                f"(ROADMAP, Queue A item 6)")
+        # partitioned nodes carry the synchronizer on their part_config
+        src = node if which else (node.part_config[0] if node.part_config else None)
+        which = which or (src.WhichOneof("synchronizer") if src is not None else None)
         if which == "PSSynchronizer":
-            ps = node.PSSynchronizer
-            if not ps.sync or ps.staleness > 0:
+            ps = src.PSSynchronizer
+            if axis is None and (not ps.sync or ps.staleness > 0):
                 raise NotImplementedError(
                     f"{v.name!r}: PS with sync=False or staleness > 0 (the divergent "
                     f"copies and the async runtime) is a later slice of the port "
@@ -109,7 +140,7 @@ def build_var_plans(strategy, model_item, num_replicas, param_specs=None):
                 plan.ps_axes = tuple(a for a in ps.reduction_destination[5:].split(",")
                                      if a) or None
         elif which == "AllReduceSynchronizer":
-            ar = node.AllReduceSynchronizer
+            ar = src.AllReduceSynchronizer
             plan.group = ar.group
             plan.compressor = ar.compressor
             plan.spec = ar.spec
@@ -119,14 +150,16 @@ def build_var_plans(strategy, model_item, num_replicas, param_specs=None):
             plan.sharded_update = ar.sharded_update
             plan.schedule_ir = ar.schedule_ir
             plan.precision = ar.precision
-        if plan.sparse:
-            raise NotImplementedError(
-                f"{v.name!r}: sparse gradients are a later slice of the port "
-                f"(ROADMAP, Queue A item 6)")
         if len(v.shape) == 0:
             # a scalar's flat shard would be one element padded R-way
             plan.sync = SyncKind.ALL_REDUCE
             plan.sharded_update = 0
+        elif axis is not None:
+            plan.placement = Placement.SHARDED
+            plan.partition_axis = axis
+            plan.logical_shards = k
+            plan.padded_dim = -(-v.shape[axis] // num_replicas) * num_replicas
+            plan.ps_axes = None   # realised only for flat-shard PS variables
         plans[v.name] = plan
     return plans
 
@@ -188,9 +221,39 @@ def shard_len(plan, num_replicas):
     return -(-math.prod(plan.shape) // num_replicas)
 
 
+def storage_spec(plan, replica_axis="replica"):
+    """The partition spec of the variable's storage, one entry per
+    dimension as JAX's ``PartitionSpec`` (the mesh axis a dimension is
+    split over, or None): the partition axis of a SHARDED plan, dim 0 of a
+    bf16 master's flat shard, else nothing (replicated)."""
+    if plan.placement == Placement.SHARDED:
+        entries = [None] * len(plan.shape)
+        entries[plan.partition_axis] = replica_axis
+        return tuple(entries)
+    if plan.placement == Placement.REPLICATED:
+        return (replica_axis,) if master_shard_storage(plan) else ()
+    raise ValueError(plan.placement)
+
+
+def storage_shape(plan, num_replicas):
+    """Global shape of the storage: a SHARDED plan's with its partition axis
+    padded, a bf16 master's flat padded shard space, else the
+    variable's."""
+    if plan.placement == Placement.SHARDED:
+        shape = list(plan.shape)
+        shape[plan.partition_axis] = plan.padded_dim
+        return tuple(shape)
+    if master_shard_storage(plan):
+        return update_space_shape(plan, num_replicas)
+    return tuple(plan.shape)
+
+
 def update_space_shape(plan, num_replicas):
-    """Global shape of the update space: the flat ``ceil(n/R) * R`` padded
-    elements of a flat-shard plan, else the variable's shape."""
+    """Global shape of the update space: a SHARDED plan's storage, the flat
+    ``ceil(n/R) * R`` padded elements of a flat-shard plan (R the replicas
+    its PS axes span), else the variable's shape."""
+    if plan.placement == Placement.SHARDED:
+        return storage_shape(plan, num_replicas)
     if flat_shard_update(plan):
         return (shard_len(plan, num_replicas) * num_replicas,)
     return tuple(plan.shape)

@@ -155,6 +155,11 @@ class Bucket:
     # AllReduceSynchronizer.Precision: BF16_COMPUTE_F32_MASTER buckets keep
     # the f32 master as the flat shards (set on sharded buckets only)
     precision: int = 0
+    # a PS group confined to a subset of the data axes ("mesh:<axes>"): the
+    # scatter and gather span ``ps_axes`` (num_shards is their size) and the
+    # scattered shards are summed over ``other_axes``
+    ps_axes: tuple = ()
+    other_axes: tuple = ()
 
     @property
     def total(self):
@@ -453,6 +458,10 @@ def scatter_bucket(grads_by_name, b, state, group=None, hier=None, axes=None):
                              f"replica_dcn x replica_ici axes were supplied")
         return _scatter_two_level(grads_by_name, b, state, hier, axes or _one_rank)
     R = b.num_shards
+    if b.ps_axes:   # within the PS axes; the shards summed across the others
+        axes = axes or _one_rank
+        group, other = axes(b.ps_axes), axes(b.other_axes)
+        R *= other.size
     codec = wire_codec(b)
     if codec == _AR.NoneCompressor:   # pack straight from the gradients
         row = coll.psum_scatter(
@@ -463,6 +472,8 @@ def scatter_bucket(grads_by_name, b, state, group=None, hier=None, axes=None):
             lambda w: coll.psum_scatter(_pack_rows(w.split(b.sizes), b), group),
             _bucket_buf(grads_by_name, b), codec, state)
     row = row.reshape(-1)
+    if b.ps_axes:
+        row = coll.psum(row, other)
     return (row / R if R > 1 else row), new_state
 
 
@@ -505,7 +516,8 @@ def gather_bucket_params(shards_by_name, b, group=None, out=None, dtype=None, hi
         block = coll.all_gather_into_tensor(row, axes(hier.dcn))
         full = coll.all_gather_into_tensor(block, axes((hier.ici,)))
     else:
-        full = coll.all_gather_into_tensor(row, group)
+        full = coll.all_gather_into_tensor(row, (axes or _one_rank)(b.ps_axes) if b.ps_axes
+                                           else group)
     full = full.view(b.num_shards, -1)
     if out is None:
         out = {n: torch.empty(shape, dtype=full.dtype, device=full.device)
@@ -526,6 +538,8 @@ def shard_index(b, group=None, hier=None, axes=None):
         axes = axes or _one_rank
         ici = axes((hier.ici,))
         return ici.index * max(1, b.num_shards // ici.size) + axes(hier.dcn).index
+    if b.ps_axes:
+        return (axes or _one_rank)(b.ps_axes).index
     return coll.axis_index(group)
 
 

@@ -1,12 +1,12 @@
-"""Carry GPT and ResNet weights between the flax trees and the PyTorch
-modules.
+"""Carry GPT, ResNet and NCF weights between the flax trees and the
+PyTorch modules.
 
 A flax Dense ``kernel`` is ``(in, out)``; the port's dense layers store
 ``weight`` as ``(out, in)``, so kernels are transposed on the way.  A flax
 Conv ``kernel`` is ``(kh, kw, in, out)``; the port's :class:`~autodist_tpu_torch.
 models.resnet.Conv` stores ``(out, in, kh, kw)`` (``permute(3, 2, 0, 1)``).
-Every other leaf (biases, norm scales, ``wte``, ``wpe``) carries over as it
-is.  Names map one to one: ``h_0/attn/qkv/kernel`` <-> ``h_0.attn.qkv.weight``,
+Every other leaf (biases, norm scales, ``wte``, ``wpe``, NCF's embedding
+tables) carries over as it is.  Names map one to one: ``h_0/attn/qkv/kernel`` <-> ``h_0.attn.qkv.weight``,
 and a ResNet's ``batch_stats`` leaf ``b/FusedBatchNorm_0/mean`` <-> the
 buffer ``b.FusedBatchNorm_0.mean``.
 """
@@ -57,7 +57,8 @@ def _kernel_to_jax(arr):
 
 def params_from_jax(params, batch_stats=None):
     """flax ``params`` (and ``batch_stats``) trees of numpy or JAX arrays ->
-    a ``state_dict`` of CPU tensors for the port's module (GPT, ResNet)."""
+    a ``state_dict`` of CPU tensors for the port's module (GPT, ResNet,
+    NeuMF)."""
     state = OrderedDict()
     for name, leaf in flatten_params(params).items():
         arr = np.array(leaf)

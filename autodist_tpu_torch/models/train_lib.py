@@ -1,7 +1,8 @@
 """Wrap a model into the capture that ``AutoDist.distribute`` takes
-(counterpart of ``autodist_tpu/models/train_lib.py``): GPT's ``(loss_fn,
-params, sparse_vars)`` and an image classifier's ``(loss_fn, params,
-mutable_state)``.  Other captures (BERT, NCF, ...) are later slices.
+(counterpart of ``autodist_tpu/models/train_lib.py``): GPT's and NCF's
+``(loss_fn, params, sparse_vars)`` and an image classifier's ``(loss_fn,
+params, mutable_state)``.  Other captures (BERT, the LSTM LM, ...) are
+later slices.
 """
 from collections import OrderedDict
 
@@ -128,3 +129,25 @@ def gpt_capture(config, seq_len, seed=0, device=None, streaming_loss=False,
 
     return loss_fn, params, []
 
+
+def ncf_capture(config, seed=0, device=None):
+    """Init NeuMF from ``seed``; returns (loss_fn, params, sparse_vars).
+
+    ``params`` maps the flax names to the module's tensors (Dense kernels
+    ``(out, in)``); ``loss_fn(params, batch)`` with ``batch = {"user",
+    "item", "label"}`` is the binary cross entropy of the logits (a masked
+    mean under ``batch_mask``).  ``sparse_vars`` names the four embedding
+    tables.  Runs on ``cuda`` unless ``device="cpu"``.
+    """
+    from autodist_tpu_torch.models.ncf import TABLES, NeuMF, ncf_loss, neumf_apply
+
+    dev = resolve_device(device)
+    model = NeuMF(config, device=dev, generator=host_generator(seed, dev))
+    params = flatten_params(OrderedDict(
+        (torch_to_jax_name(n), p.detach()) for n, p in model.named_parameters()))
+
+    def loss_fn(p, batch):
+        logits = neumf_apply(p, batch["user"], batch["item"], config)
+        return ncf_loss(logits, batch["label"], batch.get(BATCH_MASK_KEY))
+
+    return loss_fn, params, list(TABLES)

@@ -13,7 +13,8 @@ returns its metrics; the loss, the mean over the replicas, stays a 0-d
 device tensor, so the host waits for the device only when the caller
 reads it.  ``params()`` and ``mutable_state()`` copy the current values,
 the same on every replica, to the host: the full, unpadded f32 parameters
-also under ``precision="bf16_master"``, gathered from the master shards.
+also under ``precision="bf16_master"``, gathered from the master shards,
+and of SHARDED (partitioned) variables, gathered from their blocks.
 
 With ``batch_mask=True`` a dict batch whose dim 0 does not divide by the
 replicas times ``accum_steps`` is padded by repeating its last row, and a
@@ -205,12 +206,14 @@ class DistributedSession:
         """The names of the stored (REPLICATED) variables whose copy on some
         replica differs from rank 0's by more than ``atol`` (for a
         bf16-master variable its bf16 compute copy, the full-shape tensor
-        it stores; its master is sharded); every rank returns the same list
-        ([] when the copies agree)."""
+        it stores; its master is sharded; a SHARDED variable's blocks are
+        not compared); every rank returns the same list ([] when the copies
+        agree)."""
         group = self._t.group
         if group is None:
             return []
-        names = list(self.state["params"])
+        names = [n for n in self.state["params"]
+                 if n not in self._t.sharded_names]   # a block differs by design
         flags = torch.zeros(len(names), dtype=torch.int32, device=self.device)
         for i, name in enumerate(names):
             mine = self.state["params"][name].detach()

@@ -58,14 +58,16 @@ class AllReduce(StrategyBuilder):
                                else resolve_compressor(dcn_compressor))
         self.schedule_ir = resolve_schedule_ir(schedule_ir)
 
-    def _node(self, v, group):
+    def _node(self, v, group, name=None):
+        """The node of ``v`` (or of its shard ``name``) in bucket ``group``."""
         ar = schema.AllReduceSynchronizer(
             spec=_SPECS.get(str(self.all_reduce_spec).upper(), _AR.AUTO),
             compressor=self.compressor, group=group, schedule=self.schedule,
             hierarchy=self.hierarchy, dcn_compressor=self.dcn_compressor,
             sharded_update=self.sharded_update, schedule_ir=self.schedule_ir,
             precision=self.precision)
-        return schema.Node(var_name=v.name, sparse=v.sparse, AllReduceSynchronizer=ar)
+        return schema.Node(var_name=name or v.name, sparse=v.sparse,
+                           AllReduceSynchronizer=ar)
 
     def make_graph_config(self, strategy, resource_spec):
         """Replicas and mesh; under ``hierarchy="two_level"`` with no

@@ -9,13 +9,13 @@ updates its flat 1/R shard of every variable, and the fresh shards are
 all-gathered (:mod:`autodist_tpu_torch.kernel.graph_transformer`), so
 ``local_proxy_variable`` changes the JSON and not the program, as in JAX.
 
-``ps_axes`` names the mesh axes the scatter and gather span; the port
-takes it only when it is the whole data axis (``("replica",)``, which JAX
-normalises back to the default); a subset of a factored mesh is a later
-slice (ROADMAP, Queue A item 6, with ``test_ps_mesh_subset.py``).  ``sync=False`` and ``staleness > 0``
-build, and raise at ``distribute`` (Queue A item 6).
+``ps_axes`` names the mesh axes the scatter and gather span, emitted as
+the destination ``"mesh:<axes>"``: on a ``{replica_dcn, replica_ici}``
+mesh, ``ps_axes=("replica_ici",)`` scatters and gathers within each node
+and sums only the 1/R_ici shards across the nodes.  ``sync=False`` and
+``staleness > 0`` build, and raise at ``distribute`` (ROADMAP, Queue A
+item 6).
 """
-from autodist_tpu_torch.const import AXIS_REPLICA
 from autodist_tpu_torch.proto import schema
 from autodist_tpu_torch.strategy.base import Strategy, StrategyBuilder
 
@@ -27,20 +27,16 @@ class PS(StrategyBuilder):
         self._sync = sync
         self._staleness = staleness
         self._ps_axes = tuple(ps_axes) if ps_axes else None
-        if self._ps_axes not in (None, (AXIS_REPLICA,)):
-            raise NotImplementedError(
-                f"ps_axes={self._ps_axes}: a PS confined to a subset of the data axes "
-                f"(the replica_dcn x replica_ici mesh) is a later slice of the port "
-                f"(ROADMAP, Queue A item 6); the port takes ps_axes=('{AXIS_REPLICA}',)")
 
     def _dest(self, anchor):
         return ("mesh:" + ",".join(self._ps_axes)) if self._ps_axes else anchor
 
-    def _node(self, v, anchor):
+    def _node(self, v, anchor, name=None):
+        """The node of ``v`` (or of its shard ``name``) served from ``anchor``."""
         ps = schema.PSSynchronizer(reduction_destination=self._dest(anchor),
                                    local_replication=self._local_replication,
                                    sync=self._sync, staleness=self._staleness)
-        return schema.Node(var_name=v.name, sparse=v.sparse, PSSynchronizer=ps)
+        return schema.Node(var_name=name or v.name, sparse=v.sparse, PSSynchronizer=ps)
 
     def build(self, model_item, resource_spec):
         s = Strategy()

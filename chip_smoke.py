@@ -192,7 +192,25 @@ Phases (each failure exits non-zero before the last line):
    and the residual.  Every variant: 12 launches a step of each flash
    kernel (24 with accumulation), ``check_replication() == []``, and its
    step ms, tokens/s, peak memory and profile;
-16. prints the ``{"kernels": [...]}`` line (nine kernels), then the
+16. the synchronous PS family, in a process of its own (``chip_smoke.py
+   --partitioned PHASE5``), one ``AutoDist`` each: GPT-2 small as in phase
+   5 (B=8, 10 adamw steps, phase 5's weights and batch) under
+   ``PartitionedPS(max_shards=8)`` and ``PartitionedAR(max_shards=8)``
+   (every variable whose dim 0 has a divisor <= 8 partitioned: SHARDED
+   storage, here over one replica), losses within 1e-5 / 1e-3 relative of
+   phase 5's (bitwise equality printed), 12 launches a step of each flash
+   kernel; then NCF at full width (``NCFConfig()``: 138,000 users, 27,000
+   items, ``mf_dim`` 64, MLP 256-128-64, ~31.8 M parameters) as
+   ``examples/benchmark.py`` runs it (batch 64, adam(1e-3), seeded
+   batch), 10 steps under ``Parallax()`` (the four tables sparse PS
+   variables, the MLP AllReduce) and under ``PartitionedPS(max_shards=8)``
+   with the four tables in ``sparse_vars`` (the tables split on dim 0,
+   looked up through ``ShardedTable``'s row exchange): step 1's loss
+   within 1e-5 between the two and of one process's dense loss on the same
+   weights and batch, finite losses, no launch of the nine kernels; prints
+   each run's losses, median step, peak memory, the card's name and power
+   limit, and each NCF run's profile;
+17. prints the ``{"kernels": [...]}`` line (nine kernels), then the
    ``{"ok": true, ...}`` line.
 
 Tolerances, kernel vs plain version on the same inputs.  Flash, bf16
@@ -210,7 +228,8 @@ relative <= 1e-3 (GPT-2 and both ResNets).  The default builder and the
 sharded update against phase 5: step 1 relative <= 1e-5, steps 2-10 <=
 1e-3; the bf16 master's step 1 <= 2e-2.  The streaming loss against the
 dense head, and the bench configuration at B=8 against phase 5: step 1
-relative <= 1e-4.  Quantization kernels and the
+relative <= 1e-4.  NCF, the two builders' step 1 and one process's:
+relative <= 1e-5.  Quantization kernels and the
 synced gradients of the int8 codecs: bitwise (both sides divide with IEEE
 division, round half to even and sum the peers in order without FMA).
 """
@@ -281,6 +300,11 @@ SYNC_VARIANT_LAUNCHES = {
     "Int8 overlap": CODECS["Int8Compressor"],
 }
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
+# phase 16: the partitioned builders' cap, and NCF as examples/benchmark.py
+# runs it (batch 64, adam 1e-3); its step 1 tolerance between the builders
+# and against one process's dense loss (relative)
+PART_MAX_SHARDS = 8
+NCF_BATCH, NCF_STEPS, NCF_LR, NCF_TOL = 64, 10, 1e-3, 1e-5
 
 
 class SmokeFailure(Exception):
@@ -1975,6 +1999,145 @@ def train_gpt2_sync_variants(torch, m, kernel_modules, phase5):
     return out
 
 
+def card_line():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    return out[0] if out else "nvidia-smi: no output"
+
+
+def train_gpt2_partitioned(torch, ad, tag, kernel_modules, phase5):
+    """Phase 16's GPT-2 runs: phase 5's model, weights and batch under
+    ``ad``'s partitioned builder, STEPS adamw steps, held against phase
+    5's losses."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.kernel.partitioner import Placement
+    from autodist_tpu_torch.models.gpt import GPTConfig
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+
+    config = GPTConfig()
+    loss_fn, params, sparse = gpt_capture(config, SEQ, seed=0)
+    batch = gpt2_batch(config, BATCH)
+    sess = ad.distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
+                         has_rng=True)
+    sharded = [n for n, p in sess.transformer.plans.items() if p.placement == Placement.SHARDED]
+    print(f"{tag}: {len(sharded)} of {len(sess.transformer.names)} variables partitioned "
+          f"(SHARDED storage)")
+    check(sharded, f"{tag}: no variable was partitioned")
+    losses, step_ms, launches, peak_gb = timed_steps(torch, sess, batch, STEPS, kernel_modules)
+    steady = statistics.median(step_ms[1:])
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, phase5["losses"])]
+    print(f"{tag} losses: " + ", ".join(f"{x:.6f}" for x in losses))
+    print(f"{tag}: median step {steady:.2f} ms (steps 2-{STEPS}), "
+          f"{BATCH * SEQ / steady * 1e3:.0f} tokens/s, peak memory {peak_gb:.2f} GB "
+          f"(phase 5: {phase5['peak_gb']:.2f} GB), launches {launches}")
+    print(f"{tag} vs phase 5: step 1 relative difference {rel[0]:.3e}, largest over steps "
+          f"2-{STEPS} {max(rel[1:]):.3e}; bitwise equal losses: "
+          f"{losses == list(phase5['losses'])}")
+    check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss in {losses}")
+    check(rel[0] <= PS_STEP1_TOL, f"{tag}: step 1 differs from phase 5's by {rel[0]}")
+    check(max(rel[1:]) <= PS_LOSS_TOL, f"{tag}: a loss differs from phase 5's by {max(rel)}")
+    want = flash_launches(config, STEPS)
+    check(launches == want, f"{tag}: expected launches {want}, got {launches}")
+    del sess
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": steady, "peak_gb": peak_gb}
+
+
+def ncf_batch(config, rows, seed=0):
+    """``examples/benchmark.py``'s NCF batch, seeded: ``rows`` users, items
+    and 0/1 labels."""
+    import numpy as np
+
+    r = np.random.RandomState(seed)
+    return {"user": r.randint(0, config.num_users, (rows,)).astype(np.int32),
+            "item": r.randint(0, config.num_items, (rows,)).astype(np.int32),
+            "label": (r.rand(rows) < 0.5).astype(np.float32)}
+
+
+def ncf_dense_loss(torch, rows):
+    """One process's loss of the seeded weights on the global batch of
+    ``rows`` examples, without ``AutoDist``, under ``no_grad``."""
+    from autodist_tpu_torch.models.ncf import NCFConfig
+    from autodist_tpu_torch.models.train_lib import ncf_capture
+
+    config = NCFConfig()
+    loss_fn, params, _ = ncf_capture(config, seed=0)
+    with torch.no_grad():
+        loss = loss_fn(params, {k: torch.from_numpy(v).cuda()
+                                for k, v in ncf_batch(config, rows).items()}).item()
+    del params
+    torch.cuda.empty_cache()
+    return loss
+
+
+def train_ncf(torch, ad, tag, kernel_modules, rows=NCF_BATCH, steps=NCF_STEPS):
+    """NCF at full width under ``ad``'s builder with its four tables in
+    ``sparse_vars``: ``steps`` adam steps on ``rows`` seeded examples (the
+    global batch).  Returns the run's numbers and its session."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.models.ncf import NCFConfig
+    from autodist_tpu_torch.models.train_lib import ncf_capture
+
+    config = NCFConfig()
+    loss_fn, params, sparse = ncf_capture(config, seed=0)
+    count = sum(t.numel() for t in params.values())
+    sess = ad.distribute(loss_fn, params, optim.adam(NCF_LR), sparse_vars=sparse)
+    del params
+    plans = sess.transformer.plans
+    print(f"{tag}: NCF {count / 1e6:.2f} M parameters, tables " + ", ".join(
+        f"{n} {plans[n].placement.value} {plans[n].sync.value}" for n in sparse))
+    losses, step_ms, launches, peak_gb = timed_steps(torch, sess, ncf_batch(config, rows),
+                                                     steps, kernel_modules)
+    steady = statistics.median(step_ms[1:])
+    print(f"{tag} losses: " + ", ".join(f"{x:.6f}" for x in losses))
+    print(f"{tag} step ms: " + ", ".join(f"{x:.3f}" for x in step_ms))
+    print(f"{tag}: median step {steady:.3f} ms (steps 2-{steps}), {rows / steady * 1e3:.0f} "
+          f"examples/s, peak memory {peak_gb:.3f} GB; {card_line()}")
+    check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss in {losses}")
+    check(launches == NO_LAUNCHES, f"{tag}: expected no kernel launch, got {launches}")
+    return {"losses": losses, "step_ms": steady, "steps_ms": step_ms[1:],
+            "peak_gb": peak_gb}, sess
+
+
+def check_ncf_step1(runs, dense, tol=NCF_TOL):
+    """Step 1 of each NCF run against the other's and one process's dense
+    loss, relative."""
+    (tag_a, a), (tag_b, b) = runs.items()
+    between = abs(a["losses"][0] - b["losses"][0]) / abs(b["losses"][0])
+    rel = {tag: abs(r["losses"][0] - dense) / abs(dense) for tag, r in runs.items()}
+    print(f"NCF step 1: {tag_a} {a['losses'][0]:.7f}, {tag_b} {b['losses'][0]:.7f} "
+          f"(relative {between:.3e}), one process's dense loss {dense:.7f} (relative "
+          + ", ".join(f"{tag} {x:.3e}" for tag, x in rel.items()) + ")")
+    check(between <= tol, f"NCF: step 1 differs between {tag_a} and {tag_b} by {between}")
+    for tag, x in rel.items():
+        check(x <= tol, f"NCF {tag}: step 1 differs from one process's dense loss by {x}")
+
+
+def train_partitioned(torch, m, kernel_modules, phase5):
+    """Phase 16: GPT-2 small under the partitioned builders, NCF at full
+    width under Parallax and PartitionedPS, one ``AutoDist`` each."""
+    from autodist_tpu_torch.models.ncf import NCFConfig
+    from autodist_tpu_torch.strategy import Parallax, PartitionedAR, PartitionedPS
+
+    out = {"gpt2": {}, "ncf": {}}
+    for tag, builder in (("PartitionedPS", PartitionedPS(max_shards=PART_MAX_SHARDS)),
+                         ("PartitionedAR", PartitionedAR(max_shards=PART_MAX_SHARDS))):
+        ad = m["AutoDist"](resource_spec=m["spec"], strategy_builder=builder)
+        out["gpt2"][tag] = train_gpt2_partitioned(torch, ad, tag, kernel_modules, phase5)
+    dense = ncf_dense_loss(torch, NCF_BATCH)
+    for tag, builder in (("Parallax", Parallax()),
+                         ("PartitionedPS", PartitionedPS(max_shards=PART_MAX_SHARDS))):
+        ad = m["AutoDist"](resource_spec=m["spec"], strategy_builder=builder)
+        out["ncf"][tag], sess = train_ncf(torch, ad, f"NCF {tag}", kernel_modules)
+        profile_steps(torch, sess, ncf_batch(NCFConfig(), NCF_BATCH))
+        del sess
+        torch.cuda.empty_cache()
+    check_ncf_step1(out["ncf"], dense)
+    return out
+
+
 def run_child(args, marker):
     """``chip_smoke.py ARGS`` in a process of its own (``AutoDist`` is one
     instance per process); forwards its output and returns its ``MARKER``
@@ -2170,6 +2333,24 @@ def sync_variants_main(phase5):
     return 0
 
 
+def partitioned_main(phase5):
+    """``chip_smoke.py --partitioned PHASE5``: the synchronous PS family
+    (phase 16), one ``AutoDist`` each in this process."""
+    import torch
+
+    os.environ["AUTODIST_IS_TESTING"] = "1"   # several AutoDists in this process
+    m = setup(torch)
+    if m is None:
+        return 1
+    try:
+        result = train_partitioned(torch, m, (m["fa"], m["fn"], m["tq"]), json.loads(phase5))
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    print("PARTITIONED_RESULT " + json.dumps(result))
+    return 0
+
+
 def main():
     try:
         import torch
@@ -2180,10 +2361,7 @@ def main():
     if m is None:
         return 1
     fa, fn, tq = m["fa"], m["fn"], m["tq"]
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          timeout=60).stdout.strip().splitlines()
-    print(card[0] if card else "nvidia-smi: no output")
+    print(card_line())
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     kernel_modules = (fa, fn, tq)
@@ -2220,6 +2398,7 @@ def main():
         variants = run_child(["--sync-variants", json.dumps(phase5)], "SYNC_VARIANTS_RESULT")
         for k, v in variants["launches"].items():   # the codec runs' quantization launches
             launches[k] += v
+        run_child(["--partitioned", json.dumps(phase5)], "PARTITIONED_RESULT")
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2250,4 +2429,6 @@ if __name__ == "__main__":
         sys.exit(sharded_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--sync-variants":
         sys.exit(sync_variants_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--partitioned":
+        sys.exit(partitioned_main(sys.argv[2]))
     sys.exit(main())

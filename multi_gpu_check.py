@@ -12,6 +12,8 @@ process per GPU (NCCL)::
         multi_gpu_check.py sharded
     python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
         multi_gpu_check.py sync
+    python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        multi_gpu_check.py partitioned
 
 ``CODEC`` (one of ``chip_smoke.CODECS``): each rank runs
 ``chip_smoke.train_gpt2_codec`` on its own GPU: GPT-2 small at full width
@@ -79,6 +81,21 @@ ending with the same parameters.  Prints each
 median step, and for the barrier and the overlap the share of NCCL kernel
 time that ran while a compute kernel ran, from one ``torch.profiler``
 window of two steps.
+
+``partitioned``: the synchronous PS family on NCF at full width
+(``NCFConfig()``, ~31.8 M parameters; adam 1e-3, 64 examples per rank, 10
+steps), its four tables in ``sparse_vars``: under
+``PartitionedPS(max_shards=8)`` each rank stores its quarter of every
+table's rows and looks them up through the row exchange (ids all-gathered,
+rows reduce-scattered back, the row gradients all-gathered in the
+backward), and under ``Parallax()`` the tables are sparse PS variables
+(each rank updates its flat quarter, then all-gathers) and the MLP
+all-reduces; in turns (Parallax, PartitionedPS, PartitionedPS, Parallax).
+Checks: step 1 of each within 1e-5 relative of one process's dense loss
+on the global batch and of the other builder's; finite losses; no launch
+of the nine kernels; ``check_replication() == []``; every rank ends with
+the same full parameters.  Prints each builder's median step and peak
+memory.
 
 Rank 0 builds the kernels and prints; the run ends with a ``RESULT {...}``
 JSON line.  A failed check exits non-zero.
@@ -351,10 +368,46 @@ def compare_sharded(torch, ads, modules, world_size):
     return result
 
 
+PARTITIONED_BUILDERS = ("Parallax", "PartitionedPS")
+
+
+def train_ncf_ranks(torch, ad, tag, modules):
+    """One NCF run of the ``partitioned`` mode on this rank, checked."""
+    result, sess = smoke.train_ncf(torch, ad, tag, modules,
+                                   rows=smoke.NCF_BATCH * ad.world.size)
+    bad = sess.check_replication()
+    smoke.check(bad == [], f"{tag}: check_replication() names {bad}")
+    full = sess.transformer.canonical_params(sess.state)
+    smoke.check(smoke.same_on_every_rank(torch, list(full.values()), sess.transformer.group),
+                f"{tag}: the ranks hold different parameters")
+    print(f"{tag}: all {ad.world.size} ranks hold the same parameters")
+    del sess, full
+    torch.cuda.empty_cache()
+    return result
+
+
+def compare_partitioned(torch, ads, modules, world_size):
+    """NCF under Parallax and PartitionedPS (``ads`` in PARTITIONED_BUILDERS'
+    order) in turns, 0 1 1 0: step 1 of each against one process's dense
+    loss of the global batch and the other's; returns the runs."""
+    dense = smoke.ncf_dense_loss(torch, smoke.NCF_BATCH * world_size)
+    result = {name: [] for name in PARTITIONED_BUILDERS}
+    for i in (0, 1, 1, 0):
+        name = PARTITIONED_BUILDERS[i]
+        result[name].append(train_ncf_ranks(torch, ads[i], f"NCF {name}", modules))
+    smoke.check_ncf_step1({name: runs[0] for name, runs in result.items()}, dense)
+    for name, runs in result.items():
+        pooled = statistics.median(x for r in runs for x in r["steps_ms"])
+        print(f"NCF {name}: {pooled:.3f} ms a step (median of steps 2-{smoke.NCF_STEPS} of two "
+              f"runs, in turns), peak memory {runs[0]['peak_gb']:.3f} GB")
+    return result
+
+
 def main(argv):
     import torch
 
-    if len(argv) != 1 or argv[0] not in (*smoke.CODECS, "ring", "ps", "sharded", "sync"):
+    if len(argv) != 1 or argv[0] not in (*smoke.CODECS, "ring", "ps", "sharded", "sync",
+                                         "partitioned"):
         print(__doc__ + f"\nCODEC is one of {list(smoke.CODECS)}", file=sys.stderr)
         return 2
     mode = argv[0]
@@ -363,7 +416,7 @@ def main(argv):
         print("FAIL: run under torchrun with --nproc-per-node >= 2 (even for ring and sync)",
               file=sys.stderr)
         return 1
-    if mode in ("ring", "ps", "sharded", "sync"):   # several AutoDists in this process
+    if mode in ("ring", "ps", "sharded", "sync", "partitioned"):   # several AutoDists
         os.environ["AUTODIST_IS_TESTING"] = "1"
     m = smoke.setup(torch)
     if m is None:
@@ -382,6 +435,11 @@ def main(argv):
     elif mode == "sync":
         runs = [(None if mesh is None else {"replica_dcn": 2, "replica_ici": world_size // 2},
                  m["AllReduce"](**opts)) for _, mesh, opts in SYNC_RUNS]
+    elif mode == "partitioned":
+        from autodist_tpu_torch import strategy
+
+        runs = [(None, strategy.Parallax()),
+                (None, strategy.PartitionedPS(max_shards=smoke.PART_MAX_SHARDS))]
     else:
         runs = [(None, m["AllReduce"](compressor=mode))]
     ads = [m["AutoDist"](resource_spec=ResourceSpec(resource_info=dict(
@@ -416,6 +474,8 @@ def main(argv):
             result = compare_sharded(torch, ads, modules, world_size)
         elif mode == "sync":
             result = compare_sync(torch, ads, modules)
+        elif mode == "partitioned":
+            result = compare_partitioned(torch, ads, modules, world_size)
         else:
             result = smoke.train_gpt2_codec(torch, ads[0], mode, modules)
     except smoke.SmokeFailure as e:

@@ -11,7 +11,7 @@
     ``AllReduce(chunk_size=1 | 128)`` x sgd/adam against its oracle
     (single-device optax on the global batch) at atol 2e-5;
   - ``test_compressors``' five cases at their tolerances;
-  - three GPT-tiny steps under ``Int8Compressor`` and
+  - three steps of a one-block GPT-tiny under ``Int8Compressor`` and
     ``EquarxInt8Compressor`` against the JAX ``AutoDist`` on
     ``ResourceSpec.from_num_chips(4)``: losses to rtol 1e-3;
   - every rank holds the same strategy id and the same parameters.
@@ -37,11 +37,10 @@ import torch
 from jax.sharding import Mesh, PartitionSpec as P
 
 import torch_gloo_ranks as ranks
+import torch_jax_oracle as oracle
 from autodist_tpu.autodist import AutoDist as JAutoDist
 from autodist_tpu.kernel.synchronization.compressor import get_compressor as jget
 from autodist_tpu.kernel.synchronization.compressor import wire_byte_factor as jwire
-from autodist_tpu.models import gpt as jgpt
-from autodist_tpu.models import train_lib as jtrain
 from autodist_tpu.proto import synchronizers_pb2
 from autodist_tpu.resource_spec import ResourceSpec as JResourceSpec
 from autodist_tpu.strategy import AllReduce as JAllReduce
@@ -136,8 +135,7 @@ def test_registry_and_wire_factors_match_jax():
 # -- (c) a 4-rank gloo world --------------------------------------------------
 
 def _jax_gpt_params():
-    _, params, _ = jtrain.gpt_capture(jgpt.GPT_TINY, ranks.GPT_SEQ)
-    return params
+    return oracle.world_gpt_params()
 
 
 @pytest.fixture(scope="module")
@@ -219,10 +217,10 @@ def test_compressors_over_four_ranks(gloo, comp):
 @pytest.mark.parametrize("comp", ranks.GPT_CODECS)
 def test_gpt_tiny_matches_jax_autodist_over_four_ranks(gloo, comp):
     inputs, j_params, results = gloo
-    j_loss_fn, _, j_sparse = jtrain.gpt_capture(jgpt.GPT_TINY, ranks.GPT_SEQ)
+    j_loss_fn, _ = oracle.gpt_capture(oracle.world_gpt(), ranks.GPT_SEQ)
     j_sess = JAutoDist(resource_spec=JResourceSpec.from_num_chips(ranks.WORLD),
                        strategy_builder=JAllReduce(compressor=comp)).distribute(
-        j_loss_fn, j_params, optax.adamw(1e-3), sparse_vars=j_sparse, has_rng=True)
+        j_loss_fn, j_params, optax.adamw(1e-3), has_rng=True)
     j_losses = [float(j_sess.run(inputs["gpt_batch"])["loss"])
                 for _ in range(ranks.GPT_STEPS)]
     for res in results:

@@ -3,8 +3,8 @@
 - The AllReduce builder gives the JAX builder's variable names, order and
   groups (GPT-tiny, and GPT-2 small's 148 variables from shapes alone), and
   ``plan_buckets`` the same keys and sizes.
-- Three ``AutoDist(..., AllReduce()).distribute(gpt_capture(GPT_TINY))``
-  steps on the CPU follow the JAX ``AutoDist`` on a one-chip spec from the
+- Three ``AutoDist(..., AllReduce()).distribute(gpt_capture(...))`` steps
+  of a one-block GPT-tiny on the CPU follow the JAX ``AutoDist`` on a one-chip spec from the
   same weights and batch: per-step losses to rtol 1e-4; final parameters
   within steps x lr for adamw (Adam's per-element normalisation turns a
   rounding-level gradient difference into up to an lr-sized step, the bound
@@ -38,12 +38,12 @@ import optax
 import pytest
 import torch
 
+import torch_jax_oracle as oracle
 from autodist_tpu.autodist import AutoDist as JAutoDist
 from autodist_tpu.kernel import partitioner as jpart
 from autodist_tpu.kernel.synchronization import all_reduce as jar
 from autodist_tpu.model_item import ModelItem as JModelItem
 from autodist_tpu.models import gpt as jgpt
-from autodist_tpu.models import train_lib as jtrain
 from autodist_tpu.resource_spec import ResourceSpec as JResourceSpec
 from autodist_tpu.strategy import AllReduce as JAllReduce
 from autodist_tpu_torch import optim
@@ -116,13 +116,16 @@ _OPTS = {"adamw": (lambda: optax.adamw(1e-3), lambda: optim.adamw(1e-3), STEPS *
 def test_three_steps_match_jax_autodist(opt):
     make_j, make_t, params_atol = _OPTS[opt]
     batch = _batch()
-    j_loss_fn, j_params, j_sparse = jtrain.gpt_capture(jgpt.GPT_TINY, SEQ)
+    # one GPT-tiny block: every op of the model, half the JAX compile
+    j_loss_fn, j_params = oracle.gpt_capture(
+        dataclasses.replace(jgpt.GPT_TINY, num_layers=1), SEQ)
     j_sess = JAutoDist(resource_spec=JResourceSpec.from_num_chips(1),
                        strategy_builder=JAllReduce()).distribute(
-        j_loss_fn, j_params, make_j(), sparse_vars=j_sparse, has_rng=True)
+        j_loss_fn, j_params, make_j(), has_rng=True)
     j_losses = [float(j_sess.run(batch)["loss"]) for _ in range(STEPS)]
 
-    t_loss_fn, _, t_sparse = gpt_capture(tgpt.GPT_TINY, SEQ, device="cpu")
+    t_loss_fn, _, t_sparse = gpt_capture(dataclasses.replace(tgpt.GPT_TINY, num_layers=1),
+                                         SEQ, device="cpu")
     t_params = {convert.torch_to_jax_name(n): t
                 for n, t in convert.params_from_jax(j_params).items()}
     t_sess = AutoDist(resource_spec=ResourceSpec(resource_info=CPU_SPEC),

@@ -1,6 +1,8 @@
 """The port's GPT against the JAX package's flax GPT on the same weights.
 
-``GPT_TINY`` weights initialised by flax are carried into the PyTorch
+``GPT_TINY`` weights (one block where JAX runs the flash kernel in
+interpret mode, whose compile dominates) on flax's variable shapes, drawn by numpy at flax's
+scales (``tests/torch_jax_oracle.py``), are carried into the PyTorch
 module with ``params_from_jax``; the same numpy tokens go through both.
 The JAX side runs attention through the Pallas flash kernel in interpret
 mode (``attention_impl="flash"``), the port through the flash wrappers'
@@ -11,8 +13,10 @@ order); the bf16 forward agrees to atol 3e-2 on logits of magnitude ~0.3
 gives flax's f32 ``ln_f`` output (atol 2e-5).
 
 With bf16 parameters (the bf16 master's compute copy), ``gpt_capture``'s
-dense and streaming losses and every gradient hold the JAX capture's on
-the same bf16-rounded weights: the embedding lookup and the ``wpe`` add in
+dense and streaming losses and every gradient of a one-block GPT-tiny hold
+the JAX capture's on
+the same bf16-rounded weights (JAX's value and gradient compiled with
+XLA's excess precision off, so each bf16 op rounds as it does eagerly): the embedding lookup and the ``wpe`` add in
 bf16, LayerNorm and Dense with bf16 scale and bias, and the head and the
 streaming loss promoting the bf16 ``wte`` to f32.  In f32 compute the loss
 agrees to rtol 1e-6 and each bf16 gradient to one bf16 rounding of the
@@ -35,8 +39,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_oracle as oracle
 from autodist_tpu.models import gpt as jgpt
-from autodist_tpu.models import train_lib as jtrain
 from autodist_tpu_torch.models import convert
 from autodist_tpu_torch.models import gpt as tgpt
 from autodist_tpu_torch.models.train_lib import gpt_capture
@@ -49,8 +53,11 @@ BF16_PARAM_GRAD_RTOL, BF16_PARAM_GRAD_ATOL, BF16_COMPUTE_GRAD_NORM_RTOL = 2 ** -
 
 
 def _configs(dtype_j, dtype_t):
-    cj = dataclasses.replace(jgpt.GPT_TINY, attention_impl="flash", dtype=dtype_j)
-    ct = dataclasses.replace(tgpt.GPT_TINY, attention_impl="flash", dtype=dtype_t)
+    """One GPT-tiny block (every op of the model, half the JAX compile)."""
+    cj = dataclasses.replace(jgpt.GPT_TINY, attention_impl="flash", dtype=dtype_j,
+                             num_layers=1)
+    ct = dataclasses.replace(tgpt.GPT_TINY, attention_impl="flash", dtype=dtype_t,
+                             num_layers=1)
     return cj, ct
 
 
@@ -60,11 +67,11 @@ def _tokens(seed=0):
     return toks[:, :-1], toks[:, 1:]
 
 
-def _flax_params():
-    # the param tree does not depend on attention_impl or dtype: init on
-    # the plain XLA path (params are f32 either way)
-    return jgpt.GPT(jgpt.GPT_TINY).init(jax.random.PRNGKey(0),
-                                        jnp.zeros((1, SEQ), jnp.int32))["params"]
+def _flax_params(num_layers=jgpt.GPT_TINY.num_layers):
+    # the param tree does not depend on attention_impl or dtype (params
+    # are f32 either way): flax's shapes, drawn by numpy
+    return oracle.gpt_capture(dataclasses.replace(jgpt.GPT_TINY, num_layers=num_layers),
+                              SEQ)[1]
 
 
 def _torch_model(ct, jparams):
@@ -75,7 +82,7 @@ def _torch_model(ct, jparams):
 
 def test_f32_logits_loss_and_every_gradient_match_flax():
     cj, ct = _configs(jnp.float32, torch.float32)
-    jparams = _flax_params()
+    jparams = _flax_params(1)
     tokens, targets = _tokens()
 
     def jloss(p):
@@ -96,7 +103,7 @@ def test_f32_logits_loss_and_every_gradient_match_flax():
         {n: p.grad for n, p in model.named_parameters()})
     flat_t = jax.tree_util.tree_leaves_with_path(grads)
     flat_j = dict(jax.tree_util.tree_leaves_with_path(j_grads))
-    assert len(flat_t) == len(flat_j) == 28
+    assert len(flat_t) == len(flat_j) == 16
     for path, g in flat_t:
         np.testing.assert_allclose(g, np.asarray(flat_j[path]), atol=F32_ATOL,
                                    rtol=0, err_msg=jax.tree_util.keystr(path))
@@ -104,7 +111,7 @@ def test_f32_logits_loss_and_every_gradient_match_flax():
 
 def test_bf16_forward_matches_flax():
     cj, ct = _configs(jnp.bfloat16, torch.bfloat16)
-    jparams = _flax_params()
+    jparams = _flax_params(1)
     tokens, _ = _tokens(1)
     j_logits = np.asarray(jax.jit(jgpt.GPT(cj).apply)(
         {"params": jparams}, jnp.asarray(tokens)))
@@ -141,7 +148,7 @@ def test_seeded_init_follows_flax_initialisers():
 
 def test_return_hidden_matches_flax():
     cj, ct = _configs(jnp.float32, torch.float32)
-    jparams = _flax_params()
+    jparams = _flax_params(1)
     tokens, _ = _tokens(2)
     j_hidden = np.asarray(jax.jit(lambda p, t: jgpt.GPT(cj).apply(
         {"params": p}, t, return_hidden=True))(jparams, jnp.asarray(tokens)))
@@ -154,19 +161,21 @@ def test_return_hidden_matches_flax():
 @pytest.mark.parametrize("streaming", [False, True], ids=["dense", "streaming"])
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
 def test_bf16_params_loss_and_gradients_match_jax(compute, streaming):
-    cj = dataclasses.replace(jgpt.GPT_TINY, attention_impl="flash", dtype=getattr(jnp, compute))
+    # one block: every op of the model runs, at half the JAX compile
+    cj = dataclasses.replace(jgpt.GPT_TINY, attention_impl="flash", dtype=getattr(jnp, compute),
+                             num_layers=1)
     ct = dataclasses.replace(tgpt.GPT_TINY, attention_impl="flash",
-                             dtype=getattr(torch, compute))
+                             dtype=getattr(torch, compute), num_layers=1)
     kw = dict(streaming_loss=streaming, loss_chunk=128)
-    j_loss_fn, jparams, _ = jtrain.gpt_capture(cj, SEQ, **kw)
+    j_loss_fn, jparams = oracle.gpt_capture(cj, SEQ, **kw)
     t_loss_fn, _, _ = gpt_capture(ct, SEQ, device="cpu", **kw)
     tokens, targets = _tokens(6)
     targets[:, -1] = -100
     batch = {"tokens": tokens, "targets": targets}
-    # eager, as each op defines its rounding: under jit XLA may keep bf16
-    # intermediates in f32 (excess precision)
-    jl, jg = jax.value_and_grad(j_loss_fn)(
-        jax.tree.map(lambda x: x.astype(jnp.bfloat16), jparams),
+    # compiled with each op rounding as it does eagerly: XLA's excess
+    # precision (bf16 intermediates kept in f32) off
+    jl, jg = oracle.value_and_grad(
+        j_loss_fn, jax.tree.map(lambda x: jnp.asarray(x, jnp.bfloat16), jparams),
         {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0))
     # the same round-to-nearest-even cast of the same f32 weights
     loaded = {convert.torch_to_jax_name(n): t.to(torch.bfloat16).requires_grad_(True)
@@ -179,7 +188,7 @@ def test_bf16_params_loss_and_gradients_match_jax(compute, streaming):
                                        for n, g in zip(loaded, grads)})
     j_flat = dict(jax.tree_util.tree_leaves_with_path(jg))
     t_flat = jax.tree_util.tree_leaves_with_path(t_tree)
-    assert len(t_flat) == len(j_flat) == 28
+    assert len(t_flat) == len(j_flat) == 16
     for path, g in t_flat:
         want, what = np.asarray(j_flat[path], np.float32), jax.tree_util.keystr(path)
         if compute == "float32":

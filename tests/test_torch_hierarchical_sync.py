@@ -56,11 +56,10 @@ import pytest
 from jax.sharding import Mesh, PartitionSpec as P
 
 import torch_gloo_ranks as ranks
+import torch_jax_oracle as oracle
 from autodist_tpu.autodist import AutoDist as JAutoDist
 from autodist_tpu.kernel import partitioner as jpart
 from autodist_tpu.kernel.synchronization import all_reduce as jar
-from autodist_tpu.models import gpt as jgpt
-from autodist_tpu.models import train_lib as jtrain
 from autodist_tpu.parallel.collectives import axis_index as jaxis_index
 from autodist_tpu.proto import synchronizers_pb2
 from autodist_tpu.resource_spec import ResourceSpec as JResourceSpec
@@ -97,8 +96,7 @@ def test_cases_are_the_jax_tests():
 # -- the 4-rank gloo world, and the JAX references ------------------------------
 
 def _jax_gpt_params():
-    _, params, _ = jtrain.gpt_capture(jgpt.GPT_TINY, ranks.GPT_SEQ)
-    return params
+    return oracle.world_gpt_params()
 
 
 @pytest.fixture(scope="module")

@@ -17,8 +17,11 @@ operand's dtype, within one bf16 rounding of JAX's.
 
 GPT-tiny's ``gpt_capture(streaming_loss=True, loss_chunk=128)`` holds the
 JAX capture's loss (rtol 1e-5) and every gradient (rtol 5e-4, atol 2e-5)
-on the same weights, carried across with ``params_from_jax``, and with the
-session's per-example mask (non-binary weights) as well.
+on the same weights (flax's shapes drawn by numpy), carried across with
+``params_from_jax``, and with the session's per-example mask (non-binary
+weights) as well.  JAX's side is compiled once a case, with XLA's excess
+precision off (``tests/torch_jax_oracle.py``): each bf16 op rounds as it
+does eagerly.
 """
 import jax
 import jax.numpy as jnp
@@ -26,9 +29,9 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_oracle as oracle
 from autodist_tpu.const import BATCH_MASK_KEY as J_MASK_KEY
 from autodist_tpu.models import gpt as jgpt
-from autodist_tpu.models import train_lib as jtrain
 from autodist_tpu.ops.losses import streaming_softmax_xent as jxent
 from autodist_tpu_torch.const import BATCH_MASK_KEY
 from autodist_tpu_torch.models import convert
@@ -57,8 +60,8 @@ def _both(h, table, t, **kw):
     jkw = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
     tkw = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
     jh = jnp.asarray(h)
-    jl, jg = jax.value_and_grad(lambda a, w: jxent(a, w, jnp.asarray(t), **jkw),
-                                argnums=(0, 1))(jh, jnp.asarray(table))
+    jl, jg = oracle.value_and_grad(lambda a, w: jxent(a, w, jnp.asarray(t), **jkw),
+                                   jh, jnp.asarray(table), argnums=(0, 1))
     th = torch.from_numpy(h).requires_grad_(True)
     tw = torch.from_numpy(table).requires_grad_(True)
     tl = txent(th, tw, torch.from_numpy(t), **tkw)
@@ -115,8 +118,8 @@ def test_bf16_hidden_matches_jax(data):
     JAX's dot_general does; dh comes back in bf16."""
     h, table, t = data
     jh = jnp.asarray(h, jnp.bfloat16)
-    jl, jg = jax.value_and_grad(lambda a, w: jxent(a, w, jnp.asarray(t), chunk=32),
-                                argnums=(0, 1))(jh, jnp.asarray(table))
+    jl, jg = oracle.value_and_grad(lambda a, w: jxent(a, w, jnp.asarray(t), chunk=32),
+                                   jh, jnp.asarray(table), argnums=(0, 1))
     th = torch.from_numpy(np.array(jh.astype(jnp.float32))).to(torch.bfloat16)
     th.requires_grad_(True)
     tw = torch.from_numpy(table).requires_grad_(True)
@@ -137,8 +140,8 @@ def test_bf16_table_matches_jax(data, hidden, layout):
     if layout == "dv":
         table = np.ascontiguousarray(table.T)
     jh, jw = jnp.asarray(h, getattr(jnp, hidden)), jnp.asarray(table, jnp.bfloat16)
-    jl, jg = jax.value_and_grad(lambda a, w: jxent(a, w, jnp.asarray(t), chunk=32,
-                                                   layout=layout), argnums=(0, 1))(jh, jw)
+    jl, jg = oracle.value_and_grad(lambda a, w: jxent(a, w, jnp.asarray(t), chunk=32,
+                                                      layout=layout), jh, jw, argnums=(0, 1))
     th = torch.from_numpy(h).to(getattr(torch, hidden)).requires_grad_(True)
     tw = torch.from_numpy(table).to(torch.bfloat16).requires_grad_(True)
     tl = txent(th, tw, torch.from_numpy(t), chunk=32, layout=layout)
@@ -161,8 +164,8 @@ def _gpt_batch(r, B):
 def test_gpt_capture_streaming_matches_jax(mask):
     r = np.random.RandomState(2 if mask else 0)
     batch = _gpt_batch(r, 4 if mask else 2)
-    j_loss_fn, j_params, _ = jtrain.gpt_capture(jgpt.GPT_TINY, SEQ, streaming_loss=True,
-                                                loss_chunk=128)
+    j_loss_fn, j_params = oracle.gpt_capture(jgpt.GPT_TINY, SEQ, streaming_loss=True,
+                                             loss_chunk=128)
     t_loss_fn, t_params, _ = gpt_capture(tgpt.GPT_TINY, SEQ, device="cpu",
                                          streaming_loss=True, loss_chunk=128)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -170,7 +173,7 @@ def test_gpt_capture_streaming_matches_jax(mask):
     if mask:   # the session's per-example weights, non-binary
         weights = np.asarray([1.0, 0.5, 0.25, 0.0], np.float32)
         jb[J_MASK_KEY], tb[BATCH_MASK_KEY] = jnp.asarray(weights), torch.from_numpy(weights)
-    jl, jg = jax.value_and_grad(j_loss_fn)(j_params, jb, jax.random.PRNGKey(0))
+    jl, jg = oracle.value_and_grad(j_loss_fn, j_params, jb, jax.random.PRNGKey(0))
     loaded = {convert.torch_to_jax_name(n): t.requires_grad_(True)
               for n, t in convert.params_from_jax(j_params).items()}
     assert sorted(loaded) == sorted(t_params)

@@ -24,9 +24,8 @@ import torch
 from jax.sharding import Mesh, PartitionSpec as P
 
 import torch_gloo_ranks as ranks
+import torch_jax_oracle as oracle
 from autodist_tpu.kernel.synchronization.compressor import get_compressor as jget
-from autodist_tpu.models import gpt as jgpt
-from autodist_tpu.models import train_lib as jtrain
 from autodist_tpu.proto import synchronizers_pb2
 from autodist_tpu_torch import optim
 from autodist_tpu_torch.autodist import AutoDist
@@ -94,8 +93,7 @@ def test_all_reduce_at_one_replica_matches_jax():
 
 
 def _jax_gpt_params():
-    _, params, _ = jtrain.gpt_capture(jgpt.GPT_TINY, ranks.GPT_SEQ)
-    return params
+    return oracle.world_gpt_params()
 
 
 def test_all_reduce_over_four_ranks_matches_jax():

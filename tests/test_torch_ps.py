@@ -9,12 +9,14 @@
 - The plans: a scalar is forced to AllReduce, and ``update_space_shape``
   equals JAX's at R = 1, 3 and 4; each step runs one reduce-scatter and
   one all-gather per dtype group.
-- Three GPT-tiny steps under the default builder follow the JAX
+- Three steps of a one-block GPT-tiny under the default builder follow the JAX
   ``AutoDist`` with ``PSLoadBalancing`` at
   ``test_three_steps_match_jax_autodist``'s tolerances.
 - The knobs of later slices raise: ``PS(sync=False)`` and
-  ``PS(staleness=2)`` at ``distribute`` (Queue A item 6), a ``ps_axes``
-  subset at construction (item 6), ``fit(checkpoint_path=...)`` (item 7).
+  ``PS(staleness=2)`` at ``distribute`` (Queue A item 6),
+  ``fit(checkpoint_path=...)`` (item 7); ``ps_axes`` naming no data axis
+  raises at ``distribute`` (the subsets run in
+  ``tests/test_torch_partitioned.py``).
 - In the 4-rank gloo world (``tests/torch_gloo_ranks.py``, started once
   per test process), against the single-device optax oracles of the JAX
   package's tests on the same numpy inputs:
@@ -25,6 +27,8 @@
   (atol 2e-5, loss within 1e-4); ``run_steps``, ``fit`` and
   ``check_replication``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,11 +37,11 @@ import pytest
 import torch
 
 import torch_gloo_ranks as ranks
+import torch_jax_oracle as oracle
 from autodist_tpu.autodist import AutoDist as JAutoDist
 from autodist_tpu.kernel import partitioner as jpart
 from autodist_tpu.model_item import ModelItem as JModelItem
 from autodist_tpu.models import gpt as jgpt
-from autodist_tpu.models import train_lib as jtrain
 from autodist_tpu.resource_spec import ResourceSpec as JResourceSpec
 from autodist_tpu.strategy import PS as JPS
 from autodist_tpu.strategy import PSLoadBalancing as JPSLoadBalancing
@@ -138,12 +142,15 @@ def test_default_builder_three_steps_match_jax_autodist(opt):
     toks = np.random.default_rng(0).integers(0, jgpt.GPT_TINY.vocab_size,
                                              (B, SEQ + 1)).astype(np.int32)
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
-    j_loss_fn, j_params, j_sparse = jtrain.gpt_capture(jgpt.GPT_TINY, SEQ)
+    # one GPT-tiny block: every op of the model, half the JAX compile
+    j_loss_fn, j_params = oracle.gpt_capture(
+        dataclasses.replace(jgpt.GPT_TINY, num_layers=1), SEQ)
     j_sess = JAutoDist(resource_spec=JResourceSpec.from_num_chips(1)).distribute(
-        j_loss_fn, j_params, make_j(), sparse_vars=j_sparse, has_rng=True)
+        j_loss_fn, j_params, make_j(), has_rng=True)
     j_losses = [float(j_sess.run(batch)["loss"]) for _ in range(STEPS)]
 
-    t_loss_fn, _, t_sparse = gpt_capture(tgpt.GPT_TINY, SEQ, device="cpu")
+    t_loss_fn, _, t_sparse = gpt_capture(dataclasses.replace(tgpt.GPT_TINY, num_layers=1),
+                                         SEQ, device="cpu")
     t_params = {convert.torch_to_jax_name(n): t
                 for n, t in convert.params_from_jax(j_params).items()}
     t_sess = AutoDist(resource_spec=ResourceSpec(resource_info=CPU_SPEC),
@@ -182,8 +189,10 @@ def test_async_and_stale_ps_raise_at_distribute(kwargs, item):
 
 
 def test_ps_axes_subset_raises_and_whole_axis_runs():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        PSLoadBalancing(ps_axes=("replica_ici",))
+    """Axes the mesh lacks raise, as in JAX; the whole data axis is the
+    default realisation."""
+    with pytest.raises(ValueError, match="not data axes"):
+        _linear_session(PSLoadBalancing(ps_axes=("replica_ici",)))
     sess = _linear_session(PS(ps_axes=("replica",)))
     node = sess.transformer.strategy.node_config[0]
     assert node.PSSynchronizer.reduction_destination == "mesh:replica"
@@ -243,8 +252,7 @@ def test_accumulation_splits_the_replica_batch():
 # -- the 4-rank gloo world ----------------------------------------------------
 
 def _jax_gpt_params():
-    _, params, _ = jtrain.gpt_capture(jgpt.GPT_TINY, ranks.GPT_SEQ)
-    return params
+    return oracle.world_gpt_params()
 
 
 @pytest.fixture(scope="module")

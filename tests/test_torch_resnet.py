@@ -8,7 +8,8 @@ zero, so every residual branch carries gradient) and random
 ``batch_stats``.  They go into the PyTorch module with
 ``params_from_jax``.  The same numpy batch goes through
 both.  The JAX side runs the fused norms' Pallas kernels in interpret mode,
-the port their plain versions (CPU tensors).
+the port their plain versions (CPU tensors); the JAX cases are lowered
+one by one and compiled together on a thread pool, once for the module.
 
 16x16 inputs make flax's ``"SAME"`` padding asymmetric twice: the max-pool
 pads (0, 1) on the 8x8 stem output, and the second stage's stride-2 3x3
@@ -29,6 +30,8 @@ convolutions, stated at the test), within 0.15 of its f32-statistics
 logits (``tests/test_models.py``'s bound), and three falling training
 steps.
 """
+from concurrent.futures import ThreadPoolExecutor
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -106,7 +109,7 @@ def _flat(tree):
             for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}
 
 
-def _jax_run(norm, stem, params, stats, batch, train):
+def _jax_loss(norm, stem, stats, batch, train):
     model = _jax_model(norm, stem)
 
     def loss(p):
@@ -116,8 +119,27 @@ def _jax_run(norm, stem, params, stats, batch, train):
         logits, new = out if stats and train else (out, {})
         return jtrain.softmax_cross_entropy(logits, batch["label"]), (logits, new)
 
-    (value, (logits, new)), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
-    return float(value), np.asarray(logits), _flat(new.get("batch_stats", {})), _flat(grads)
+    return loss
+
+
+@pytest.fixture(scope="module")
+def jax_runs(variables):
+    """(norm, stem, train) -> the JAX package's (loss, logits, new batch
+    statistics, gradients) of each parity case: every case lowered, then
+    all compiled at once on a thread pool (XLA compiles outside the
+    interpreter lock), once for the module."""
+    batch = _batch()
+    lowered = {(norm, stem, train): jax.jit(jax.value_and_grad(
+        _jax_loss(norm, stem, variables[norm, stem][1], batch, train), has_aux=True)).lower(
+        variables[norm, stem][0]) for norm, stem in CASES for train in (True, False)}
+    with ThreadPoolExecutor(len(lowered)) as pool:
+        compiled = dict(zip(lowered, pool.map(lambda low: low.compile(), lowered.values())))
+    out = {}
+    for (norm, stem, train), fn in compiled.items():
+        (value, (logits, new)), grads = fn(variables[norm, stem][0])
+        out[norm, stem, train] = (float(value), np.asarray(logits),
+                                  _flat(new.get("batch_stats", {})), _flat(grads))
+    return out
 
 
 def _torch_run(norm, stem, params, stats, batch, train):
@@ -134,10 +156,11 @@ def _torch_run(norm, stem, params, stats, batch, train):
 
 @pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
 @pytest.mark.parametrize("norm,stem", CASES)
-def test_logits_loss_gradients_and_batch_stats_match_flax(variables, norm, stem, train):
+def test_logits_loss_gradients_and_batch_stats_match_flax(variables, jax_runs, norm, stem,
+                                                          train):
     params, stats = variables[norm, stem]
     batch = _batch()
-    j_loss, j_logits, j_new, j_grads = _jax_run(norm, stem, params, stats, batch, train)
+    j_loss, j_logits, j_new, j_grads = jax_runs[norm, stem, train]
     t_loss, t_logits, t_new, t_grads = _torch_run(norm, stem, params, stats, batch, train)
     np.testing.assert_allclose(t_logits, j_logits, atol=OUT_ATOL, rtol=0)
     np.testing.assert_allclose(t_loss, j_loss, atol=OUT_ATOL, rtol=0)

@@ -21,7 +21,7 @@
   mode): output to atol 2e-5, the gradients of ``sum(sin(out))`` to atol
   1e-4 (the JAX ring tests' tolerances); Ulysses at R = 2, causal and
   not, to atol 2e-5, and its indivisible-heads error.
-- The slice as a whole: GPT-tiny (f32, dropout 0), ``AllReduce()``,
+- The slice as a whole: a one-block GPT-tiny (f32, dropout 0), ``AllReduce()``,
   ``sgd(0.05)``, 3 steps on ``mesh: {replica: 2, seq: 2}`` over the 4
   ranks against the JAX ``AutoDist`` on the same mesh over 4 CPU devices
   with ``attention_impl="flash"`` (the Pallas ring in interpret mode):
@@ -49,10 +49,10 @@ import torch
 from jax.sharding import Mesh
 
 import torch_gloo_ranks as ranks
+import torch_jax_oracle as oracle
 from autodist_tpu.autodist import AutoDist as JAutoDist
 from autodist_tpu.model_item import ModelItem as JModelItem
 from autodist_tpu.models import gpt as jgpt
-from autodist_tpu.models import train_lib as jtrain
 from autodist_tpu.ops.pallas import flash_attention as jfa
 from autodist_tpu.parallel import ring_attention as jra
 from autodist_tpu.resource_spec import ResourceSpec as JResourceSpec
@@ -174,8 +174,7 @@ def test_dq_dkdv_plain_with_offsets_match_pallas(where):
 # -- the 4-rank gloo world ----------------------------------------------------
 
 def _jax_gpt_params():
-    _, params, _ = jtrain.gpt_capture(jgpt.GPT_TINY, ranks.GPT_SEQ)
-    return params
+    return oracle.world_gpt_params()
 
 
 def _flax_tree(gpt_params):
@@ -267,10 +266,10 @@ def test_ulysses_rejects_indivisible_heads(gloo):
 
 
 def _jax_gpt_run(inputs, mesh, attention_impl):
-    """The JAX ``AutoDist`` on ``mesh`` over 4 CPU devices: GPT-tiny sgd
+    """The JAX ``AutoDist`` on ``mesh`` over 4 CPU devices: the world GPT's sgd
     steps on the ranks' weights and batch; (losses, parameters, the JAX
     transformer's seq axis)."""
-    model = jgpt.GPT(dataclasses.replace(jgpt.GPT_TINY, attention_impl=attention_impl))
+    model = jgpt.GPT(dataclasses.replace(oracle.world_gpt(), attention_impl=attention_impl))
 
     def loss_fn(p, batch, step_rng):
         logits = model.apply({"params": p}, batch["tokens"], deterministic=False,

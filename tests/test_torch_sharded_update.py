@@ -35,12 +35,12 @@ import pytest
 import torch
 
 import torch_gloo_ranks as ranks
+import torch_jax_oracle as oracle
 from autodist_tpu.autodist import AutoDist as JAutoDist
 from autodist_tpu.kernel import partitioner as jpart
 from autodist_tpu.kernel.synchronization import all_reduce as jar
 from autodist_tpu.model_item import ModelItem as JModelItem
 from autodist_tpu.models import gpt as jgpt
-from autodist_tpu.models import train_lib as jtrain
 from autodist_tpu.resource_spec import ResourceSpec as JResourceSpec
 from autodist_tpu.strategy import AllReduce as JAllReduce
 from autodist_tpu.strategy import base as jbase
@@ -185,8 +185,7 @@ def test_block_codec_falls_back_to_replicated_f32_and_bf16_vars_keep_their_dtype
 # -- the 4-rank gloo world -----------------------------------------------------
 
 def _jax_gpt_params():
-    _, params, _ = jtrain.gpt_capture(jgpt.GPT_TINY, ranks.GPT_SEQ)
-    return params
+    return oracle.world_gpt_params()
 
 
 @pytest.fixture(scope="module")

@@ -1,10 +1,12 @@
-"""The 4-rank gloo world that ``tests/test_torch_compressed_sync.py`` and
-``tests/test_torch_ring_attention.py`` hold against the JAX package: its
-rank code and its launcher.  It imports no JAX: the port has to run where
-JAX is absent.
+"""The 4-rank gloo world that the port's multi-rank tests hold against the
+JAX package: its rank code and its launcher.  It imports no JAX: the port
+has to run where JAX is absent.
 
-:func:`world` starts one process per rank, once per test process (both
-test modules share the world and its results)::
+:func:`world` starts one process per rank, once per test process (every
+test module that needs R > 1 shares the world and its results).  The
+ranks run against one deadline (``WORLD_DEADLINE_S``): a rank that exits
+non-zero, or the deadline passing, kills them all, and the failure, with
+the rank's output, is kept, so that every later caller fails at once::
 
     RANK=r WORLD_SIZE=4 LOCAL_RANK=r AUTODIST_INIT_METHOD=file://DIR/store \\
         AUTODIST_IS_TESTING=1 python tests/torch_gloo_ranks.py DIR
@@ -22,13 +24,13 @@ the CPU), runs the cases below and writes ``DIR/rank<r>.pkl``:
   as that test passes it, and this rank's slice of it from ``shard_batch``
   beside the slice of the ``{"x": ...}`` form;
 - ``compressors``: ``test_compressors``' one sgd step under each codec;
-- ``gpt``: 3 GPT-tiny adamw steps under ``Int8Compressor`` and
-  ``EquarxInt8Compressor``;
+- ``gpt``: 3 adamw steps of a one-block GPT-tiny under ``Int8Compressor``
+  and ``EquarxInt8Compressor``;
 - ``seq_parallel`` (one dict): ring attention on the seq rows of the
   meshes ``{replica: 2, seq: 2}`` and ``{replica: 1, seq: 4}`` under both
   impls, with the gradients of ``sum(sin(out))``; Ulysses attention on the
-  first, causal and not, and its indivisible-heads error; 3 GPT-tiny sgd
-  steps on ``{replica: 2, seq: 2}``, on the flat 4 replicas and on the
+  first, causal and not, and its indivisible-heads error; 3 sgd steps of
+  the one-block GPT-tiny on ``{replica: 2, seq: 2}``, on the flat 4 replicas and on the
   one-axis ``{seq: 4}`` (data parallel, as in JAX), and the error of a
   batch whose dim 1 does not divide;
 - ``ps`` (one dict): the PS builders' weight-update sharding on
@@ -55,18 +57,31 @@ the CPU), runs the cases below and writes ``DIR/rank<r>.pkl``:
   under overlap with accumulation, an int8 DCN codec, the sharded update,
   each IR program, and on the flat mesh the overlap schedule's issue
   record and the barrier's run; the dtypes that reach ``all_reduce`` for
-  bf16 and f32 gradients (``tests/test_wire_dtype.py``).
+  bf16 and f32 gradients (``tests/test_wire_dtype.py``);
+- ``partitioned`` (one dict): the linear model under the four partitioned
+  builders x sgd/adam, with the Adam moments in the variables' shapes
+  (``canonical_leaf``) and each block's round trip through
+  ``canonical_leaf`` and ``uncanonical_leaf``; ``test_sparse_embedding_all_strategies``' four
+  builders; ``tests/test_sharded_embedding.py``'s row-split table (2 sgd
+  steps, the shapes every op of step 1 made, the state's shapes,
+  ``predict`` on 2-D ids); on ``{replica_dcn: 2, replica_ici: 2}``
+  ``tests/test_ps_mesh_subset.py``'s PS, PartitionedPS, whole-axis PS and
+  clipped PS (one sgd step each, with the process groups of their
+  collectives), its Parallax with a sparse table and its unknown axes'
+  error; a tiny NCF, 2 adam steps under Parallax and PartitionedPS.
 
 Every ``AutoDist`` case records its strategy id and final parameters, so
 the test can check that the ranks agree.
 """
 import atexit
+import dataclasses
 import os
 import pickle
 import shutil
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 
@@ -83,6 +98,7 @@ COMPRESSOR_CASES = {"NoneCompressor": 1e-6, "HorovodCompressor": 5e-3,
 GPT_CODECS = ("Int8Compressor", "EquarxInt8Compressor")
 GPT_SEQ, GPT_BATCH, GPT_STEPS = 16, 8, 3
 GPT_VOCAB = 512   # GPT_TINY's vocabulary
+GPT_LAYERS = 1    # one GPT-tiny block: every op of the model, half the JAX compile
 SPEC = {"nodes": [{"address": "localhost", "cpus": list(range(WORLD)), "chief": True}]}
 BLOCK = 256
 # sequence parallelism: (replica, seq) layouts of the ring cases, the ring
@@ -122,6 +138,20 @@ IR_PROGRAMS = (
 HIER_CHUNK_BYTES = 64
 HIER_CODECS = ("NoneCompressor", "BF16Compressor", "BF16CompressorEF")
 POWERSGD_SIZE = 5000
+# the synchronous PS family: the partitioned builders on the linear model;
+# the sparse embedding (V, D) under four builders; the row-split table of
+# tests/test_sharded_embedding.py and its padded vocabulary; the PS subset's
+# axis; a tiny NCF (users, items, mf_dim, mlp_dims) and its batch
+PART_BUILDERS = ("PartitionedPS", "UnevenPartitionedPS", "PartitionedAR",
+                 "RandomAxisPartitionAR")
+SPARSE_BUILDERS = ("Parallax", "AllReduce", "PS", "PartitionedPS")
+SPARSE_V, SPARSE_D, SPARSE_STEPS = 50, 4, 2
+TABLE_V, TABLE_D, TABLE_PAD_V = 4100, 7, 4100
+SUBSET_AXES = ("replica_ici",)
+SUBSET_LR, SUBSET_CLIP = 0.1, 0.05
+NCF_TINY = dict(num_users=40, num_items=24, mf_dim=8, mlp_dims=(16, 8, 4))
+NCF_BUILDERS = ("Parallax", "PartitionedPS")
+NCF_BATCH, NCF_STEPS, NCF_LR = 16, 2, 1e-3
 
 
 def codec_inputs(r, n, seed):
@@ -202,6 +232,7 @@ def make_inputs(jax_gpt_params):
     for i, n in enumerate(CODEC_SIZES):
         inputs["codec_bufs"][n], inputs["codec_states"][n] = codec_inputs(WORLD, n,
                                                                           seed=40 + i)
+    inputs.update(sparse_inputs())
     return inputs
 
 
@@ -216,46 +247,129 @@ def hier_grads():
                 for n, g in g1.items()}
 
 
+def sparse_inputs():
+    """The PS family's cases' inputs, drawn in the JAX tests' orders:
+    ``test_sparse_embedding_all_strategies``' table, projection and ids;
+    ``tests/test_sharded_embedding.py``'s table (the value-exact and 2-D
+    ids batches); ``tests/test_ps_mesh_subset.py``'s MLP, batch and
+    Parallax table; and NCF_TINY's weights (flax names, Dense kernels
+    ``(out, in)``) and batch."""
+    r = np.random.RandomState(1)
+    out = {"sparse_table": r.randn(SPARSE_V, SPARSE_D).astype(np.float32),
+           "sparse_proj": r.randn(SPARSE_D, 2).astype(np.float32)}
+    out["sparse_ids"] = r.randint(0, SPARSE_V, size=(16,)).astype(np.int32)
+    r = np.random.RandomState(0)
+    out["table_params"] = {"emb": r.randn(TABLE_V, TABLE_D).astype(np.float32),
+                           "proj": r.randn(TABLE_D, 2).astype(np.float32)}
+    out["table_ids"] = np.random.RandomState(2).randint(0, TABLE_V, (32,)).astype(np.int32)
+    out["table_ids_2d"] = np.random.RandomState(3).randint(0, TABLE_V,
+                                                           (8, 5)).astype(np.int32)
+    out["subset_batch"] = {"x": np.random.RandomState(0).randn(16, 8).astype(np.float32),
+                           "y": np.random.RandomState(1).randn(16).astype(np.float32)}
+    r = np.random.RandomState(3)
+    out["subset_params"] = {"w1": (r.randn(8, 16) * 0.3).astype(np.float32),
+                            "b1": np.zeros((16,), np.float32),
+                            "w2": (r.randn(16, 1) * 0.3).astype(np.float32)}
+    r = np.random.RandomState(5)
+    out["parallax_params"] = {"emb": (r.randn(30, 8) * 0.3).astype(np.float32),
+                              "w": (r.randn(8, 1) * 0.3).astype(np.float32)}
+    out["parallax_ids"] = np.random.RandomState(6).randint(0, 30, (16,))
+    c, r = NCF_TINY, np.random.RandomState(9)
+    half, dims = c["mlp_dims"][0] // 2, (c["mlp_dims"][0],) + c["mlp_dims"]
+    ncf = {"mf_user_embedding": (c["num_users"], c["mf_dim"]),
+           "mf_item_embedding": (c["num_items"], c["mf_dim"]),
+           "mlp_user_embedding": (c["num_users"], half),
+           "mlp_item_embedding": (c["num_items"], half)}
+    ncf = {n: (0.3 * r.randn(*shape)).astype(np.float32) for n, shape in ncf.items()}
+    for i in range(len(c["mlp_dims"])):
+        ncf[f"Dense_{i}/kernel"] = (r.randn(dims[i + 1], dims[i]) / np.sqrt(dims[i])
+                                    ).astype(np.float32)
+        ncf[f"Dense_{i}/bias"] = (0.1 * r.randn(dims[i + 1])).astype(np.float32)
+    ncf["prediction/kernel"] = r.randn(1, c["mf_dim"] + dims[-1]).astype(np.float32)
+    ncf["prediction/bias"] = np.zeros((1,), np.float32)
+    out["ncf_params"] = ncf
+    out["ncf_batch"] = {"user": r.randint(0, c["num_users"], (NCF_BATCH,)).astype(np.int32),
+                        "item": r.randint(0, c["num_items"], (NCF_BATCH,)).astype(np.int32),
+                        "label": (r.rand(NCF_BATCH) < 0.5).astype(np.float32)}
+    return out
+
+
 _WORLD = {}
+WORLD_DEADLINE_S = 90   # the ranks' whole run, shared by all four
+OUTPUT_TAIL = 4000      # characters of a failed rank's output kept in the message
 
 
-def world(jax_gpt_params):
-    """Start the 4 ranks once per process and return ``(inputs, results)``,
-    the per-rank results in rank order; later calls return the same.
-    ``jax_gpt_params()`` gives the flax GPT-tiny tree; it is called only
-    when the ranks start."""
-    if "results" in _WORLD:
-        return _WORLD["inputs"], _WORLD["results"]
+def rank_command(workdir):
+    """The command each rank runs (its environment says which rank)."""
+    return [sys.executable, os.path.abspath(__file__), workdir]
+
+
+def _start(jax_gpt_params):
+    """Run the four ranks to their end against one deadline; returns the
+    per-rank results, or raises ``RuntimeError`` with the failing rank's
+    output tail.  A rank that exits non-zero, or the deadline passing,
+    kills every rank at once."""
     workdir = tempfile.mkdtemp(prefix="gloo4-")
     atexit.register(shutil.rmtree, workdir, ignore_errors=True)
     inputs = make_inputs(jax_gpt_params())
     with open(os.path.join(workdir, "inputs.pkl"), "wb") as f:
         pickle.dump(inputs, f)
+    logs = [os.path.join(workdir, f"rank{r}.log") for r in range(WORLD)]
     procs = []
     for r in range(WORLD):
         env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(WORLD), LOCAL_RANK=str(r),
                    AUTODIST_INIT_METHOD=f"file://{os.path.join(workdir, 'store')}",
-                   AUTODIST_IS_TESTING="1", PYTHONPATH=REPO, OMP_NUM_THREADS="2")
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), workdir], env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    outputs = []
+                   AUTODIST_IS_TESTING="1", PYTHONPATH=REPO, OMP_NUM_THREADS="2",
+                   GLOO_SOCKET_IFNAME="lo")   # loopback: no hostname lookup
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(rank_command(workdir), env=env, stdout=log,
+                                          stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + WORLD_DEADLINE_S
+    failed = timed_out = None
     try:
-        for p in procs:
-            outputs.append(p.communicate(timeout=240)[0])
+        while failed is None and any(p.poll() is None for p in procs):
+            failed = next((r for r, p in enumerate(procs) if p.poll() not in (None, 0)), None)
+            timed_out = failed is None and time.monotonic() > deadline
+            if timed_out:
+                failed = next(r for r, p in enumerate(procs) if p.poll() is None)
+            time.sleep(0.05)
+        if failed is None:
+            failed = next((r for r, p in enumerate(procs) if p.returncode), None)
     finally:
         for p in procs:
             p.kill()
-    for r, (p, out) in enumerate(zip(procs, outputs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out[-4000:]}"
+            p.wait()
+    if failed is not None:
+        with open(logs[failed], errors="replace") as f:
+            tail = f.read()[-OUTPUT_TAIL:]
+        why = (f"was still running at the {WORLD_DEADLINE_S} s deadline" if timed_out
+               else f"exited {procs[failed].returncode}")
+        raise RuntimeError(f"gloo world: rank {failed} {why}:\n{tail}")
     results = []
     for r in range(WORLD):
         with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
             results.append(pickle.load(f))
     assert [res["rank"] for res in results] == list(range(WORLD))
     assert all(res["world"] == WORLD for res in results)
-    _WORLD.update(inputs=inputs, results=results)
     return inputs, results
+
+
+def world(jax_gpt_params):
+    """Start the 4 ranks once per process and return ``(inputs, results)``,
+    the per-rank results in rank order; later calls return the same.
+    ``jax_gpt_params()`` gives the flax GPT-tiny tree; it is called only
+    when the ranks start.  A world that fails is not started again: its
+    error is kept, and every later call raises it at once."""
+    if "error" in _WORLD:
+        raise RuntimeError(_WORLD["error"])
+    if "results" not in _WORLD:
+        try:
+            inputs, results = _start(jax_gpt_params)
+        except Exception as e:
+            _WORLD["error"] = f"{type(e).__name__}: {e}"
+            raise
+        _WORLD.update(inputs=inputs, results=results)
+    return _WORLD["inputs"], _WORLD["results"]
 
 
 def _session_result(sess, metrics):
@@ -326,7 +440,8 @@ def main(workdir):
         results["compressors", comp] = _session_result(sess, metrics)
 
     for comp in GPT_CODECS:
-        loss_fn, _, sparse = gpt_capture(GPT_TINY, GPT_SEQ, device="cpu")
+        loss_fn, _, sparse = gpt_capture(dataclasses.replace(GPT_TINY, num_layers=GPT_LAYERS),
+                                         GPT_SEQ, device="cpu")
         params = {n: torch.from_numpy(a) for n, a in inputs["gpt_params"].items()}
         sess = autodist(AllReduce(compressor=comp)).distribute(
             loss_fn, params, optim.adamw(1e-3), sparse_vars=sparse, has_rng=True)
@@ -338,10 +453,10 @@ def main(workdir):
     results["ps"] = ps_cases(inputs, world, autodist)
     results["sharded"] = sharded_cases(inputs, autodist)
     results["hier"] = hier_cases(inputs, world, autodist)
+    results["partitioned"] = partitioned_cases(inputs, autodist)
 
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
-    torch.distributed.destroy_process_group()
 
 
 def seq_parallel_cases(inputs, world, autodist):
@@ -386,7 +501,8 @@ def seq_parallel_cases(inputs, world, autodist):
     batch = inputs["gpt_batch"]
     for name, mesh in (("seq", SP_MESH), ("flat", None), ("seq_only", SEQ_ONLY_MESH)):
         spec = dict(SPEC, mesh=mesh) if mesh else SPEC
-        loss_fn, _, sparse = gpt_capture(GPT_TINY, GPT_SEQ, device="cpu")
+        loss_fn, _, sparse = gpt_capture(dataclasses.replace(GPT_TINY, num_layers=GPT_LAYERS),
+                                         GPT_SEQ, device="cpu")
         sess = autodist(AllReduce(), spec).distribute(
             loss_fn, params, optim.sgd(SP_LR), sparse_vars=sparse, has_rng=True)
         losses = [sess.run(batch)["loss"].item() for _ in range(GPT_STEPS)]
@@ -714,6 +830,187 @@ def hier_cases(inputs, world, autodist):
     return out
 
 
+def _builder(name, **kwargs):
+    from autodist_tpu_torch import strategy
+
+    if name in ("PartitionedPS", "UnevenPartitionedPS", "PartitionedAR",
+                "RandomAxisPartitionAR"):
+        kwargs.setdefault("max_shards", 8)
+    if name == "RandomAxisPartitionAR":
+        kwargs.setdefault("seed", 3)
+    return getattr(strategy, name)(**kwargs)
+
+
+class _Shapes:
+    """Every tensor shape an op makes on this rank while it is open (the
+    port's counterpart of walking the step's jaxpr)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        shapes = self.shapes = set()
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                import torch
+
+                out = func(*args, **(kwargs or {}))
+                for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                    if isinstance(t, torch.Tensor):
+                        shapes.add(tuple(t.shape))
+                return out
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def _collectives():
+    """A context that records ``(kind, ranks of its group)`` for every
+    reduce-scatter, all-gather and all-reduce of more than one element."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    seen, originals = [], {}
+
+    def wrap(kind, fn):
+        def call(out_or_tensor, *args, **kwargs):
+            group = kwargs.get("group")
+            if out_or_tensor.numel() > 1:
+                seen.append((kind, tuple(dist.get_process_group_ranks(group))
+                             if group is not None else tuple(range(dist.get_world_size()))))
+            return fn(out_or_tensor, *args, **kwargs)
+        return call
+
+    @contextlib.contextmanager
+    def recording():
+        for name, kind in (("reduce_scatter_tensor", "scatter"),
+                           ("all_gather_into_tensor", "gather"), ("all_reduce", "psum")):
+            originals[name] = getattr(dist, name)
+            setattr(dist, name, wrap(kind, originals[name]))
+        try:
+            yield seen
+        finally:
+            for name, fn in originals.items():
+                setattr(dist, name, fn)
+
+    return recording()
+
+
+def partitioned_cases(inputs, autodist):
+    """The synchronous PS family: the partitioned builders, sparse lookups,
+    the row-split table, the PS over a subset of the data axes, NCF."""
+    import torch
+
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.models.ncf import NCFConfig
+    from autodist_tpu_torch.models.train_lib import ncf_capture
+    from autodist_tpu_torch.ops.sparse import embedding_lookup
+
+    out = {}
+
+    def tensors(arrays):
+        return {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()}
+
+    def result(sess, metrics, **extra):
+        t = sess.transformer
+        return dict(_session_result(sess, metrics), **extra,
+                    plans={n: (p.placement.value, p.partition_axis, p.padded_dim, p.ps_axes)
+                           for n, p in t.plans.items()},
+                    stored={n: tuple(x.shape) for n, x in sess.state["params"].items()},
+                    replication=sess.check_replication())
+
+    def linear_loss(p, batch):
+        return torch.mean((batch @ p["w"] + p["b"]) ** 2)
+
+    for name in PART_BUILDERS:
+        for opt in ("sgd", "adam"):
+            make = optim.sgd(0.1) if opt == "sgd" else optim.adam(0.05)
+            sess = autodist(_builder(name)).distribute(
+                linear_loss, tensors(inputs["linear_params"]), make)
+            for _ in range(3):
+                metrics = sess.run(inputs["linear_batch"])
+            t, opt_state = sess.transformer, sess.state["opt_state"].state
+            out["linear", name, opt] = result(
+                sess, metrics, roundtrip=all(
+                    torch.equal(t.uncanonical_leaf(t.canonical_leaf(x, n), n), x.detach())
+                    for n, x in sess.state["params"].items()),
+                moments={n: {k: t.canonical_leaf(v, n).numpy() for k, v in opt_state[x].items()
+                             if k.startswith("exp_avg")}
+                         for n, x in sess.state["params"].items() if x in opt_state})
+
+    def sparse_loss(p, batch):
+        return torch.mean((embedding_lookup(p["emb"], batch["ids"]) @ p["proj"]) ** 2)
+
+    for name in SPARSE_BUILDERS:
+        sess = autodist(_builder(name)).distribute(
+            sparse_loss, tensors({"emb": inputs["sparse_table"], "proj": inputs["sparse_proj"]}),
+            optim.sgd(0.1), sparse_vars=["emb"])
+        for _ in range(SPARSE_STEPS):
+            metrics = sess.run({"ids": inputs["sparse_ids"]})
+        out["sparse", name] = result(sess, metrics)
+
+    sess = autodist(_builder("PartitionedPS")).distribute(
+        sparse_loss, tensors(inputs["table_params"]), optim.sgd(0.1), sparse_vars=["emb"])
+    with _Shapes() as step_shapes:
+        sess.run({"ids": inputs["table_ids"]})
+    metrics = sess.run({"ids": inputs["table_ids"]})
+    state_shapes = {tuple(t.shape) for t in sess.state["params"].values()}
+    state_shapes |= {tuple(v.shape) for st in sess.state["opt_state"].state.values()
+                     for v in st.values() if isinstance(v, torch.Tensor)}
+    out["table"] = result(
+        sess, metrics, step_shapes=sorted(step_shapes.shapes), state_shapes=sorted(state_shapes),
+        predict=sess.predict({"ids": inputs["table_ids_2d"]},
+                             lambda p, b: embedding_lookup(p["emb"], b["ids"])).numpy())
+
+    def mlp_loss(p, b):
+        h = torch.tanh(b["x"] @ p["w1"] + p["b1"])
+        return torch.mean(((h @ p["w2"])[:, 0] - b["y"]) ** 2)
+
+    hspec = dict(SPEC, mesh=HIER_MESH)
+    for key, builder, kw in (
+            ("PS", _builder("PS", ps_axes=SUBSET_AXES), {}),
+            ("PartitionedPS", _builder("PartitionedPS", ps_axes=SUBSET_AXES, max_shards=4), {}),
+            ("full", _builder("PS"), {}),
+            ("clip", _builder("PS", ps_axes=SUBSET_AXES), {"clip_global_norm": SUBSET_CLIP})):
+        sess = autodist(builder, hspec).distribute(
+            mlp_loss, tensors(inputs["subset_params"]), optim.sgd(SUBSET_LR), **kw)
+        with _collectives() as seen:
+            metrics = sess.run(inputs["subset_batch"])
+        out["subset", key] = result(
+            sess, metrics, collectives=sorted(set(seen)),
+            grad_norm=float(metrics["grad_norm"]) if "grad_norm" in metrics else None)
+
+    def parallax_loss(p, b):
+        return torch.mean((embedding_lookup(p["emb"], b["ids"]) @ p["w"])[..., 0] ** 2)
+
+    sess = autodist(_builder("Parallax", ps_axes=SUBSET_AXES), hspec).distribute(
+        parallax_loss, tensors(inputs["parallax_params"]), optim.sgd(SUBSET_LR),
+        sparse_vars=["emb"])
+    out["subset", "Parallax"] = result(sess, sess.run({"ids": inputs["parallax_ids"]}))
+    try:
+        autodist(_builder("PS", ps_axes=("nope",)), hspec).distribute(
+            mlp_loss, tensors(inputs["subset_params"]), optim.sgd(SUBSET_LR))
+    except ValueError as e:
+        out["subset_unknown_axes"] = str(e)
+
+    loss_fn, _, sparse = ncf_capture(NCFConfig(**NCF_TINY), device="cpu")
+    for name in NCF_BUILDERS:
+        sess = autodist(_builder(name)).distribute(
+            loss_fn, tensors(inputs["ncf_params"]), optim.adam(NCF_LR), sparse_vars=sparse)
+        losses = [sess.run(inputs["ncf_batch"])["loss"].item() for _ in range(NCF_STEPS)]
+        out["ncf", name] = result(sess, {"loss": torch.tensor(losses[-1])}, losses=losses)
+    return out
+
+
 if __name__ == "__main__":
     sys.path.insert(0, REPO)
     main(sys.argv[1])
+    # the results are written and every collective has returned: leave
+    # without the interpreter's and the process group's teardown (~4 s)
+    sys.stdout.flush()
+    os._exit(0)
