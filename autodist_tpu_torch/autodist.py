@@ -36,8 +36,24 @@ one-process run on the spec's first GPU; ``device="cpu"`` runs on the
 CPU.  Without a GPU and without that request it raises.  ``sparse_vars``
 names the variables used only through
 :func:`~autodist_tpu_torch.ops.sparse.embedding_lookup`, whose backward
-syncs their rows.  ``launch``, ``serve``, ``aot_compile``, the async and
-stale PS (``PS(sync=False)``, ``staleness > 0``) and the options
+syncs their rows.  ``donate`` is taken and has no effect: the port
+updates the parameters in place, which is what donation buys JAX.
+
+A PS with ``staleness > 0`` and ``sync=True`` runs on the synchronous
+engine with DIVERGENT copies, averaged every ``staleness + 1`` steps
+(:mod:`autodist_tpu_torch.kernel.partitioner`).  A strategy with any PS
+node of ``sync=False`` (on the node or on a partition's ``part_config``)
+selects the asynchronous runtime instead, as in JAX: in one process, an
+:class:`~autodist_tpu_torch.kernel.synchronization.async_ps.AsyncPSEngineSession`
+with one worker thread per GPU of the spec (per spec device, all on the
+CPU, with ``device="cpu"``); across processes (a spec of several nodes,
+``AUTODIST_NUM_PROCESSES > 1`` or a launched world of several ranks), an
+:class:`~autodist_tpu_torch.kernel.synchronization.async_service.AsyncPSClusterSession`
+whose chief serves the parameters over TCP and whose every process drives
+one worker.  The options only the synchronous engine implements
+(``batch_mask``, ``rng``, ``accum_steps`` other than 1,
+``clip_global_norm``, ``sync_schedule``) raise ``NotImplementedError``
+there.  ``launch``, ``serve``, ``aot_compile`` and the options
 ``data_axes``, ``batch_spec``, ``param_specs`` and ``verify`` are later
 slices of the port (ROADMAP, Queue A); they raise
 ``NotImplementedError``.
@@ -58,6 +74,19 @@ from autodist_tpu_torch.utils import logging
 from autodist_tpu_torch.utils.remat import checkpoint
 
 _DEFAULT_AUTODIST = {}
+
+
+def _strategy_requests_async(proto):
+    """True when any node, or any partition's ``part_config``, carries an
+    async ``PSSynchronizer`` (``sync=False``): the switch into the host-PS
+    async runtime."""
+    for n in proto.node_config:
+        for src in (n, *n.part_config):
+            if (src.WhichOneof("synchronizer") == "PSSynchronizer"
+                    and not src.PSSynchronizer.sync):
+                return True
+    return False
+
 
 # distribute() options of the JAX engine that later slices realise: the
 # value that means "off", and the ROADMAP Queue A item that ports it
@@ -151,7 +180,7 @@ class AutoDist:
                    mutable_state: Any = None, eval_fn: Optional[Callable] = None,
                    accum_steps: int = 1, clip_global_norm: Optional[float] = None,
                    batch_mask: bool = False, remat: bool = False,
-                   sync_schedule: Optional[str] = None, **options):
+                   sync_schedule: Optional[str] = None, donate: bool = True, **options):
         """Capture single-device code and return a :class:`DistributedSession`.
 
         ``rng`` is the integer seed of the step generators (``has_rng``).
@@ -166,7 +195,10 @@ class AutoDist:
         padded and masked, with a loss that ignores the masked rows (the
         ``train_lib`` losses do); ``eval_fn`` is ``predict``'s default;
         ``sync_schedule`` (``"overlap"`` or ``"barrier"``) overrides the
-        strategy's issue schedule.
+        strategy's issue schedule.  ``donate`` is ignored: the port
+        updates the stored tensors in place, so there is no buffer to
+        donate.  An async strategy returns an async session (see the
+        module's docstring).
         """
         from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
         from autodist_tpu_torch.runner import DistributedSession
@@ -185,8 +217,14 @@ class AutoDist:
         item = ModelItem(loss_fn, params, optimizer, sparse_vars=sparse_vars,
                          has_aux=has_aux, has_rng=has_rng, mutable_state=mutable_state,
                          eval_fn=eval_fn, name=name)
+        del donate   # the port updates in place
         raw = self._build_or_load_strategy(item)
         strategy = StrategyCompiler(item, self._resource_spec).compile(raw)
+        if _strategy_requests_async(strategy.proto):
+            return self._async_session(
+                item, strategy, raw.id, batch_mask=batch_mask or None, rng=rng,
+                accum_steps=None if accum_steps == 1 else accum_steps,
+                clip_global_norm=clip_global_norm, sync_schedule=sync_schedule)
         world = self._mesh_world(strategy.graph_config.mesh)
         transformer = GraphTransformer(strategy, item, self._device, world,
                                        accum_steps=accum_steps,
@@ -194,3 +232,34 @@ class AutoDist:
                                        sync_schedule=sync_schedule)
         return DistributedSession(transformer, rng=rng, strategy_id=raw.id,
                                   batch_mask=batch_mask)
+
+    def _async_session(self, item, strategy, run_id, **engine_options):
+        """The async runtime's session (JAX ``_assemble_session``'s async
+        branch); ``engine_options`` are the options only the synchronous
+        engine implements, None where unset, and any set one raises."""
+        from autodist_tpu_torch.kernel.synchronization.async_ps import AsyncPSEngineSession
+        from autodist_tpu_torch.kernel.synchronization.async_service import (
+            AsyncPSClusterSession)
+
+        unsupported = sorted(k for k, v in engine_options.items() if v is not None)
+        if unsupported:
+            raise NotImplementedError(
+                f"async PS runtime (sync=False) does not support {unsupported}; use the "
+                f"synchronous engine or drop these options")
+        spec, world = self._resource_spec, self.world
+        n_nodes = len(spec.node_addresses)
+        if world.size > 1 or n_nodes > 1 or ENV.AUTODIST_NUM_PROCESSES.val > 1:
+            # one worker a process; the chief serves the parameters
+            if world.size > 1:
+                num, worker_id = world.size, world.rank
+            else:
+                num = n_nodes if n_nodes > 1 else ENV.AUTODIST_NUM_PROCESSES.val
+                worker_id = None
+            return AsyncPSClusterSession(strategy, item, run_id=run_id, num_workers=num,
+                                         worker_id=worker_id, chief_host=spec.chief,
+                                         device=self._device, world=world)
+        if self._device.type == "cpu":
+            devices = [self._device] * max(1, len(list(spec.devices)))
+        else:
+            devices = [torch_device(name) for name, _ in spec.gpu_devices] or [self._device]
+        return AsyncPSEngineSession(strategy, item, devices=devices)

@@ -2,9 +2,12 @@
 
 Own copy of the parts of ``autodist_tpu/const.py`` the port uses: the
 working directories, the mesh axis names, the batch-mask key, the default
-bucket size, the ``ENV`` entries the chief/worker strategy hand-off reads,
-and the launcher's rank environment (``torchrun``'s ``RANK``,
-``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``, or an
+bucket size, the async parameter server's default port, the ``ENV``
+entries the chief/worker strategy hand-off and the async PS's processes
+read (``AUTODIST_PROCESS_ID``, ``AUTODIST_NUM_PROCESSES``,
+``AUTODIST_ASYNC_PS_ADDR``, ``AUTODIST_ASYNC_PS_AUTHKEY``), and the
+launcher's rank environment (``torchrun``'s ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``, or an
 ``AUTODIST_INIT_METHOD`` such as ``file:///path``).
 """
 import os
@@ -28,6 +31,11 @@ BATCH_MASK_KEY = "__batch_mask__"
 # Default gradient bucket size in bytes.
 DEFAULT_BUCKET_BYTES = 32 * 1024 * 1024
 
+# Default port of the chief's cross-process async parameter server
+# (kernel/synchronization/async_service.py); ENV.AUTODIST_ASYNC_PS_ADDR
+# ("host:port", port 0 = ephemeral) overrides it per run.
+DEFAULT_ASYNC_PS_PORT = 15990
+
 
 class ENV(Enum):
     """Environment variables with typed accessors (read at each ``.val``)."""
@@ -36,6 +44,13 @@ class ENV(Enum):
     AUTODIST_STRATEGY_ID = (lambda v: v or "",)
     AUTODIST_MIN_LOG_LEVEL = (lambda v: v or "INFO",)
     AUTODIST_IS_TESTING = (lambda v: v == "True" or v == "1",)
+    # the async PS's processes: this one's id (0 the chief) and their count
+    AUTODIST_PROCESS_ID = (lambda v: int(v) if v else 0,)
+    AUTODIST_NUM_PROCESSES = (lambda v: int(v) if v else 1,)
+    # "host:port" of the chief's async PS service, and its transport
+    # authkey, hex-encoded (absent: the key derived from the strategy id)
+    AUTODIST_ASYNC_PS_ADDR = (lambda v: v or "",)
+    AUTODIST_ASYNC_PS_AUTHKEY = (lambda v: v or "",)
     # one process per replica, as torchrun launches them
     RANK = (lambda v: int(v or 0),)
     WORLD_SIZE = (lambda v: int(v or 1),)

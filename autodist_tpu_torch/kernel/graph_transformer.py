@@ -7,7 +7,8 @@ synchronised by the bucketed all-reduce; weight-update sharding, the
 synchronous PS's (over every data axis, or a subset of them) and the
 AllReduce family's ``sharded_update`` (with or without
 ``precision="bf16_master"``); SHARDED storage of partitioned variables;
-sparse variables synced in their lookups.  Each process runs one replica
+DIVERGENT copies (a PS with ``staleness > 0``); sparse variables synced in
+their lookups.  Each process runs one replica
 on its slice of the global batch; the replicas meet in the collectives of
 ``world.group`` and of its axis groups
 (:mod:`autodist_tpu_torch.parallel.mesh`).  One step is
@@ -71,10 +72,13 @@ on its slice of the global batch; the replicas meet in the collectives of
    ``(R, ceil(n/R))`` matrix, the bucket's matrices side by side, so that
    replica r receives row r, its shard of every variable, summed over the
    replicas and divided by R, the codec on this gradient leg only;
-   :meth:`GraphTransformer.update` runs this step and the next two;
+   :meth:`GraphTransformer.update` runs this step and the next two.  A
+   DIVERGENT variable's gradient joins no bucket: the replica's own (a
+   sparse one's comes synced from its lookup, as in JAX);
 4. with ``clip_global_norm``, the true global norm over the update spaces
    (a PS shard's squared sum summed over the replicas, an AllReduce
-   gradient counted once) scales every gradient by ``min(1, max_norm /
+   gradient counted once, a DIVERGENT one's squared sum averaged over the
+   replicas) scales every gradient by ``min(1, max_norm /
    max(norm, 1e-12))`` and is reported as ``grad_norm``;
 5. optimizer update: the replicated AllReduce variables in place in
    storage; a SHARDED variable on its block, its gradient reduce-scattered
@@ -88,7 +92,12 @@ on its slice of the global batch; the replicas meet in the collectives of
    (:meth:`GraphTransformer.gather_buckets`), and are written into
    storage.  A bf16-master bucket has no gather here: its fresh f32
    shards are the new storage, and the next step's top gather rebuilds
-   its compute copy.
+   its compute copy.  A DIVERGENT variable updates its own copy in
+   place; on a step that ends its period (``(step + 1) % sync_period ==
+   0``, the step counted before this one, so every rank agrees) the
+   copies are averaged over the replicas, one all-reduce per period and
+   dtype (none at R = 1).  Its optimizer state stays the rank's own and
+   is never averaged.
 
 On a mesh with a ``seq`` axis and more than one axis (``{"replica": R_d,
 "seq": R_s}``, even at ``seq: 1``, as in JAX) sequence parallelism is on:
@@ -230,6 +239,14 @@ class GraphTransformer:
         self.sharded_names = [n for n in self.names
                               if self.plans[n].placement == part.Placement.SHARDED]
         self.sharded_buckets = [b for b in self.buckets if ar_sync.bucket_sharded(b)]
+        # DIVERGENT copies, by (sync period, dtype): each group's copies are
+        # averaged by one all-reduce on the steps that end its period
+        self.divergent_names = [n for n in self.names
+                                if self.plans[n].placement == part.Placement.DIVERGENT]
+        self.divergent_groups = OrderedDict()
+        for n in self.divergent_names:
+            key = (self.plans[n].sync_period, dtype_name(self.plans[n].dtype))
+            self.divergent_groups.setdefault(key, []).append(n)
         # bf16-master buckets: the f32 master lives only as the flat shards
         self.precision_buckets = [b for b in self.sharded_buckets if b.precision]
         self._prec_names = frozenset(n for b in self.precision_buckets for n in b.var_names)
@@ -451,10 +468,14 @@ class GraphTransformer:
         stored block, its flat shard, or an optimizer moment of that shape)
         -> the variable's full, unpadded shape, as the single-device program
         holds it (JAX ``_canon_leaf``): blocks and flat shards gathered over
-        the replicas.  A tensor of another shape (a scalar statistic) comes
-        back as it is."""
+        the replicas, a DIVERGENT copy (or moment) averaged over them; each
+        is a collective, which every rank calls.  A tensor of another shape
+        (a scalar statistic) comes back as it is."""
         plan = self.plans[name]
         with torch.no_grad():
+            if plan.placement == part.Placement.DIVERGENT:
+                return (coll.pmean(leaf.detach(), self.group)
+                        if tuple(leaf.shape) == tuple(plan.shape) else leaf)
             if plan.placement == part.Placement.SHARDED:
                 blk = list(plan.shape)
                 blk[plan.partition_axis] = plan.padded_dim // self.num_replicas
@@ -468,11 +489,13 @@ class GraphTransformer:
     def uncanonical_leaf(self, full, name):
         """The inverse of :meth:`canonical_leaf` (JAX ``_uncanon_leaf``): a
         tensor of variable ``name``'s shape -> this replica's piece of its
-        update space (its block, or its flat shard); another shape as it
-        is."""
+        update space (its block, its flat shard, or for a DIVERGENT
+        variable a copy of it); another shape as it is."""
         plan = self.plans[name]
         if tuple(full.shape) != tuple(plan.shape):
             return full
+        if plan.placement == part.Placement.DIVERGENT:
+            return full.detach().clone()
         if plan.placement == part.Placement.SHARDED:
             return self._block(full, plan)
         if name in self.shard_len:
@@ -673,14 +696,15 @@ class GraphTransformer:
         """The full, unpadded parameters by name, as the single-device
         program sees them: the stored tensors, for the bf16-master
         variables the f32 masters all-gathered from the shards (no full f32
-        copy lives in the state), and the SHARDED variables gathered from
-        their blocks."""
+        copy lives in the state), the SHARDED variables gathered from
+        their blocks, and the DIVERGENT ones averaged over the replicas
+        (collectives: every rank calls this)."""
         out = OrderedDict(state["params"])
         with torch.no_grad():
             for b in self.precision_buckets:
                 out.update(ar_sync.gather_bucket_params(state["shards"], b, self.group,
                                                         hier=self.hier_spec, axes=self.axes))
-            for n in self.sharded_names:
+            for n in self.sharded_names + self.divergent_names:
                 out[n] = self.canonical_leaf(out[n], n)
         return out
 
@@ -688,13 +712,17 @@ class GraphTransformer:
         """The global norm of the update-space gradients: flat shards (PS
         and sharded-update) and SHARDED blocks summed over the replicas (a
         shard of a PS confined to a subset of the data axes divided by its
-        copies across the others), replicated gradients counted once."""
+        copies across the others), a DIVERGENT variable's local gradient
+        averaged over them (JAX ``graph_transformer.py:1422-1426``),
+        replicated gradients counted once."""
         sq = torch.zeros((), device=self.device)
         sq_sharded = torch.zeros((), device=self.device)
         for name, g in update_grads.items():
             s = g.float().square().sum()
             plan = self.plans[name]
-            if plan.placement == part.Placement.SHARDED or part.flat_shard_update(plan):
+            if plan.placement == part.Placement.DIVERGENT:
+                sq_sharded = sq_sharded + s / self.num_replicas
+            elif plan.placement == part.Placement.SHARDED or part.flat_shard_update(plan):
                 copies = self.num_replicas // self._R_for(plan)
                 sq_sharded = sq_sharded + (s / copies if copies > 1 else s)
             else:
@@ -721,7 +749,8 @@ class GraphTransformer:
 
     def update(self, state, grads, presynced=None):
         """Sync ``grads`` (this replica's, by name), clip them, step the
-        optimizer and write the sharded buckets' shards back into storage;
+        optimizer, write the sharded buckets' shards back into storage and
+        average the DIVERGENT copies whose period ends at this step;
         returns the extra metrics (``grad_norm`` when clipping).  With
         ``presynced`` (the entries the overlap schedule's hooks synced) only
         the other buckets sync here."""
@@ -746,7 +775,57 @@ class GraphTransformer:
             for name in self.names:
                 shards.get(name, storage[name]).grad = None
         self.gather_buckets(state)
+        self.average_divergent(state)
         return metrics
+
+    def average_divergent(self, state):
+        """JAX's DIVERGENT write-back (``graph_transformer.py:1500-1515``):
+        each group whose period ends at this step, ``(state["step"] + 1) %
+        sync_period == 0`` with the step not yet counted (the same on every
+        rank, so every rank takes the same collectives), has its copies
+        replaced by their mean over the replicas: the group's copies laid
+        end to end, one all-reduce, divided by R.  At R = 1 the mean is the
+        copy itself, and nothing runs."""
+        if self.group is None or self.num_replicas == 1:
+            return
+        step, params = state["step"], state["params"]
+        with torch.no_grad():
+            for (period, _), names in self.divergent_groups.items():
+                if (step + 1) % period:
+                    continue
+                flat = coll.pmean(torch.cat([params[n].reshape(-1) for n in names]),
+                                  self.group)
+                for n, piece in zip(names, flat.split([params[n].numel() for n in names])):
+                    params[n].copy_(piece.view_as(params[n]))
+
+    def plan_summary(self):
+        """The transform plan, one line a variable (JAX ``plan_summary``):
+        its shape, placement and sync, ``sparse``, a SHARDED variable's
+        axis and padded size, the PS axes of a subset, ``staleness=``, a
+        flat shard's length and ``precision=bf16_master``."""
+        lines = [f"replicas: {self.num_replicas}  accum_steps: {self.accum_steps}  "
+                 f"clip_global_norm: {self.clip_global_norm}",
+                 f"AR buckets: {len(self.buckets) - len(self.ps_groups)}  fused PS groups: "
+                 f"{len(self.ps_groups)}  sync_schedule: {self.sync_schedule}  "
+                 f"sync_hierarchy: {self.sync_hierarchy}  sharded_update_buckets: "
+                 f"{len(self.sharded_buckets)}  divergent groups: "
+                 f"{len(self.divergent_groups)}", ""]
+        for name in self.names:
+            p = self.plans[name]
+            extra = ""
+            if p.placement == part.Placement.SHARDED:
+                extra = f" axis={p.partition_axis} padded={p.padded_dim}"
+            if p.sync == part.SyncKind.PS and p.ps_axes:
+                extra += f" ps_axes={p.ps_axes}"
+            if p.staleness:
+                extra += f" staleness={p.staleness}"
+            if name in self.shard_len:
+                extra += f" sharded_update(ss={self.shard_len[name]})"
+            if name in self._prec_names:
+                extra += " precision=bf16_master"
+            lines.append(f"{name}: shape={tuple(p.shape)} {p.placement.value}/"
+                         f"{p.sync.value}{' sparse' if p.sparse else ''}{extra}")
+        return "\n".join(lines) + "\n"
 
     def step(self, state, batch):
         """One training step on this replica's batch slice, already on the

@@ -23,12 +23,20 @@ these plans:
   sparse table split on dim 0, the block itself,
   :class:`~autodist_tpu_torch.ops.sparse.ShardedTable`), the gradient is
   reduce-scattered along the axis and each replica updates its block;
+- an unpartitioned PS variable with ``sync=False`` or ``staleness > 0``:
+  DIVERGENT storage, each replica holding a full-shape copy of its own
+  (JAX stacks the R copies as ``(R, *shape)`` over the replica axis),
+  updated by the replica's own gradient and averaged over the replicas
+  on every step that ends a period of :attr:`VarPlan.sync_period` =
+  ``staleness + 1`` steps; the synchronous reading of bounded staleness.
+  With ``sync=False`` the session is the asynchronous runtime instead
+  (:mod:`autodist_tpu_torch.kernel.synchronization.async_ps`), which
+  reads the same plans;
 - a sparse variable (``sparse_vars``): its lookup's backward syncs the
   gradient (:func:`~autodist_tpu_torch.ops.sparse.embedding_lookup`), so
   no collective of the step touches it again.
 
-Divergent (PS with ``sync=False`` or ``staleness > 0``) and custom
-(tensor-parallel) placements are later slices and raise
+Custom (tensor-parallel) placements are a later slice and raise
 ``NotImplementedError``.
 """
 import dataclasses
@@ -86,6 +94,11 @@ class VarPlan:
     padded_dim: Optional[int] = None
     logical_shards: int = 1
 
+    @property
+    def sync_period(self) -> int:
+        """Steps between the averaging rounds of a DIVERGENT variable."""
+        return max(self.staleness, 0) + 1
+
 
 def _partition_axis_of(node):
     """(axis, count) of a partition list like ``[1, 2, 1]``; ``(None, 1)``
@@ -126,11 +139,6 @@ def build_var_plans(strategy, model_item, num_replicas, param_specs=None):
         which = which or (src.WhichOneof("synchronizer") if src is not None else None)
         if which == "PSSynchronizer":
             ps = src.PSSynchronizer
-            if axis is None and (not ps.sync or ps.staleness > 0):
-                raise NotImplementedError(
-                    f"{v.name!r}: PS with sync=False or staleness > 0 (the divergent "
-                    f"copies and the async runtime) is a later slice of the port "
-                    f"(ROADMAP, Queue A item 6)")
             plan.sync = SyncKind.PS
             plan.ps_sync = ps.sync
             plan.staleness = ps.staleness
@@ -159,6 +167,9 @@ def build_var_plans(strategy, model_item, num_replicas, param_specs=None):
             plan.partition_axis = axis
             plan.logical_shards = k
             plan.padded_dim = -(-v.shape[axis] // num_replicas) * num_replicas
+        elif plan.sync == SyncKind.PS and (not plan.ps_sync or plan.staleness > 0):
+            plan.placement = Placement.DIVERGENT
+        if plan.placement != Placement.REPLICATED:
             plan.ps_axes = None   # realised only for flat-shard PS variables
         plans[v.name] = plan
     return plans
@@ -225,7 +236,11 @@ def storage_spec(plan, replica_axis="replica"):
     """The partition spec of the variable's storage, one entry per
     dimension as JAX's ``PartitionSpec`` (the mesh axis a dimension is
     split over, or None): the partition axis of a SHARDED plan, dim 0 of a
-    bf16 master's flat shard, else nothing (replicated)."""
+    bf16 master's flat shard, the leading replica axis of JAX's ``(R,
+    *shape)`` stack of a DIVERGENT plan's copies, else nothing
+    (replicated)."""
+    if plan.placement == Placement.DIVERGENT:
+        return (replica_axis,) + (None,) * len(plan.shape)
     if plan.placement == Placement.SHARDED:
         entries = [None] * len(plan.shape)
         entries[plan.partition_axis] = replica_axis
@@ -237,8 +252,9 @@ def storage_spec(plan, replica_axis="replica"):
 
 def storage_shape(plan, num_replicas):
     """Global shape of the storage: a SHARDED plan's with its partition axis
-    padded, a bf16 master's flat padded shard space, else the
-    variable's."""
+    padded, a bf16 master's flat padded shard space, else the variable's.
+    A DIVERGENT plan's is the variable's shape too: the one full copy a
+    rank stores (JAX's global array stacks R of them, ``(R, *shape)``)."""
     if plan.placement == Placement.SHARDED:
         shape = list(plan.shape)
         shape[plan.partition_axis] = plan.padded_dim
@@ -251,7 +267,8 @@ def storage_shape(plan, num_replicas):
 def update_space_shape(plan, num_replicas):
     """Global shape of the update space: a SHARDED plan's storage, the flat
     ``ceil(n/R) * R`` padded elements of a flat-shard plan (R the replicas
-    its PS axes span), else the variable's shape."""
+    its PS axes span), else the variable's shape (a DIVERGENT plan's: the
+    rank's own copy)."""
     if plan.placement == Placement.SHARDED:
         return storage_shape(plan, num_replicas)
     if flat_shard_update(plan):

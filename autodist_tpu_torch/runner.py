@@ -14,7 +14,9 @@ device tensor, so the host waits for the device only when the caller
 reads it.  ``params()`` and ``mutable_state()`` copy the current values,
 the same on every replica, to the host: the full, unpadded f32 parameters
 also under ``precision="bf16_master"``, gathered from the master shards,
-and of SHARDED (partitioned) variables, gathered from their blocks.
+of SHARDED (partitioned) variables, gathered from their blocks, and of
+DIVERGENT variables (a PS with ``staleness > 0``), the mean of the
+replicas' copies, as JAX's fetch contract returns it.
 
 With ``batch_mask=True`` a dict batch whose dim 0 does not divide by the
 replicas times ``accum_steps`` is padded by repeating its last row, and a
@@ -25,8 +27,13 @@ such a batch raises.
 ``run_steps`` and ``fit`` loop over ``run``; ``predict`` runs a forward
 only and gathers its per-example outputs in batch order;
 ``check_replication`` names the variables whose copies differ between the
-replicas.  ``evaluate``, telemetry, preemption and checkpoints are later
-slices of the port (ROADMAP, Queue A items 7 and 10).
+replicas; ``memory_stats`` reads each device's allocator.  Telemetry
+(``run(trace_dir=...)``, ``finalize_telemetry``), preemption and
+checkpoints (``run_steps(preempt_checkpoint_dir=...)``, ``fit``'s) and
+``verify`` are later slices of the port (ROADMAP, Queue A items 7, 10 and
+11): their arguments are taken and raise ``NotImplementedError``, so that
+code written against the JAX session's signatures fails loudly, never
+with a ``TypeError``.
 """
 from collections import OrderedDict
 
@@ -128,15 +135,27 @@ class DistributedSession:
         padded[BATCH_MASK_KEY] = mask
         return padded, pad
 
-    def run(self, batch):
-        """One training step on a global batch; returns the metrics dict."""
+    def run(self, batch, trace_dir=None):
+        """One training step on a global batch; returns the metrics dict.
+        A profile of the step (``trace_dir``) is a later slice (ROADMAP,
+        Queue A item 10) and raises."""
+        if trace_dir is not None:
+            raise NotImplementedError(
+                "run(trace_dir=...): profiles are a later slice of the port (ROADMAP, "
+                "Queue A item 10)")
         if self._batch_mask:
             batch, _ = self._pad_uneven(batch)
         self.state, metrics = self._t.step(self.state, self.shard_batch(batch))
         return metrics
 
-    def run_steps(self, batches, log_every=0):
-        """One step per batch of ``batches``; returns the last metrics."""
+    def run_steps(self, batches, log_every=0, preempt_checkpoint_dir=None):
+        """One step per batch of ``batches``; returns the last metrics.
+        Preemption (``preempt_checkpoint_dir``) is a later slice (ROADMAP,
+        Queue A item 7) and raises."""
+        if preempt_checkpoint_dir is not None:
+            raise NotImplementedError(
+                "run_steps(preempt_checkpoint_dir=...): preemption is a later slice "
+                "of the port (ROADMAP, Queue A item 7)")
         metrics = None
         for i, batch in enumerate(batches):
             metrics = self.run(batch)
@@ -166,8 +185,8 @@ class DistributedSession:
         batch) -> outputs`` (default: the ``eval_fn`` given to
         ``distribute``) under ``no_grad`` on this rank's slice, with the
         full parameters of :meth:`params` (bf16-master ones gathered in
-        f32, as JAX's ``canonicalize_params``).  Every output
-        leaf must be per example, dim 0 the slice's rows: the leaves are
+        f32, DIVERGENT copies averaged, as JAX's ``canonicalize_params``).
+        Every output leaf must be per example, dim 0 the slice's rows: the leaves are
         gathered from the replicas in batch order, trimmed of the rows
         ``batch_mask`` padded, and returned on the host in the outputs'
         structure.  A leaf without that dim 0 raises ``ValueError`` naming
@@ -206,14 +225,15 @@ class DistributedSession:
         """The names of the stored (REPLICATED) variables whose copy on some
         replica differs from rank 0's by more than ``atol`` (for a
         bf16-master variable its bf16 compute copy, the full-shape tensor
-        it stores; its master is sharded; a SHARDED variable's blocks are
-        not compared); every rank returns the same list ([] when the copies
-        agree)."""
+        it stores; its master is sharded; a SHARDED variable's blocks and a
+        DIVERGENT variable's copies are not compared); every rank returns
+        the same list ([] when the copies agree)."""
         group = self._t.group
         if group is None:
             return []
+        skip = set(self._t.sharded_names) | set(self._t.divergent_names)
         names = [n for n in self.state["params"]
-                 if n not in self._t.sharded_names]   # a block differs by design
+                 if n not in skip]   # a block or a divergent copy differs by design
         flags = torch.zeros(len(names), dtype=torch.int32, device=self.device)
         for i, name in enumerate(names):
             mine = self.state["params"][name].detach()
@@ -224,10 +244,30 @@ class DistributedSession:
         torch.distributed.all_reduce(flags, op=torch.distributed.ReduceOp.MAX, group=group)
         return [n for n, f in zip(names, flags.tolist()) if f]
 
+    def memory_stats(self):
+        """This rank's device memory by device name (JAX's per device):
+        ``torch.cuda.memory_stats`` of a CUDA device (bytes and counts of
+        its caching allocator), None for the CPU, which reports none."""
+        dev = self.device
+        return {str(dev): torch.cuda.memory_stats(dev) if dev.type == "cuda" else None}
+
+    def verify(self, batch, hbm_bytes_per_device=None, raise_on_error=True):
+        """The strategy verifier is a later slice (ROADMAP, Queue A item 11)."""
+        raise NotImplementedError("verify: the strategy verifier is a later slice of the "
+                                  "port (ROADMAP, Queue A item 11)")
+
+    def finalize_telemetry(self):
+        """Flush the session's telemetry: the port has none yet (ROADMAP,
+        Queue A item 10), so there is nothing to flush; returns None, as
+        JAX's does with telemetry off."""
+        return None
+
     def params(self):
         """The current full, unpadded parameters by '/'-joined name, copied
         to the host (JAX's ``canonicalize_params``: bf16-master variables
-        gathered from their f32 master shards)."""
+        gathered from their f32 master shards, SHARDED ones from their
+        blocks, DIVERGENT copies averaged); a collective where the state is
+        sharded or divergent, so every rank calls it."""
         return OrderedDict((n, t.detach().cpu().clone())
                            for n, t in self._t.canonical_params(self.state).items())
 

@@ -12,9 +12,12 @@ all-gathered (:mod:`autodist_tpu_torch.kernel.graph_transformer`), so
 ``ps_axes`` names the mesh axes the scatter and gather span, emitted as
 the destination ``"mesh:<axes>"``: on a ``{replica_dcn, replica_ici}``
 mesh, ``ps_axes=("replica_ici",)`` scatters and gathers within each node
-and sums only the 1/R_ici shards across the nodes.  ``sync=False`` and
-``staleness > 0`` build, and raise at ``distribute`` (ROADMAP, Queue A
-item 6).
+and sums only the 1/R_ici shards across the nodes.  ``staleness > 0``
+(with ``sync=True``) keeps a DIVERGENT copy of each non-scalar variable on
+every replica, averaged every ``staleness + 1`` steps; ``sync=False``
+runs the asynchronous parameter server
+(:mod:`autodist_tpu_torch.kernel.synchronization.async_ps`), with
+``staleness`` the bound on how far a worker may run ahead.
 """
 from autodist_tpu_torch.proto import schema
 from autodist_tpu_torch.strategy.base import Strategy, StrategyBuilder

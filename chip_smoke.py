@@ -210,7 +210,22 @@ Phases (each failure exits non-zero before the last line):
    weights and batch, finite losses, no launch of the nine kernels; prints
    each run's losses, median step, peak memory, the card's name and power
    limit, and each NCF run's profile;
-17. prints the ``{"kernels": [...]}`` line (nine kernels), then the
+17. bounded staleness, in a process of its own (``chip_smoke.py --stale
+   PHASE5``), one ``AutoDist`` each: (a) GPT-2 small as in phase 5 (B=8,
+   10 adamw steps, phase 5's weights and batch) under ``PS(staleness=2)``
+   at R = 1: every non-scalar variable DIVERGENT (its own copy, averaged
+   every 3 steps: at R = 1 the identity, no collective), losses within
+   1e-5 relative of phase 5's at step 1 and 1e-3 after (bitwise equality
+   printed), 12 launches a step of each flash kernel; (b) ``distribute``
+   with ``PS(sync=False, staleness=1)``: the async engine session with one
+   worker thread on the card, 3 steps, step 1's loss within 1e-5 relative
+   of phase 5's; (c) ``AsyncPSSession`` with two workers on ``cuda:0``
+   (each its own CUDA stream), delays ``[0, 0.05]`` s, 3 steps each:
+   ``version == 6``, the lead at most 1, at least one stale push, finite
+   losses.  (b) and (c): 12 launches a step of each flash kernel.  Prints
+   each push's host copy and host update times, each worker's step time,
+   the peak memory, and the card's name and power limit;
+18. prints the ``{"kernels": [...]}`` line (nine kernels), then the
    ``{"ok": true, ...}`` line.
 
 Tolerances, kernel vs plain version on the same inputs.  Flash, bf16
@@ -229,6 +244,8 @@ sharded update against phase 5: step 1 relative <= 1e-5, steps 2-10 <=
 1e-3; the bf16 master's step 1 <= 2e-2.  The streaming loss against the
 dense head, and the bench configuration at B=8 against phase 5: step 1
 relative <= 1e-4.  NCF, the two builders' step 1 and one process's:
+relative <= 1e-5.  Bounded staleness against phase 5: the DIVERGENT run's
+step 1 relative <= 1e-5 and steps 2-10 <= 1e-3, the async worker's step 1
 relative <= 1e-5.  Quantization kernels and the
 synced gradients of the int8 codecs: bitwise (both sides divide with IEEE
 division, round half to even and sum the peers in order without FMA).
@@ -305,6 +322,10 @@ NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 # and against one process's dense loss (relative)
 PART_MAX_SHARDS = 8
 NCF_BATCH, NCF_STEPS, NCF_LR, NCF_TOL = 64, 10, 1e-3, 1e-5
+# phase 17: the DIVERGENT run's staleness; the async runs' bounds, steps a
+# worker and the slow worker's delay (s)
+STALE_S, ASYNC_ENGINE_S, ASYNC_THREADS_S, ASYNC_STEPS = 2, 1, 1, 3
+ASYNC_DELAYS = (0.0, 0.05)
 
 
 class SmokeFailure(Exception):
@@ -2138,6 +2159,152 @@ def train_partitioned(torch, m, kernel_modules, phase5):
     return out
 
 
+def train_gpt2_divergent(torch, ad, kernel_modules, phase5):
+    """Phase 17 (a): phase 5's GPT-2 small, weights and batch under
+    ``PS(staleness=STALE_S)`` at R = 1, STEPS adamw steps, held against
+    phase 5's losses."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.kernel.partitioner import Placement
+    from autodist_tpu_torch.models.gpt import GPTConfig
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+
+    config = GPTConfig()
+    loss_fn, params, sparse = gpt_capture(config, SEQ, seed=0)
+    batch = gpt2_batch(config, BATCH)
+    sess = ad.distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
+                         has_rng=True)
+    t = sess.transformer
+    plans = t.plans
+    divergent = [n for n, p in plans.items() if p.placement == Placement.DIVERGENT]
+    nonscalar = [n for n, p in plans.items() if p.shape]
+    print(f"PS(staleness={STALE_S}): {len(divergent)} of {len(plans)} variables DIVERGENT "
+          f"(sync period {plans[divergent[0]].sync_period if divergent else None}), "
+          f"{len(t.buckets)} sync buckets")
+    check(divergent == nonscalar and t.buckets == [],
+          f"PS(staleness={STALE_S}): expected every non-scalar variable DIVERGENT and no "
+          f"bucket, got {len(divergent)} of {len(nonscalar)} and {len(t.buckets)} buckets")
+    losses, step_ms, launches, peak_gb = timed_steps(torch, sess, batch, STEPS, kernel_modules)
+    steady = statistics.median(step_ms[1:])
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, phase5["losses"])]
+    print("DIVERGENT losses: " + ", ".join(f"{x:.6f}" for x in losses))
+    print(f"DIVERGENT: median step {steady:.2f} ms (steps 2-{STEPS}), "
+          f"{BATCH * SEQ / steady * 1e3:.0f} tokens/s, peak memory {peak_gb:.2f} GB "
+          f"(phase 5: {phase5['peak_gb']:.2f} GB), launches {launches}")
+    print(f"DIVERGENT vs phase 5: step 1 relative difference {rel[0]:.3e}, largest over steps "
+          f"2-{STEPS} {max(rel[1:]):.3e}; bitwise equal losses: "
+          f"{losses == list(phase5['losses'])}")
+    check(all(math.isfinite(x) for x in losses), f"DIVERGENT: non-finite loss in {losses}")
+    check(rel[0] <= PS_STEP1_TOL, f"DIVERGENT: step 1 differs from phase 5's by {rel[0]}")
+    check(max(rel[1:]) <= PS_LOSS_TOL, f"DIVERGENT: a loss differs from phase 5's by {max(rel)}")
+    want = flash_launches(config, STEPS)
+    check(launches == want, f"DIVERGENT: expected launches {want}, got {launches}")
+    check(sess.check_replication() == [], "DIVERGENT: check_replication() names variables")
+    del sess, t
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": steady, "peak_gb": peak_gb, "launches": launches}
+
+
+def async_report(torch, tag, sess, kernel_modules, steps, workers):
+    """Print an async run's losses, its pushes' host times and each
+    worker's step time; check its launches (12 a step of each flash
+    kernel) and finite losses; returns the run's numbers."""
+    from autodist_tpu_torch.models.gpt import GPTConfig
+
+    launches = {n: c for m in kernel_modules for n, c in m.LAUNCHES.items()}
+    history = sorted(sess.history, key=lambda h: h[1])
+    losses = [loss for _, _, loss in history]
+    timings = sess.timings
+    copy_ms = [t["copy_s"] * 1e3 for t in timings]
+    update_ms = [t["update_s"] * 1e3 for t in timings]
+    print(f"{tag} losses by version: " + ", ".join(f"w{w} v{v} {x:.6f}"
+                                                    for w, v, x in history))
+    print(f"{tag}: push host copy ms " + ", ".join(f"{x:.1f}" for x in copy_ms)
+          + "; host update ms " + ", ".join(f"{x:.1f}" for x in update_ms))
+    step_ms = {}
+    for w in range(workers):
+        mine = [t["step_s"] * 1e3 for t in timings if t["worker"] == w]
+        step_ms[w] = statistics.median(mine)
+        print(f"{tag}: worker {w} step ms " + ", ".join(f"{x:.1f}" for x in mine)
+              + f" (median {step_ms[w]:.1f}; pull + value and gradient "
+              + ", ".join(f"{t['grads_s'] * 1e3:.1f}" for t in timings if t["worker"] == w)
+              + ")")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{tag}: version {sess.version}, max lead {sess.barrier.max_lead_seen}, stale "
+          f"pushes {sess.stale_pushes}, peak memory {peak_gb:.2f} GB, launches {launches}; "
+          f"{card_line()}")
+    check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss in {losses}")
+    want = flash_launches(GPTConfig(), steps * workers)
+    check(launches == want, f"{tag}: expected launches {want}, got {launches}")
+    return {"losses": losses, "version": sess.version, "max_lead": sess.barrier.max_lead_seen,
+            "stale_pushes": sess.stale_pushes, "copy_ms": copy_ms, "update_ms": update_ms,
+            "step_ms": step_ms, "peak_gb": peak_gb, "launches": launches}
+
+
+def train_async(torch, m, kernel_modules, phase5):
+    """Phase 17 (b) and (c): the async engine session through ``distribute``
+    with one worker on the card, then two worker threads on ``cuda:0``."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.kernel.synchronization.async_ps import (AsyncPSEngineSession,
+                                                                    AsyncPSSession)
+    from autodist_tpu_torch.models.gpt import GPTConfig
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+    from autodist_tpu_torch.strategy import PS
+
+    config = GPTConfig()
+    loss_fn, params, sparse = gpt_capture(config, SEQ, seed=0)
+    batch = gpt2_batch(config, BATCH)
+    out = {}
+    ad = m["AutoDist"](resource_spec=m["spec"],
+                       strategy_builder=PS(sync=False, staleness=ASYNC_ENGINE_S))
+    sess = ad.distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
+                         has_rng=True)
+    check(isinstance(sess, AsyncPSEngineSession) and sess.num_workers == 1,
+          f"PS(sync=False): expected the async engine session with one worker, got "
+          f"{type(sess).__name__}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for km in kernel_modules:
+        km.reset_launches()
+    sess.run([[batch]], ASYNC_STEPS, timeout=300)
+    out["engine"] = async_report(torch, "async engine (1 worker)", sess, kernel_modules,
+                                 ASYNC_STEPS, 1)
+    rel = abs(out["engine"]["losses"][0] - phase5["losses"][0]) / abs(phase5["losses"][0])
+    print(f"async engine: step 1 relative difference from phase 5 {rel:.3e}")
+    check(rel <= PS_STEP1_TOL, f"async engine: step 1 differs from phase 5's by {rel}")
+    check(sess.version == ASYNC_STEPS, f"async engine: version {sess.version}")
+    del sess
+    torch.cuda.empty_cache()
+
+    sess = AsyncPSSession(loss_fn, params, optim.adamw(3e-4), staleness=ASYNC_THREADS_S,
+                          devices=["cuda:0", "cuda:0"], has_rng=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for km in kernel_modules:
+        km.reset_launches()
+    sess.run([[batch], [batch]], ASYNC_STEPS, delays=list(ASYNC_DELAYS), timeout=300)
+    out["threads"] = async_report(torch, "async 2 workers on cuda:0", sess, kernel_modules,
+                                  ASYNC_STEPS, 2)
+    check(sess.version == 2 * ASYNC_STEPS, f"async threads: version {sess.version}")
+    check(sess.barrier.max_lead_seen <= ASYNC_THREADS_S,
+          f"async threads: lead {sess.barrier.max_lead_seen} over the bound")
+    check(sess.stale_pushes >= 1, "async threads: no stale push")
+    del sess
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_stale(torch, m, kernel_modules, phase5):
+    """Phase 17: DIVERGENT GPT-2 small, then the async runs."""
+    from autodist_tpu_torch.strategy import PS
+
+    ad = m["AutoDist"](resource_spec=m["spec"], strategy_builder=PS(staleness=STALE_S))
+    out = {"divergent": train_gpt2_divergent(torch, ad, kernel_modules, phase5)}
+    out.update(train_async(torch, m, kernel_modules, phase5))
+    out["launches"] = {k: sum(out[r]["launches"][k] for r in ("divergent", "engine", "threads"))
+                       for k in ("flash_fwd", "flash_dq", "flash_dkdv")}
+    return out
+
+
 def run_child(args, marker):
     """``chip_smoke.py ARGS`` in a process of its own (``AutoDist`` is one
     instance per process); forwards its output and returns its ``MARKER``
@@ -2351,6 +2518,24 @@ def partitioned_main(phase5):
     return 0
 
 
+def stale_main(phase5):
+    """``chip_smoke.py --stale PHASE5``: bounded staleness (phase 17), one
+    ``AutoDist`` each in this process."""
+    import torch
+
+    os.environ["AUTODIST_IS_TESTING"] = "1"   # several AutoDists in this process
+    m = setup(torch)
+    if m is None:
+        return 1
+    try:
+        result = train_stale(torch, m, (m["fa"], m["fn"], m["tq"]), json.loads(phase5))
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    print("STALE_RESULT " + json.dumps(result))
+    return 0
+
+
 def main():
     try:
         import torch
@@ -2399,6 +2584,9 @@ def main():
         for k, v in variants["launches"].items():   # the codec runs' quantization launches
             launches[k] += v
         run_child(["--partitioned", json.dumps(phase5)], "PARTITIONED_RESULT")
+        stale = run_child(["--stale", json.dumps(phase5)], "STALE_RESULT")
+        for k, v in stale["launches"].items():
+            launches[k] += v
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2431,4 +2619,6 @@ if __name__ == "__main__":
         sys.exit(sync_variants_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--partitioned":
         sys.exit(partitioned_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--stale":
+        sys.exit(stale_main(sys.argv[2]))
     sys.exit(main())

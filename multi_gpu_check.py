@@ -14,6 +14,8 @@ process per GPU (NCCL)::
         multi_gpu_check.py sync
     python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
         multi_gpu_check.py partitioned
+    python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        multi_gpu_check.py stale
 
 ``CODEC`` (one of ``chip_smoke.CODECS``): each rank runs
 ``chip_smoke.train_gpt2_codec`` on its own GPU: GPT-2 small at full width
@@ -97,6 +99,24 @@ of the nine kernels; ``check_replication() == []``; every rank ends with
 the same full parameters.  Prints each builder's median step and peak
 memory.
 
+``stale``: bounded staleness.  GPT-2 small (adamw 3e-4, 8 sequences of
+1024 tokens per rank, 5 steps) under ``PS(staleness=2)``: every variable
+a DIVERGENT copy per rank, updated by the rank's own gradient and
+averaged over the ranks after step 3 (one NCCL all-reduce a period).
+Checks: step 1's loss within 1e-3 relative of one process's loss of the
+global batch; ``check_replication() == []`` (the copies are not
+compared); finite losses that fall; 12 launches a step of each flash
+kernel; the copies equal on every rank after the average of step 3 and
+only then; ``params()`` (the mean of the copies) the same on every rank.
+Then the cross-process async PS: ``PS(sync=False, staleness=1)``, each
+rank one worker on its GPU, rank 0 serving the parameters from threads of
+its process on an ephemeral port handed to the others through the
+process group, 3 steps a worker on the rank's 8 sequences, rank R-1 a
+straggler (0.05 s between pull and push).  Checks: ``version == 3 R``,
+the lead at most 1, finite losses, 12 launches a step of each flash
+kernel, and every rank's ``params()`` after ``wait_all`` equal to the
+chief's.  Prints each run's step times and the server's stats.
+
 Rank 0 builds the kernels and prints; the run ends with a ``RESULT {...}``
 JSON line.  A failed check exits non-zero.
 """
@@ -106,6 +126,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 import chip_smoke as smoke
 
@@ -369,6 +390,7 @@ def compare_sharded(torch, ads, modules, world_size):
 
 
 PARTITIONED_BUILDERS = ("Parallax", "PartitionedPS")
+STALE_S, ASYNC_S, ASYNC_STEPS, ASYNC_DELAY = 2, 1, 3, 0.05
 
 
 def train_ncf_ranks(torch, ad, tag, modules):
@@ -403,11 +425,100 @@ def compare_partitioned(torch, ads, modules, world_size):
     return result
 
 
+def train_stale(torch, ads, modules, world_size):
+    """The ``stale`` mode: DIVERGENT GPT-2 small, then the cluster session."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.kernel.synchronization.async_service import (
+        AsyncPSClusterSession)
+    from autodist_tpu_torch.models.gpt import GPTConfig
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+
+    flat_loss = one_process_loss(torch, world_size)
+    config = GPTConfig()
+    loss_fn, params, sparse = gpt_capture(config, smoke.SEQ, seed=0)
+    batch = smoke.gpt2_batch(config, smoke.BATCH * world_size)
+    tag = f"PS(staleness={STALE_S})"
+    sess = ads[0].distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
+                             has_rng=True)
+    t = sess.transformer
+    smoke.check(len(t.divergent_names) == len(t.names) and not t.buckets,
+                f"{tag}: expected every variable DIVERGENT")
+    for km in modules:
+        km.reset_launches()
+    losses, same, step_ms = [], [], []
+    for _ in range(PS_STEPS):
+        t0 = time.perf_counter()
+        losses.append(sess.run(batch)["loss"].item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        same.append(smoke.same_on_every_rank(torch, list(sess.state["params"].values()),
+                                             t.group))
+    launches = {n: c for km in modules for n, c in km.LAUNCHES.items()}
+    rel = abs(losses[0] - flat_loss) / abs(flat_loss)
+    print(f"{tag} losses: " + ", ".join(f"{x:.6f}" for x in losses))
+    print(f"{tag}: median step {statistics.median(step_ms[1:]):.2f} ms (steps 2-{PS_STEPS}; "
+          f"steps " + ", ".join(f"{x:.2f}" for x in step_ms) + " ms); copies equal on "
+          f"every rank after each step: {same}; step 1 relative difference from one "
+          f"process {rel:.3e}")
+    smoke.check(rel <= smoke.LOSS_REL_TOL, f"{tag}: step 1 differs from one process's by {rel}")
+    smoke.check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+                f"{tag}: losses {losses}")
+    smoke.check(same == [False, False, True, False, False],
+                f"{tag}: expected equal copies only after step 3's average, got {same}")
+    smoke.check(sess.check_replication() == [], f"{tag}: check_replication() names variables")
+    want = smoke.flash_launches(config, PS_STEPS)
+    smoke.check(launches == want, f"{tag}: expected launches {want}, got {launches}")
+    full = sess.params()
+    smoke.check(smoke.same_on_every_rank(torch, [v.cuda() for v in full.values()], t.group),
+                f"{tag}: params() differs between the ranks")
+    result = {"divergent": {"losses": losses, "step_ms": step_ms, "same": same}}
+    del sess, t, full
+    torch.cuda.empty_cache()
+
+    world = ads[1].world
+    os.environ["AUTODIST_ASYNC_PS_ADDR"] = "127.0.0.1:0"   # the chief takes any port
+    try:
+        sess = ads[1].distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
+                                 has_rng=True)
+    finally:
+        del os.environ["AUTODIST_ASYNC_PS_ADDR"]
+    smoke.check(isinstance(sess, AsyncPSClusterSession),
+                f"async: expected the cluster session, got {type(sess).__name__}")
+    rows = slice(world.rank * smoke.BATCH, (world.rank + 1) * smoke.BATCH)
+    mine = {k: v[rows] for k, v in batch.items()}
+    for km in modules:
+        km.reset_launches()
+    t0 = time.perf_counter()
+    sess.run([mine], ASYNC_STEPS, delay=ASYNC_DELAY if world.rank == world_size - 1 else 0.0,
+             timeout=300)
+    run_s = time.perf_counter() - t0
+    sess.wait_all(ASYNC_STEPS, timeout=300)
+    stats = sess.stats()
+    launches = {n: c for km in modules for n, c in km.LAUNCHES.items()}
+    full = sess.params()
+    losses = [loss for _, _, loss in sess.history]
+    print(f"async cluster: rank {world.rank} losses " + ", ".join(f"{x:.6f}" for x in losses)
+          + f", {run_s:.2f} s for {ASYNC_STEPS} steps; server stats {stats}")
+    smoke.check(stats["version"] == ASYNC_STEPS * world_size, f"async: stats {stats}")
+    smoke.check(stats["max_lead_seen"] <= ASYNC_S, f"async: lead over the bound: {stats}")
+    smoke.check(all(math.isfinite(x) for x in losses), f"async: losses {losses}")
+    want = smoke.flash_launches(config, ASYNC_STEPS)
+    smoke.check(launches == want, f"async: expected launches {want}, got {launches}")
+    smoke.check(smoke.same_on_every_rank(torch, [v.cuda() for v in full.values()],
+                                         world.group),
+                "async: the ranks pulled different parameters")
+    torch.distributed.barrier()   # every rank has pulled: the chief may stop serving
+    sess.close()
+    print(f"async cluster: every rank pulled the chief's parameters; "
+          f"{stats['stale_pushes']} stale pushes of {stats['version']}")
+    result["async"] = {"losses": losses, "run_s": run_s, "stats": stats}
+    return result
+
+
 def main(argv):
     import torch
 
     if len(argv) != 1 or argv[0] not in (*smoke.CODECS, "ring", "ps", "sharded", "sync",
-                                         "partitioned"):
+                                         "partitioned", "stale"):
         print(__doc__ + f"\nCODEC is one of {list(smoke.CODECS)}", file=sys.stderr)
         return 2
     mode = argv[0]
@@ -416,7 +527,7 @@ def main(argv):
         print("FAIL: run under torchrun with --nproc-per-node >= 2 (even for ring and sync)",
               file=sys.stderr)
         return 1
-    if mode in ("ring", "ps", "sharded", "sync", "partitioned"):   # several AutoDists
+    if mode in ("ring", "ps", "sharded", "sync", "partitioned", "stale"):   # several AutoDists
         os.environ["AUTODIST_IS_TESTING"] = "1"
     m = smoke.setup(torch)
     if m is None:
@@ -440,6 +551,11 @@ def main(argv):
 
         runs = [(None, strategy.Parallax()),
                 (None, strategy.PartitionedPS(max_shards=smoke.PART_MAX_SHARDS))]
+    elif mode == "stale":
+        from autodist_tpu_torch import strategy
+
+        runs = [(None, strategy.PS(staleness=STALE_S)),
+                (None, strategy.PS(sync=False, staleness=ASYNC_S))]
     else:
         runs = [(None, m["AllReduce"](compressor=mode))]
     ads = [m["AutoDist"](resource_spec=ResourceSpec(resource_info=dict(
@@ -476,6 +592,8 @@ def main(argv):
             result = compare_sync(torch, ads, modules)
         elif mode == "partitioned":
             result = compare_partitioned(torch, ads, modules, world_size)
+        elif mode == "stale":
+            result = train_stale(torch, ads, modules, world_size)
         else:
             result = smoke.train_gpt2_codec(torch, ads[0], mode, modules)
     except smoke.SmokeFailure as e:

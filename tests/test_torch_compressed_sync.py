@@ -138,6 +138,8 @@ def _jax_gpt_params():
     return oracle.world_gpt_params()
 
 
+ranks.prestart(_jax_gpt_params)   # the ranks run while the tests before them do
+
 @pytest.fixture(scope="module")
 def gloo():
     """The 4 ranks (started once per test process); returns (inputs, JAX GPT

@@ -16,20 +16,18 @@
   a loss that reads its leaves from that structure match the JAX
   ``AutoDist`` session's parameters to atol 2e-5 (that test's tolerance);
   a leaf that is no array raises ``TypeError`` naming its path.
-- The package imports no JAX, flax, optax, protobuf or ``autodist_tpu``,
-  and its entry points (``gpt_capture`` and ``classifier_capture`` too)
+- The package imports no JAX, flax, optax, protobuf or ``autodist_tpu``
+  (the import statements, and rank 0 of the gloo world importing every
+  module in an interpreter without JAX), and its entry points (``gpt_capture`` and ``classifier_capture`` too)
   raise without a GPU unless given ``device="cpu"``.
 - The AllReduce knobs (``PowerSGDCompressor``, the overlap schedule,
-  two-level) build; the knobs of later slices raise
-  (``PSLoadBalancing(sync=False)`` and the ``data_axes`` option among
-  them), and a spec of two replicas in a one-process world raises the
+  two-level) build; ``PSLoadBalancing(sync=False)`` gives the async
+  session, the ``data_axes`` option of a later slice raises, and a spec of two replicas in a one-process world raises the
   world-size error instead of running one replica.
 """
 import ast
 import dataclasses
 import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +36,7 @@ import optax
 import pytest
 import torch
 
+import torch_gloo_ranks as ranks
 import torch_jax_oracle as oracle
 from autodist_tpu.autodist import AutoDist as JAutoDist
 from autodist_tpu.kernel import partitioner as jpart
@@ -240,41 +239,30 @@ def _banned(module):
 def test_package_imports_no_jax_protobuf_or_reference_package():
     """Statically: no import statement of the package names a banned root,
     and ``yaml`` only inside a function (read on demand).  Dynamically:
-    importing every module pulls none of them into ``sys.modules``."""
-    pkg = os.path.join(REPO, "autodist_tpu_torch")
-    modules = []
-    for root, _, files in os.walk(pkg):
-        for f in files:
-            if not f.endswith(".py"):
+    rank 0 of the gloo world, an interpreter that never imported JAX,
+    imports every module of the package, and none of them is then among
+    its modules (``tests/torch_gloo_ranks.py::package_imports``)."""
+    for module in ranks.package_modules():
+        path = os.path.join(REPO, *module.split(".")) + ".py"
+        if not os.path.exists(path):
+            path = os.path.join(REPO, *module.split("."), "__init__.py")
+        tree = ast.parse(open(path).read())
+        top_level = {id(n) for n in tree.body}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                roots = [node.module.split(".")[0]]
+            else:
                 continue
-            path = os.path.join(root, f)
-            rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
-            modules.append(rel[:-len(".__init__")] if rel.endswith("__init__") else rel)
-            tree = ast.parse(open(path).read())
-            top_level = {id(n) for n in tree.body}
-            for node in ast.walk(tree):
-                if isinstance(node, ast.Import):
-                    roots = [a.name.split(".")[0] for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.module:
-                    roots = [node.module.split(".")[0]]
-                else:
-                    continue
-                full = [a.name for a in node.names] if isinstance(node, ast.Import) \
-                    else [node.module]
-                assert not any(_banned(m) for m in full if not m.startswith("yaml")), \
-                    (path, full)
-                assert not ("yaml" in roots and id(node) in top_level), path
-    code = ("import importlib, sys\n"
-            "before = set(sys.modules)\n"
-            f"for m in {sorted(modules)!r}: importlib.import_module(m)\n"
-            "print(sorted(set(sys.modules) - before))\n")
-    env = dict(os.environ, PYTHONPATH=REPO)
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    new = ast.literal_eval(out.stdout.strip())
-    assert {"autodist_tpu_torch.models.gpt", "autodist_tpu_torch.models.resnet",
-            "autodist_tpu_torch.ops.fused_norm"} <= set(new)
+            full = [a.name for a in node.names] if isinstance(node, ast.Import) \
+                else [node.module]
+            assert not any(_banned(m) for m in full if not m.startswith("yaml")), \
+                (path, full)
+            assert not ("yaml" in roots and id(node) in top_level), path
+    _, results = ranks.world(oracle.world_gpt_params)
+    new = results[0]["imports"]
+    assert set(ranks.package_modules()) | {"autodist_tpu_torch.models.gpt"} <= set(new)
     assert not [m for m in new if _banned(m)], new
 
 
@@ -315,10 +303,11 @@ def test_strategy_json_roundtrip_and_later_slices_raise(tmp_path):
                                                        "hierarchy": "TWO_LEVEL"}[field]))}
     loss_fn, params, _ = gpt_capture(dataclasses.replace(tgpt.GPT_TINY, num_layers=1),
                                      SEQ, device="cpu")
-    with pytest.raises(NotImplementedError, match="sync=False"):
-        AutoDist(resource_spec=ResourceSpec(resource_info=CPU_SPEC),
-                 strategy_builder=PSLoadBalancing(sync=False), device="cpu").distribute(
-            loss_fn, params, optim.sgd(0.1))
+    # an async PS selects the async runtime (it raised before that slice)
+    sess = AutoDist(resource_spec=ResourceSpec(resource_info=CPU_SPEC),
+                    strategy_builder=PSLoadBalancing(sync=False), device="cpu").distribute(
+        loss_fn, params, optim.sgd(0.1))
+    assert type(sess).__name__ == "AsyncPSEngineSession" and sess.num_workers == 1
     ad = AutoDist(resource_spec=ResourceSpec(resource_info={
         "nodes": [{"address": "localhost", "gpus": [0, 1], "chief": True}]}),
         strategy_builder=AllReduce(), device="cpu")

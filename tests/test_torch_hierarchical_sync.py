@@ -99,6 +99,8 @@ def _jax_gpt_params():
     return oracle.world_gpt_params()
 
 
+ranks.prestart(_jax_gpt_params)   # the ranks run while the tests before them do
+
 @pytest.fixture(scope="module")
 def gloo():
     inputs, results = ranks.world(_jax_gpt_params)

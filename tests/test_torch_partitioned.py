@@ -139,17 +139,25 @@ def test_partitioned_plans_match_jax(builder, r):
 
 
 def test_partitioned_async_ps_keeps_the_shards_and_unsplit_raises():
-    """JAX places a partitioned variable SHARDED whatever its PS's sync;
-    an unsplit one under ``sync=False`` is the async runtime (item 6)."""
-    _, titem = _items()
+    """JAX places a partitioned variable SHARDED whatever its PS's sync; an
+    unsplit non-scalar one under ``sync=False`` is DIVERGENT, as JAX's (the
+    async runtime then serves it), and the scalar stays AllReduce."""
+    arrays = {n: np.zeros(s, np.float32) for n, s in dict(SHAPES, prime=(11, 2)).items()}
+    jitem = JModelItem(lambda p, b: 0.0, {n: jnp.asarray(a) for n, a in arrays.items()})
+    titem = ModelItem(lambda p, b: 0.0, {n: torch.from_numpy(a) for n, a in arrays.items()})
     s = tstrategy.PartitionedPS(max_shards=8, sync=False).build(
         titem, ResourceSpec(resource_info=SPECS["one_node"]))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tpart.build_var_plans(s, titem, 4)
-    s.proto.node_config = [n for n in s.node_config if n.part_config]
     plans = tpart.build_var_plans(s, titem, 4)
-    assert {n for n, p in plans.items() if p.placement == tpart.Placement.SHARDED} == {
-        n.var_name for n in s.node_config}
+    jplans = jpart.build_var_plans(jstrategy.PartitionedPS(max_shards=8, sync=False).build(
+        jitem, _jax_spec(SPECS["one_node"])), jitem, 4)
+    assert {n: p.placement.value for n, p in plans.items()} == {
+        n: p.placement.value for n, p in jplans.items()}
+    split = {n.var_name for n in s.node_config if n.part_config}
+    assert {n for n, p in plans.items() if p.placement == tpart.Placement.SHARDED} == split
+    # 11 has no divisor up to 8: "prime" stays whole
+    assert {n for n, p in plans.items() if p.placement == tpart.Placement.DIVERGENT} == {
+        "prime"} == set(arrays) - split - {"s"}
+    assert plans["s"].placement == tpart.Placement.REPLICATED
 
 
 # -- the 4-rank gloo world ----------------------------------------------------
@@ -157,6 +165,8 @@ def test_partitioned_async_ps_keeps_the_shards_and_unsplit_raises():
 def _jax_gpt_params():
     return oracle.world_gpt_params()
 
+
+ranks.prestart(_jax_gpt_params)   # the ranks run while the tests before them do
 
 @pytest.fixture(scope="module")
 def gloo():

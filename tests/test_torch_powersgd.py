@@ -96,6 +96,8 @@ def _jax_gpt_params():
     return oracle.world_gpt_params()
 
 
+ranks.prestart(_jax_gpt_params)   # the ranks run while the tests before them do
+
 def test_all_reduce_over_four_ranks_matches_jax():
     inputs, results = ranks.world(_jax_gpt_params)
     bufs = inputs["codec_bufs"][ranks.POWERSGD_SIZE]

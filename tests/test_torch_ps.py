@@ -12,9 +12,10 @@
 - Three steps of a one-block GPT-tiny under the default builder follow the JAX
   ``AutoDist`` with ``PSLoadBalancing`` at
   ``test_three_steps_match_jax_autodist``'s tolerances.
-- The knobs of later slices raise: ``PS(sync=False)`` and
-  ``PS(staleness=2)`` at ``distribute`` (Queue A item 6),
-  ``fit(checkpoint_path=...)`` (item 7); ``ps_axes`` naming no data axis
+- ``PS(sync=False)`` gives the async session and ``PS(staleness=2)`` the
+  engine with DIVERGENT copies (their parity with JAX in
+  ``tests/test_torch_async_ps.py`` and ``tests/test_torch_divergent.py``);
+  ``fit(checkpoint_path=...)`` raises (Queue A item 7); ``ps_axes`` naming no data axis
   raises at ``distribute`` (the subsets run in
   ``tests/test_torch_partitioned.py``).
 - In the 4-rank gloo world (``tests/torch_gloo_ranks.py``, started once
@@ -180,12 +181,18 @@ def _linear_session(builder, **options):
         **options)
 
 
-@pytest.mark.parametrize("kwargs,item", [({"sync": False}, "item 6"),
-                                         ({"staleness": 2}, "item 6")])
-def test_async_and_stale_ps_raise_at_distribute(kwargs, item):
-    builder = PS(**kwargs)    # builds: the raise comes at distribute
-    with pytest.raises(NotImplementedError, match=item):
-        _linear_session(builder)
+@pytest.mark.parametrize("kwargs,session", [({"sync": False}, "AsyncPSEngineSession"),
+                                            ({"staleness": 2}, "DistributedSession")])
+def test_async_and_stale_ps_raise_at_distribute(kwargs, session):
+    """``PS(sync=False)`` and ``PS(staleness=2)`` no longer raise: the first
+    gives the async runtime's session, the second the engine with the
+    vector DIVERGENT (the scalar stays AllReduce), as in JAX."""
+    sess = _linear_session(PS(**kwargs))
+    assert type(sess).__name__ == session
+    plans = sess.plans if session == "AsyncPSEngineSession" else sess.transformer.plans
+    assert (plans["w"].placement, plans["b"].placement) == (
+        tpart.Placement.DIVERGENT, tpart.Placement.REPLICATED)
+    assert plans["w"].sync_period == 1 + kwargs.get("staleness", 0)
 
 
 def test_ps_axes_subset_raises_and_whole_axis_runs():
@@ -254,6 +261,8 @@ def test_accumulation_splits_the_replica_batch():
 def _jax_gpt_params():
     return oracle.world_gpt_params()
 
+
+ranks.prestart(_jax_gpt_params)   # the ranks run while the tests before them do
 
 @pytest.fixture(scope="module")
 def gloo():

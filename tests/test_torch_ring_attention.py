@@ -177,6 +177,8 @@ def _jax_gpt_params():
     return oracle.world_gpt_params()
 
 
+ranks.prestart(_jax_gpt_params)   # the ranks run while the tests before them do
+
 def _flax_tree(gpt_params):
     """The ranks' GPT weights as a flax tree."""
     tree, _ = convert.params_to_jax({convert.jax_to_torch_name(n): torch.from_numpy(a)

@@ -3,7 +3,9 @@ JAX package: its rank code and its launcher.  It imports no JAX: the port
 has to run where JAX is absent.
 
 :func:`world` starts one process per rank, once per test process (every
-test module that needs R > 1 shares the world and its results).  The
+test module that needs R > 1 shares the world and its results), unless
+:func:`prestart`, which each such module calls at its import, started
+them while pytest collected the tests.  The
 ranks run against one deadline (``WORLD_DEADLINE_S``): a rank that exits
 non-zero, or the deadline passing, kills them all, and the failure, with
 the rank's output, is kept, so that every later caller fails at once::
@@ -68,10 +70,26 @@ the CPU), runs the cases below and writes ``DIR/rank<r>.pkl``:
   ``tests/test_ps_mesh_subset.py``'s PS, PartitionedPS, whole-axis PS and
   clipped PS (one sgd step each, with the process groups of their
   collectives), its Parallax with a sparse table and its unknown axes'
-  error; a tiny NCF, 2 adam steps under Parallax and PartitionedPS.
+  error; a tiny NCF, 2 adam steps under Parallax and PartitionedPS;
+- ``stale`` (one dict): bounded staleness.  DIVERGENT copies under
+  ``PS(staleness=s)``: ``tests/test_end_to_end.py::
+  test_staleness_local_updates_then_average`` (s = 1, two sgd steps) and
+  ``::test_divergent_params_mid_window`` (s = 3, one step), each rank's
+  own copy beside ``params()``' mean and ``check_replication()``; the
+  linear model under adam (s = 1, 3 steps) with each rank's moments and
+  their canonical mean; the clipped norm (s = 1, 2 steps); a tiny sparse
+  table under ``Parallax(staleness=1)``.  Then the cross-process async
+  PS, ``PS(sync=False, staleness=1)`` on the linear model: rank 0 serves
+  on an ephemeral port and hands the address over through the world,
+  every rank drives one worker for 3 sgd steps on its rows (rank 3 a
+  straggler), waits for all, and records the server's stats and
+  ``params()``.
 
 Every ``AutoDist`` case records its strategy id and final parameters, so
-the test can check that the ranks agree.
+the test can check that the ranks agree.  Rank 0 ends by importing every
+module of ``autodist_tpu_torch`` and records the modules its interpreter
+then holds (``imports``): a process that never imported JAX, where the
+port's must not pull it in.
 """
 import atexit
 import dataclasses
@@ -152,6 +170,13 @@ SUBSET_LR, SUBSET_CLIP = 0.1, 0.05
 NCF_TINY = dict(num_users=40, num_items=24, mf_dim=8, mlp_dims=(16, 8, 4))
 NCF_BUILDERS = ("Parallax", "PartitionedPS")
 NCF_BATCH, NCF_STEPS, NCF_LR = 16, 2, 1e-3
+# bounded staleness: tests/test_end_to_end.py's staleness cases (the batch,
+# the periods, the steps), the adam, clip and Parallax cases' period and
+# steps, and the async cluster's bound, steps, straggler delay and deadline
+STALE_BATCH = np.arange(16 * 8, dtype=np.float32).reshape(16, 8)
+STALE_AVERAGE, STALE_MID = 1, 3
+STALE_PERIOD_S, STALE_STEPS = 1, 3
+ASYNC_S, ASYNC_STEPS, ASYNC_DELAY, ASYNC_TIMEOUT = 1, 3, 0.02, 10.0
 
 
 def codec_inputs(r, n, seed):
@@ -304,11 +329,16 @@ def rank_command(workdir):
     return [sys.executable, os.path.abspath(__file__), workdir]
 
 
-def _start(jax_gpt_params):
-    """Run the four ranks to their end against one deadline; returns the
-    per-rank results, or raises ``RuntimeError`` with the failing rank's
-    output tail.  A rank that exits non-zero, or the deadline passing,
-    kills every rank at once."""
+def _kill(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def _launch(jax_gpt_params):
+    """Start the four ranks; returns what :func:`_finish` waits for.  The
+    ranks are killed at the test process's exit if still running."""
     workdir = tempfile.mkdtemp(prefix="gloo4-")
     atexit.register(shutil.rmtree, workdir, ignore_errors=True)
     inputs = make_inputs(jax_gpt_params())
@@ -324,7 +354,16 @@ def _start(jax_gpt_params):
         with open(logs[r], "w") as log:
             procs.append(subprocess.Popen(rank_command(workdir), env=env, stdout=log,
                                           stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + WORLD_DEADLINE_S
+    atexit.register(_kill, procs)
+    return workdir, inputs, procs, logs, time.monotonic() + WORLD_DEADLINE_S
+
+
+def _finish(launched):
+    """Wait for the launched ranks to their end against their one deadline;
+    returns ``(inputs, per-rank results)``, or raises ``RuntimeError`` with
+    the failing rank's output tail.  A rank that exits non-zero, or the
+    deadline passing, kills every rank at once."""
+    workdir, inputs, procs, logs, deadline = launched
     failed = timed_out = None
     try:
         while failed is None and any(p.poll() is None for p in procs):
@@ -336,9 +375,7 @@ def _start(jax_gpt_params):
         if failed is None:
             failed = next((r for r, p in enumerate(procs) if p.returncode), None)
     finally:
-        for p in procs:
-            p.kill()
-            p.wait()
+        _kill(procs)
     if failed is not None:
         with open(logs[failed], errors="replace") as f:
             tail = f.read()[-OUTPUT_TAIL:]
@@ -355,21 +392,36 @@ def _start(jax_gpt_params):
 
 
 def world(jax_gpt_params):
-    """Start the 4 ranks once per process and return ``(inputs, results)``,
-    the per-rank results in rank order; later calls return the same.
-    ``jax_gpt_params()`` gives the flax GPT-tiny tree; it is called only
-    when the ranks start.  A world that fails is not started again: its
-    error is kept, and every later call raises it at once."""
+    """Start the 4 ranks once per process (unless :func:`prestart` did) and
+    return ``(inputs, results)``, the per-rank results in rank order; later
+    calls return the same.  ``jax_gpt_params()`` gives the flax GPT-tiny
+    tree; it is called only when the ranks start.  A world that fails is
+    not started again: its error is kept, and every later call raises it
+    at once."""
     if "error" in _WORLD:
         raise RuntimeError(_WORLD["error"])
     if "results" not in _WORLD:
         try:
-            inputs, results = _start(jax_gpt_params)
+            inputs, results = _finish(_WORLD.pop("launched", None)
+                                      or _launch(jax_gpt_params))
         except Exception as e:
             _WORLD["error"] = f"{type(e).__name__}: {e}"
             raise
         _WORLD.update(inputs=inputs, results=results)
     return _WORLD["inputs"], _WORLD["results"]
+
+
+def prestart(jax_gpt_params):
+    """Start the ranks now without waiting for them, once per process: a
+    test module that uses the world calls this when it is imported, so
+    the ranks run while pytest collects and runs the tests before it (the
+    collection imports JAX, flax and torch on one core); :func:`world`
+    then waits for what is left of their run."""
+    if not _WORLD:
+        try:
+            _WORLD["launched"] = _launch(jax_gpt_params)
+        except Exception as e:
+            _WORLD["error"] = f"{type(e).__name__}: {e}"
 
 
 def _session_result(sess, metrics):
@@ -454,9 +506,33 @@ def main(workdir):
     results["sharded"] = sharded_cases(inputs, autodist)
     results["hier"] = hier_cases(inputs, world, autodist)
     results["partitioned"] = partitioned_cases(inputs, autodist)
+    results["stale"] = stale_cases(inputs, world, autodist)
+    if rank == 0:
+        results["imports"] = package_imports()
 
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
+
+
+def package_modules():
+    """The dotted name of every module of ``autodist_tpu_torch``."""
+    modules = []
+    for root, _, files in os.walk(os.path.join(REPO, "autodist_tpu_torch")):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, f), REPO)[:-3].replace(os.sep, ".")
+                modules.append(rel[:-len(".__init__")] if rel.endswith("__init__") else rel)
+    return sorted(modules)
+
+
+def package_imports():
+    """Import every module of the package; returns the modules this
+    interpreter then holds."""
+    import importlib
+
+    for m in package_modules():
+        importlib.import_module(m)
+    return sorted(sys.modules)
 
 
 def seq_parallel_cases(inputs, world, autodist):
@@ -1004,6 +1080,88 @@ def partitioned_cases(inputs, autodist):
             loss_fn, tensors(inputs["ncf_params"]), optim.adam(NCF_LR), sparse_vars=sparse)
         losses = [sess.run(inputs["ncf_batch"])["loss"].item() for _ in range(NCF_STEPS)]
         out["ncf", name] = result(sess, {"loss": torch.tensor(losses[-1])}, losses=losses)
+    return out
+
+
+def stale_cases(inputs, world, autodist):
+    """Bounded staleness: DIVERGENT copies, then the cross-process async PS."""
+    import torch
+
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.kernel.synchronization import async_service
+    from autodist_tpu_torch.ops.sparse import embedding_lookup
+    from autodist_tpu_torch.strategy import PS, Parallax
+
+    out = {}
+
+    def tensors(arrays):
+        return {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()}
+
+    def record(sess, metrics, **extra):
+        return dict(_session_result(sess, metrics), **extra,
+                    own={n: t.detach().numpy().copy() for n, t in sess.state["params"].items()},
+                    plans={n: p.placement.value for n, p in sess.transformer.plans.items()},
+                    replication=sess.check_replication())
+
+    def mean_loss(p, b):
+        return torch.mean(b @ p["w"])
+
+    for key, s, steps in (("average", STALE_AVERAGE, 2), ("mid", STALE_MID, 1)):
+        sess = autodist(PS(staleness=s)).distribute(mean_loss, {"w": torch.zeros(8)},
+                                                     optim.sgd(0.1))
+        for _ in range(steps):
+            metrics = sess.run(STALE_BATCH)
+        out[key] = record(sess, metrics)
+
+    def linear_loss(p, batch):
+        return torch.mean((batch @ p["w"] + p["b"]) ** 2)
+
+    sess = autodist(PS(staleness=STALE_PERIOD_S)).distribute(
+        linear_loss, tensors(inputs["linear_params"]), optim.adam(0.05))
+    for _ in range(STALE_STEPS):
+        metrics = sess.run(inputs["linear_batch"])
+    t, opt_state = sess.transformer, sess.state["opt_state"].state
+    moments = {(n, k): v.numpy().copy() for n, x in sess.state["params"].items()
+               for k, v in opt_state[x].items() if k.startswith("exp_avg")}
+    out["adam"] = record(sess, metrics, moments=moments, canonical_moments={
+        (n, k): t.canonical_leaf(torch.from_numpy(v), n).numpy()
+        for (n, k), v in moments.items()})
+
+    sess = autodist(PS(staleness=STALE_PERIOD_S)).distribute(
+        lambda p, b: torch.mean((b @ p["w"] + p["b"]) ** 2), tensors(inputs["clip_params"]),
+        optim.sgd(0.5), clip_global_norm=CLIP_NORM)
+    norms = [sess.run(inputs["clip_batch"])["grad_norm"].item() for _ in range(2)]
+    out["clip"] = record(sess, {"loss": torch.tensor(0.0)}, norms=norms)
+
+    def parallax_loss(p, b):
+        return torch.mean((embedding_lookup(p["emb"], b["ids"]) @ p["w"])[..., 0] ** 2)
+
+    sess = autodist(Parallax(staleness=1)).distribute(
+        parallax_loss, tensors(inputs["parallax_params"]), optim.sgd(SUBSET_LR),
+        sparse_vars=["emb"])
+    for _ in range(2):
+        metrics = sess.run({"ids": inputs["parallax_ids"]})
+    out["parallax"] = record(sess, metrics)
+
+    os.environ["AUTODIST_ASYNC_PS_ADDR"] = "127.0.0.1:0"   # the chief takes any port
+    async_service.CONNECT_WINDOW_S = ASYNC_TIMEOUT
+    try:
+        sess = autodist(PS(sync=False, staleness=ASYNC_S)).distribute(
+            lambda p, b: torch.mean((b @ p["w"] + p["b"]) ** 2),
+            tensors(inputs["linear_params"]), optim.sgd(0.1))
+    finally:
+        del os.environ["AUTODIST_ASYNC_PS_ADDR"]
+    assert isinstance(sess, async_service.AsyncPSClusterSession)
+    rows = np.array_split(inputs["linear_batch"], world.size)[world.rank]
+    sess.run([rows], ASYNC_STEPS, delay=ASYNC_DELAY if world.rank == world.size - 1 else 0.0,
+             timeout=ASYNC_TIMEOUT)
+    sess.wait_all(ASYNC_STEPS, timeout=ASYNC_TIMEOUT)
+    out["cluster"] = {"stats": sess.stats(), "history": list(sess.history),
+                      "is_chief": sess.is_chief, "workers": sess.num_workers,
+                      "address": sess.address,
+                      "params": {n: t.numpy() for n, t in sess.params().items()}}
+    torch.distributed.barrier()   # every rank has pulled: the chief may stop serving
+    sess.close()
     return out
 
 
