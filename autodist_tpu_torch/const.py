@@ -5,7 +5,8 @@ working directories, the mesh axis names, the batch-mask key, the default
 bucket size, the async parameter server's default port, the ``ENV``
 entries the chief/worker strategy hand-off and the async PS's processes
 read (``AUTODIST_PROCESS_ID``, ``AUTODIST_NUM_PROCESSES``,
-``AUTODIST_ASYNC_PS_ADDR``, ``AUTODIST_ASYNC_PS_AUTHKEY``), and the
+``AUTODIST_ASYNC_PS_ADDR``, ``AUTODIST_ASYNC_PS_AUTHKEY``), the membership
+epoch checkpoint manifests record (``AUTODIST_EPOCH``), and the
 launcher's rank environment (``torchrun``'s ``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``, or an
 ``AUTODIST_INIT_METHOD`` such as ``file:///path``).
@@ -51,6 +52,8 @@ class ENV(Enum):
     # authkey, hex-encoded (absent: the key derived from the strategy id)
     AUTODIST_ASYNC_PS_ADDR = (lambda v: v or "",)
     AUTODIST_ASYNC_PS_AUTHKEY = (lambda v: v or "",)
+    # the membership epoch a checkpoint manifest records by default
+    AUTODIST_EPOCH = (lambda v: int(v) if v else 0,)
     # one process per replica, as torchrun launches them
     RANK = (lambda v: int(v or 0),)
     WORLD_SIZE = (lambda v: int(v or 1),)

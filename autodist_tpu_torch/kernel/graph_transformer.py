@@ -172,6 +172,13 @@ def microbatches(batch, count):
             for i in range(count)]
 
 
+def load_slots(optimizer, slots):
+    """Load per-parameter ``slots`` (a ``state_dict()["state"]``) into a
+    ``torch.optim`` optimizer, its hyperparameters kept."""
+    optimizer.load_state_dict({"state": slots,
+                               "param_groups": optimizer.state_dict()["param_groups"]})
+
+
 class GraphTransformer:
     """Builds the session state and the training step of one replica."""
 
@@ -463,6 +470,13 @@ class GraphTransformer:
         return dataclasses.replace(b, var_names=(name,), sizes=(b.sizes[i],),
                                    shapes=(b.shapes[i],), shard_sizes=(b.shard_sizes[i],))
 
+    def shard_row(self, name):
+        """The row of flat-shard variable ``name``'s ``(R, ceil(n/R))``
+        padded matrix that this replica holds
+        (:func:`~autodist_tpu_torch.kernel.synchronization.all_reduce.shard_index`)."""
+        return ar_sync.shard_index(self._flat_bucket(name), self.group, self.hier_spec,
+                                   self.axes)
+
     def canonical_leaf(self, leaf, name):
         """Variable ``name``'s update-space tensor on this replica (its
         stored block, its flat shard, or an optimizer moment of that shape)
@@ -499,9 +513,9 @@ class GraphTransformer:
         if plan.placement == part.Placement.SHARDED:
             return self._block(full, plan)
         if name in self.shard_len:
-            b = self._flat_bucket(name)
-            row = ar_sync.shard_index(b, self.group, self.hier_spec, self.axes)
-            return padded_rows(full.detach(), b.num_shards, self.shard_len[name])[row].clone()
+            rows = padded_rows(full.detach(), self._flat_bucket(name).num_shards,
+                               self.shard_len[name])
+            return rows[self.shard_row(name)].clone()
         return full
 
     def init_state(self, seed=0):
@@ -707,6 +721,52 @@ class GraphTransformer:
             for n in self.sharded_names + self.divergent_names:
                 out[n] = self.canonical_leaf(out[n], n)
         return out
+
+    def uncanonical_params(self, state, params):
+        """The inverse of :meth:`canonical_params` (JAX
+        ``uncanonicalize_params``): full, unpadded parameters by name are
+        written into ``state`` in place, each flat shard taking its row and
+        each stored tensor its piece (:meth:`uncanonical_leaf`: a SHARDED
+        variable's block, else the full value, cast to a bf16 compute
+        copy's dtype), so that the optimizer keeps its tensors."""
+        storage, shards = state["params"], state["shards"]
+        with torch.no_grad():
+            for n in self.names:
+                full = params[n].detach()
+                piece = self.uncanonical_leaf(full, n)
+                if n in shards:
+                    shards[n].copy_(piece)
+                storage[n].copy_(piece if n in self.sharded_names else full)
+
+    def canonical_opt_state(self, state):
+        """The optimizer state in the single-device form (JAX
+        ``canonicalize_opt_state``): the ``torch.optim`` ``state_dict()`` of
+        the session's optimizer, whose parameter ``i`` is variable
+        ``names[i]``, with every per-parameter tensor in its variable's
+        full, unpadded shape (:meth:`canonical_leaf`: flat shards and blocks
+        gathered, DIVERGENT slots averaged over the replicas; a scalar such
+        as ``step`` as it is).  A vanilla ``torch.optim`` optimizer of the
+        same kind over the full parameters in name order loads it.  A
+        collective, which every rank calls."""
+        sd = state["opt_state"].state_dict()
+        slots = OrderedDict(
+            (i, OrderedDict((k, self.canonical_leaf(v, self.names[i])
+                             if isinstance(v, torch.Tensor) else v) for k, v in s.items()))
+            for i, s in sd["state"].items())
+        return {"state": slots, "param_groups": sd["param_groups"]}
+
+    def uncanonical_opt_state(self, state, canonical):
+        """The inverse of :meth:`canonical_opt_state` (JAX
+        ``uncanonicalize_opt_state``): each per-parameter tensor of the
+        single-device ``state_dict`` cut to this replica's piece of its
+        variable's update space (:meth:`uncanonical_leaf`), then loaded
+        into the session's optimizer (``load_state_dict`` moves the slots
+        to the parameters' device).  The session keeps its own
+        hyperparameters, as an optax state carries none."""
+        slots = {int(i): {k: self.uncanonical_leaf(v, self.names[int(i)])
+                          if isinstance(v, torch.Tensor) else v for k, v in s.items()}
+                 for i, s in canonical["state"].items()}
+        load_slots(state["opt_state"], slots)
 
     def global_norm(self, update_grads):
         """The global norm of the update-space gradients: flat shards (PS

@@ -11,7 +11,7 @@ dict (or a YAML file of the same shape)::
 Device strings read ``"<address>:GPU:<index>"``.  With no spec, the local
 GPUs are detected through ``torch.cuda.device_count()``; with none and no
 ``device="cpu"`` request that raises.  ``yaml`` is imported only to read a
-file.  Left for later (ROADMAP, Queue A item 7): SSH configs and ``shrink``.
+file.  Left for later (ROADMAP, Queue A item 7b): SSH configs and ``shrink``.
 """
 import os
 from collections import OrderedDict
@@ -109,7 +109,7 @@ class ResourceSpec:
         if later or any(n.get("ssh_config") for n in info.get("nodes") or []):
             raise NotImplementedError(
                 f"resource spec keys {later or ['ssh_config']}: SSH launch is a "
-                f"later slice of the port (ROADMAP, Queue A item 7)")
+                f"later slice of the port (ROADMAP, Queue A item 7b)")
         self._mesh_request = info.get("mesh")
         nodes = info.get("nodes") or []
         if not nodes:

@@ -24,17 +24,22 @@ replicas times ``accum_steps`` is padded by repeating its last row, and a
 which rows are real (:meth:`DistributedSession._pad_uneven`); without it
 such a batch raises.
 
-``run_steps`` and ``fit`` loop over ``run``; ``predict`` runs a forward
+``run_steps`` and ``fit`` loop over ``run``: ``fit`` with periodic
+checkpoints and resume after a crash, both with preemption
+(:class:`PreemptionGuard`: SIGTERM or SIGINT drains the step in flight,
+writes an update-space checkpoint and returns); ``predict`` runs a forward
 only and gathers its per-example outputs in batch order;
 ``check_replication`` names the variables whose copies differ between the
 replicas; ``memory_stats`` reads each device's allocator.  Telemetry
-(``run(trace_dir=...)``, ``finalize_telemetry``), preemption and
-checkpoints (``run_steps(preempt_checkpoint_dir=...)``, ``fit``'s) and
-``verify`` are later slices of the port (ROADMAP, Queue A items 7, 10 and
-11): their arguments are taken and raise ``NotImplementedError``, so that
-code written against the JAX session's signatures fails loudly, never
-with a ``TypeError``.
+(``run(trace_dir=...)``, ``finalize_telemetry``) and ``verify`` are later
+slices of the port (ROADMAP, Queue A items 10 and 11): their arguments are
+taken and raise ``NotImplementedError``, so that code written against the
+JAX session's signatures fails loudly, never with a ``TypeError``.
 """
+import contextlib
+import os
+import signal
+import threading
 from collections import OrderedDict
 
 import numpy as np
@@ -46,6 +51,41 @@ from autodist_tpu_torch.utils import logging
 from autodist_tpu_torch.utils.tree import batch_leaves, map_batch
 
 
+class PreemptionGuard:
+    """The SIGTERM/SIGINT drain hook of the training loops (JAX
+    ``PreemptionGuard``): inside it a signal only sets a flag, which the
+    loop reads at the next step boundary, where it writes a checkpoint and
+    returns cleanly.  The previous handlers come back on exit.  Off the
+    main thread (where Python forbids ``signal.signal``) it is an inert
+    flag holder."""
+
+    def __init__(self, signals=(signal.SIGTERM, signal.SIGINT)):
+        self._signals = signals
+        self._prev = {}
+        self._received = None
+
+    def __enter__(self):
+        if threading.current_thread() is threading.main_thread():
+            for s in self._signals:
+                self._prev[s] = signal.signal(s, self._on_signal)
+        return self
+
+    def _on_signal(self, signum, frame):
+        logging.warning("Received signal %d: draining the in-flight step, then writing a "
+                        "preemption checkpoint", signum)
+        self._received = signum
+
+    @property
+    def requested(self):
+        return self._received is not None
+
+    def __exit__(self, *exc):
+        for s, h in self._prev.items():
+            signal.signal(s, h)
+        self._prev = {}
+        return False
+
+
 class DistributedSession:
     def __init__(self, transformer, rng=None, strategy_id="", batch_mask=False):
         self._t = transformer
@@ -53,6 +93,7 @@ class DistributedSession:
         self.device = transformer.device
         self._batch_mask = bool(batch_mask)
         self._warned_uneven = False
+        self.preempted = False   # set when a preemption checkpoint ended a loop
         self.state = transformer.init_state(seed=0 if rng is None else rng)
 
     @property
@@ -148,36 +189,104 @@ class DistributedSession:
         self.state, metrics = self._t.step(self.state, self.shard_batch(batch))
         return metrics
 
+    def _preempt_path(self, preempt_checkpoint_dir):
+        return os.path.join(preempt_checkpoint_dir, "preempt_ckpt")
+
+    def _preempt_save(self, preempt_checkpoint_dir):
+        """Drain and write the preemption checkpoint: the update-space
+        layout, no gather (the preemption window is short)."""
+        from autodist_tpu_torch.checkpoint.saver import Saver
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        path = Saver(self).save_sharded(self._preempt_path(preempt_checkpoint_dir))
+        logging.warning("Preemption checkpoint written to %s (step %d); exiting the "
+                        "training loop cleanly", path, self.step)
+        self.preempted = True
+        return path
+
+    def _preempt_resume(self, preempt_checkpoint_dir):
+        """Resume from a preemption checkpoint when there is one and it is
+        ahead of the session's step (a periodic checkpoint may be newer)."""
+        from autodist_tpu_torch.checkpoint.manifest import load_manifest
+        from autodist_tpu_torch.checkpoint.saver import Saver
+
+        path = self._preempt_path(preempt_checkpoint_dir)
+        if not Saver.exists(path):
+            return
+        m = load_manifest(path)
+        if m is not None and int(m["step"]) <= self.step:
+            return
+        Saver(self).restore(path)
+        logging.info("Resumed from preemption checkpoint %s at step %d", path, self.step)
+
     def run_steps(self, batches, log_every=0, preempt_checkpoint_dir=None):
         """One step per batch of ``batches``; returns the last metrics.
-        Preemption (``preempt_checkpoint_dir``) is a later slice (ROADMAP,
-        Queue A item 7) and raises."""
-        if preempt_checkpoint_dir is not None:
-            raise NotImplementedError(
-                "run_steps(preempt_checkpoint_dir=...): preemption is a later slice "
-                "of the port (ROADMAP, Queue A item 7)")
+        With ``preempt_checkpoint_dir`` a SIGTERM or SIGINT drains the step
+        in flight, writes an update-space checkpoint to
+        ``<dir>/preempt_ckpt`` and returns, with ``preempted`` set (see
+        :meth:`fit`)."""
         metrics = None
-        for i, batch in enumerate(batches):
-            metrics = self.run(batch)
-            if log_every and (i + 1) % log_every == 0:
-                logging.info("step %d: %s", i + 1, _metrics_str(metrics))
+        with (PreemptionGuard() if preempt_checkpoint_dir
+              else contextlib.nullcontext()) as guard:
+            for i, batch in enumerate(batches):
+                metrics = self.run(batch)
+                if log_every and (i + 1) % log_every == 0:
+                    logging.info("step %d: %s", i + 1, _metrics_str(metrics))
+                if guard is not None and guard.requested:
+                    self._preempt_save(preempt_checkpoint_dir)
+                    break
         return metrics
 
     def fit(self, batch_fn, steps, *, checkpoint_path=None, save_every=0, log_every=0,
             resume=True, preempt_checkpoint_dir=None):
         """Train until ``self.step == steps``, step s on ``batch_fn(s)``;
-        returns the last metrics (None when no step ran).  Checkpoints and
-        preemption are a later slice (ROADMAP, Queue A item 7) and raise."""
-        del save_every, resume   # they tune checkpoints
-        if checkpoint_path or preempt_checkpoint_dir:
-            raise NotImplementedError(
-                "fit(checkpoint_path=..., preempt_checkpoint_dir=...): checkpoints "
-                "are a later slice of the port (ROADMAP, Queue A item 7)")
+        returns the last metrics (None when no step ran).
+
+        With ``checkpoint_path`` it restores the checkpoint there on entry
+        (``resume=True``; "start fresh" is decided by
+        :meth:`Saver.exists`, never by a restore's exception), saves a
+        canonical checkpoint every ``save_every`` steps and at the end, so
+        that a crashed job run again with the same arguments goes on where
+        it left off.  ``preempt_checkpoint_dir`` turns on
+        :class:`PreemptionGuard`: on a signal the step in flight drains, an
+        update-space checkpoint goes to ``<dir>/preempt_ckpt``, and ``fit``
+        returns with ``self.preempted`` set; run again, it resumes from
+        there when that checkpoint is ahead of ``checkpoint_path``'s.
+        """
+        saver = None
+        self.preempted = False
+        if checkpoint_path:
+            from autodist_tpu_torch.checkpoint.saver import Saver
+
+            saver = Saver(self)
+            if resume:
+                if Saver.exists(checkpoint_path):
+                    saver.restore(checkpoint_path)
+                    logging.info("fit: resumed from %s at step %d", checkpoint_path,
+                                 self.step)
+                else:
+                    logging.info("fit: no checkpoint at %s; starting fresh",
+                                 checkpoint_path)
+        if preempt_checkpoint_dir and resume:
+            self._preempt_resume(preempt_checkpoint_dir)
         metrics = None
-        while self.step < steps:
-            metrics = self.run(batch_fn(self.step))
-            if log_every and self.step % log_every == 0:
-                logging.info("step %d: %s", self.step, _metrics_str(metrics))
+        last_saved = -1
+        with (PreemptionGuard() if preempt_checkpoint_dir
+              else contextlib.nullcontext()) as guard:
+            while self.step < steps:
+                metrics = self.run(batch_fn(self.step))
+                done = self.step
+                if log_every and done % log_every == 0:
+                    logging.info("step %d: %s", done, _metrics_str(metrics))
+                if guard is not None and guard.requested:
+                    self._preempt_save(preempt_checkpoint_dir)
+                    break
+                if saver and save_every and done % save_every == 0:
+                    saver.save(checkpoint_path)
+                    last_saved = done
+        if saver and self.step != last_saved and metrics is not None and not self.preempted:
+            saver.save(checkpoint_path)
         return metrics
 
     def predict(self, batch, apply_fn=None):

@@ -225,7 +225,28 @@ Phases (each failure exits non-zero before the last line):
    losses.  (b) and (c): 12 launches a step of each flash kernel.  Prints
    each push's host copy and host update times, each worker's step time,
    the peak memory, and the card's name and power limit;
-18. prints the ``{"kernels": [...]}`` line (nine kernels), then the
+18. checkpoints, in a process of its own (``chip_smoke.py --ckpt
+   PHASE5``), one ``AutoDist`` a session, GPT-2 small as in phase 5 (B=8,
+   adamw, phase 5's weights and batch) under the default builder
+   (``PSLoadBalancing``: the optimizer state on flat shards), the
+   checkpoints in the checkout's ``_ckpt/`` (removed at the end): (a)
+   ``fit(batch_fn, 10, checkpoint_path=..., save_every=5)``, its losses
+   within 1e-5 relative of phase 5's at step 1 and 1e-3 after (bitwise
+   equality printed), a canonical save at steps 5 and 10 (the step-5 one
+   kept by hard links); (b) a fresh session's ``fit(..., 10)`` resumes
+   from step 5, steps 6-10 bitwise (a)'s; (c) ``save_sharded`` at step
+   10 restored into a fresh session, whose step-11 loss is bitwise the
+   saving session's; (d) ``run_steps(..., preempt_checkpoint_dir=...)``
+   with SIGTERM sent to the process from the batches before step 4:
+   ``preempted``, an ``update_space`` manifest at step 4, and a re-run's
+   ``fit(..., 6, preempt_checkpoint_dir=...)`` steps 5-6 bitwise (a)'s;
+   (e) ``Saver.restore_single_device`` of the step-10 checkpoint into a
+   plain ``models.gpt.GPT`` on the card (flash attention): its loss on
+   the batch within 1e-6 relative of the session's step-11 loss (bitwise
+   printed).  12 launches a step of each flash kernel in (a) and (b);
+   prints each save's and restore's seconds, bytes and GB/s, the cost of
+   the periodic saves a step, and the card's name and power limit;
+19. prints the ``{"kernels": [...]}`` line (nine kernels), then the
    ``{"ok": true, ...}`` line.
 
 Tolerances, kernel vs plain version on the same inputs.  Flash, bf16
@@ -246,7 +267,9 @@ dense head, and the bench configuration at B=8 against phase 5: step 1
 relative <= 1e-4.  NCF, the two builders' step 1 and one process's:
 relative <= 1e-5.  Bounded staleness against phase 5: the DIVERGENT run's
 step 1 relative <= 1e-5 and steps 2-10 <= 1e-3, the async worker's step 1
-relative <= 1e-5.  Quantization kernels and the
+relative <= 1e-5.  Checkpoints: the fit against phase 5 as the default
+builder's run; resumed and restored losses bitwise; the plain model's
+loss against the session's relative <= 1e-6.  Quantization kernels and the
 synced gradients of the int8 codecs: bitwise (both sides divide with IEEE
 division, round half to even and sum the peers in order without FMA).
 """
@@ -326,6 +349,11 @@ NCF_BATCH, NCF_STEPS, NCF_LR, NCF_TOL = 64, 10, 1e-3, 1e-5
 # worker and the slow worker's delay (s)
 STALE_S, ASYNC_ENGINE_S, ASYNC_THREADS_S, ASYNC_STEPS = 2, 1, 1, 3
 ASYNC_DELAYS = (0.0, 0.05)
+# phase 18: fit's checkpoint period, the step SIGTERM comes before, the
+# resumed fit's end after the preemption, the plain model's loss against
+# the session's (relative), and the checkpoints' directory in the checkout
+CKPT_SAVE_EVERY, CKPT_PREEMPT_STEP, CKPT_RERUN_STEPS, CKPT_SINGLE_TOL = 5, 4, 6, 1e-6
+CKPT_DIR = os.path.join(REPO, "_ckpt")
 
 
 class SmokeFailure(Exception):
@@ -2305,6 +2333,231 @@ def train_stale(torch, m, kernel_modules, phase5):
     return out
 
 
+def dir_bytes(path):
+    """Bytes of the files under ``path``."""
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+class CheckpointClock:
+    """Times every ``Saver`` save and restore of the process (``fit``
+    calls them itself): seconds (the device drained before and after),
+    bytes on disk and GB/s; ``undo()`` puts the methods back."""
+
+    def __init__(self, torch):
+        from autodist_tpu_torch.checkpoint.saver import Saver
+
+        self.records, self._saved = [], {}
+        for name in ("save", "save_sharded", "restore"):
+            real = getattr(Saver, name)
+            self._saved[name] = real
+
+            def timed(saver, path, *args, _real=real, _name=name, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _real(saver, path, *args, **kwargs)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                nbytes = dir_bytes(os.path.abspath(path))
+                self.records.append({"op": _name, "path": os.path.basename(path),
+                                     "step": saver._sess.step, "s": secs, "bytes": nbytes,
+                                     "gb_s": nbytes / secs / 1e9})
+                print(f"checkpoint {_name} {os.path.basename(path)} at step "
+                      f"{saver._sess.step}: {secs:.3f} s, {nbytes / 1e9:.3f} GB, "
+                      f"{nbytes / secs / 1e9:.3f} GB/s")
+                return out
+
+            setattr(Saver, name, timed)
+
+    def undo(self):
+        from autodist_tpu_torch.checkpoint.saver import Saver
+
+        for name, real in self._saved.items():
+            setattr(Saver, name, real)
+
+
+def recorded_runs(sess):
+    """``sess.run`` wrapped to record each step's loss (read at once) and
+    milliseconds; returns the two lists it fills."""
+    losses, step_ms = [], []
+    run = sess.run
+
+    def timed(batch, *args, **kwargs):
+        t0 = time.perf_counter()
+        metrics = run(batch, *args, **kwargs)
+        losses.append(metrics["loss"].item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return metrics
+
+    sess.run = timed
+    return losses, step_ms
+
+
+def train_gpt2_ckpt(torch, m, kernel_modules, phase5):
+    """Phase 18: checkpoints of phase 5's GPT-2 small under the default
+    builder; see the module's docstring."""
+    import shutil
+    import signal
+
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.checkpoint import manifest
+    from autodist_tpu_torch.checkpoint.saver import Saver
+    from autodist_tpu_torch.models.convert import jax_to_torch_name
+    from autodist_tpu_torch.models.gpt import GPT, GPTConfig, gpt_loss
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+
+    config = GPTConfig()
+    loss_fn, params, sparse = gpt_capture(config, SEQ, seed=0)
+    batch = gpt2_batch(config, BATCH)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    ckpt, ckpt5, sharded, preempt = (os.path.join(CKPT_DIR, n) for n in (
+        "fit", "fit_step5", "sharded", "preempt"))
+
+    def session():   # the default builder, PSLoadBalancing: flat optimizer shards
+        return m["AutoDist"](resource_spec=m["spec"]).distribute(
+            loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse, has_rng=True)
+
+    def launches():
+        return {n: c for km in kernel_modules for n, c in km.LAUNCHES.items()}
+
+    def reset():
+        for km in kernel_modules:
+            km.reset_launches()
+
+    clock = CheckpointClock(torch)
+    out = {"card": card_line()}
+    print(f"phase 18 on {out['card']}")
+    try:
+        # (a) fit with a canonical checkpoint every CKPT_SAVE_EVERY steps
+        def batch_fn(step):
+            if step == CKPT_SAVE_EVERY:   # keep the step-5 checkpoint for (b): hard links
+                shutil.copytree(ckpt, ckpt5, copy_function=os.link)
+                shutil.copy(manifest.manifest_path(ckpt), manifest.manifest_path(ckpt5))
+            return batch
+
+        sess = session()
+        check(sess.transformer.sharded_buckets and not sess.transformer.sharded_names,
+              "ckpt: expected the default builder's flat shards")
+        losses, step_ms = recorded_runs(sess)
+        reset()
+        t0 = time.perf_counter()
+        sess.fit(batch_fn, STEPS, checkpoint_path=ckpt, save_every=CKPT_SAVE_EVERY)
+        fit_s = time.perf_counter() - t0
+        fit_launches = launches()
+        losses, step_ms = list(losses), list(step_ms)   # the fit's steps alone
+        saves = [r for r in clock.records if r["op"] == "save"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, phase5["losses"])]
+        steady = statistics.median(step_ms[1:])
+        save_s = sum(r["s"] for r in saves)
+        print("ckpt (a) fit losses: " + ", ".join(f"{x:.6f}" for x in losses))
+        print(f"ckpt (a): fit {STEPS} steps in {fit_s:.2f} s, median step {steady:.2f} ms; "
+              f"{len(saves)} canonical saves, {save_s:.3f} s, "
+              f"{1e3 * save_s / STEPS:.2f} ms a step over the run "
+              f"({100 * save_s / STEPS / (steady / 1e3):.1f} % of the median step); "
+              f"vs phase 5: step 1 relative {rel[0]:.3e}, largest over steps 2-{STEPS} "
+              f"{max(rel[1:]):.3e}; bitwise equal losses: {losses == list(phase5['losses'])}; "
+              f"launches {fit_launches}; {out['card']}")
+        check(len(losses) == STEPS and rel[0] <= PS_STEP1_TOL and max(rel[1:]) <= PS_LOSS_TOL,
+              f"ckpt (a): losses {losses} against phase 5's {phase5['losses']}")
+        check([r["step"] for r in saves] == [CKPT_SAVE_EVERY, STEPS],
+              f"ckpt (a): expected saves at steps {CKPT_SAVE_EVERY} and {STEPS}: {saves}")
+        m5 = manifest.load_manifest(ckpt5)
+        check(m5["layout"] == "canonical" and m5["step"] == CKPT_SAVE_EVERY,
+              f"ckpt (a): the step-{CKPT_SAVE_EVERY} manifest {m5}")
+        check(fit_launches == flash_launches(config, STEPS),
+              f"ckpt (a): expected launches {flash_launches(config, STEPS)}, got {fit_launches}")
+        out["a"] = {"losses": losses, "step_ms": step_ms, "median_ms": steady, "fit_s": fit_s,
+                    "saves": saves}
+
+        # (c) the live state as laid out, restored into a fresh session
+        Saver(sess).save_sharded(sharded)
+        loss11 = sess.run(batch)["loss"].item()
+        del sess
+        torch.cuda.empty_cache()
+
+        # (b) a fresh session resumes from the step-5 checkpoint
+        sess = session()
+        resumed, _ = recorded_runs(sess)
+        reset()
+        sess.fit(lambda step: batch, STEPS, checkpoint_path=ckpt5)
+        restore = next(r for r in clock.records if r["op"] == "restore")
+        print("ckpt (b) resumed losses, steps 6-10: " + ", ".join(f"{x:.6f}" for x in resumed)
+              + f"; bitwise equal to (a)'s: {resumed == losses[CKPT_SAVE_EVERY:]}; restore "
+              f"{restore['s']:.3f} s ({restore['gb_s']:.3f} GB/s); {out['card']}")
+        check(resumed == losses[CKPT_SAVE_EVERY:],
+              f"ckpt (b): steps 6-10 {resumed} differ from (a)'s {losses[CKPT_SAVE_EVERY:]}")
+        check(launches() == flash_launches(config, STEPS - CKPT_SAVE_EVERY),
+              f"ckpt (b): launches {launches()}")
+        del sess
+        torch.cuda.empty_cache()
+
+        sess = session()
+        Saver(sess).restore(sharded)
+        m_us = manifest.load_manifest(sharded)
+        again = sess.run(batch)["loss"].item()
+        print(f"ckpt (c) save_sharded at step {STEPS} restored: step-{STEPS + 1} loss "
+              f"{again:.6f}, the saving session's {loss11:.6f}, bitwise equal: "
+              f"{again == loss11}; {out['card']}")
+        check(m_us["layout"] == "update_space" and m_us["step"] == STEPS,
+              f"ckpt (c): manifest {m_us}")
+        check(again == loss11, f"ckpt (c): step {STEPS + 1} loss {again} != {loss11}")
+        del sess
+        torch.cuda.empty_cache()
+
+        # (d) SIGTERM before step CKPT_PREEMPT_STEP of run_steps, then a re-run
+        def batches():
+            for step in range(STEPS):
+                if step == CKPT_PREEMPT_STEP - 1:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                yield batch
+
+        sess = session()
+        sess.run_steps(batches(), preempt_checkpoint_dir=preempt)
+        m_pre = manifest.load_manifest(os.path.join(preempt, "preempt_ckpt"))
+        check(sess.preempted and sess.step == CKPT_PREEMPT_STEP
+              and m_pre["layout"] == "update_space" and m_pre["step"] == CKPT_PREEMPT_STEP,
+              f"ckpt (d): preempted {sess.preempted} at step {sess.step}, manifest {m_pre}")
+        del sess
+        torch.cuda.empty_cache()
+        sess = session()
+        rerun, _ = recorded_runs(sess)
+        sess.fit(lambda step: batch, CKPT_RERUN_STEPS, preempt_checkpoint_dir=preempt)
+        want = losses[CKPT_PREEMPT_STEP:CKPT_RERUN_STEPS]
+        print(f"ckpt (d) SIGTERM before step {CKPT_PREEMPT_STEP}: preempted at step "
+              f"{CKPT_PREEMPT_STEP}, update-space manifest; the re-run's steps "
+              f"{CKPT_PREEMPT_STEP + 1}-{CKPT_RERUN_STEPS}: "
+              + ", ".join(f"{x:.6f}" for x in rerun) + f", bitwise equal to (a)'s: "
+              f"{rerun == want}; {out['card']}")
+        check(rerun == want, f"ckpt (d): re-run losses {rerun} differ from (a)'s {want}")
+        del sess
+        torch.cuda.empty_cache()
+
+        # (e) a plain single-device GPT on the card from the canonical checkpoint
+        t0 = time.perf_counter()
+        raw = Saver.restore_single_device(ckpt)
+        read_s = time.perf_counter() - t0
+        model = GPT(config, device="cuda")
+        model.load_state_dict({jax_to_torch_name(n): v for n, v in raw["params"].items()})
+        dev = {n: torch.from_numpy(a).cuda() for n, a in batch.items()}
+        with torch.no_grad():
+            plain = gpt_loss(model(dev["tokens"]), dev["targets"]).item()
+        rel_e = abs(plain - loss11) / abs(loss11)
+        print(f"ckpt (e) restore_single_device: {read_s:.3f} s, step {raw['step']}; a plain "
+              f"GPT on the card: loss {plain:.6f}, the session's step-{STEPS + 1} loss "
+              f"{loss11:.6f}, relative {rel_e:.3e}, bitwise equal: {plain == loss11}; "
+              f"{out['card']}")
+        check(raw["step"] == STEPS and rel_e <= CKPT_SINGLE_TOL,
+              f"ckpt (e): step {raw['step']}, relative difference {rel_e}")
+        del model, raw
+        out.update(records=clock.records, loss11=loss11, plain_loss=plain, read_s=read_s)
+        out["launches"] = {k: fit_launches[k] + v for k, v in launches().items()}
+    finally:
+        clock.undo()
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return out
+
+
 def run_child(args, marker):
     """``chip_smoke.py ARGS`` in a process of its own (``AutoDist`` is one
     instance per process); forwards its output and returns its ``MARKER``
@@ -2536,6 +2789,24 @@ def stale_main(phase5):
     return 0
 
 
+def ckpt_main(phase5):
+    """``chip_smoke.py --ckpt PHASE5``: checkpoints (phase 18), one
+    ``AutoDist`` a session in this process."""
+    import torch
+
+    os.environ["AUTODIST_IS_TESTING"] = "1"   # several AutoDists in this process
+    m = setup(torch)
+    if m is None:
+        return 1
+    try:
+        result = train_gpt2_ckpt(torch, m, (m["fa"], m["fn"], m["tq"]), json.loads(phase5))
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    print("CKPT_RESULT " + json.dumps(result))
+    return 0
+
+
 def main():
     try:
         import torch
@@ -2587,6 +2858,9 @@ def main():
         stale = run_child(["--stale", json.dumps(phase5)], "STALE_RESULT")
         for k, v in stale["launches"].items():
             launches[k] += v
+        ckpt = run_child(["--ckpt", json.dumps(phase5)], "CKPT_RESULT")
+        for k, v in ckpt["launches"].items():
+            launches[k] += v
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2621,4 +2895,6 @@ if __name__ == "__main__":
         sys.exit(partitioned_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--stale":
         sys.exit(stale_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ckpt":
+        sys.exit(ckpt_main(sys.argv[2]))
     sys.exit(main())

@@ -16,6 +16,10 @@ process per GPU (NCCL)::
         multi_gpu_check.py partitioned
     python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
         multi_gpu_check.py stale
+    python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        multi_gpu_check.py reshard && \\
+    python3 -m torch.distributed.run --standalone --nproc-per-node 2 \\
+        multi_gpu_check.py reshard
 
 ``CODEC`` (one of ``chip_smoke.CODECS``): each rank runs
 ``chip_smoke.train_gpt2_codec`` on its own GPU: GPT-2 small at full width
@@ -116,6 +120,21 @@ straggler (0.05 s between pull and push).  Checks: ``version == 3 R``,
 the lead at most 1, finite losses, 12 launches a step of each flash
 kernel, and every rank's ``params()`` after ``wait_all`` equal to the
 chief's.  Prints each run's step times and the server's stats.
+
+``reshard``: checkpoints across a change of R, in two launches.  At 4
+ranks: GPT-2 small (adamw 3e-4, 8 sequences of 1024 tokens per rank, 10
+steps) under the default builder (``PSLoadBalancing``: flat optimizer
+shards), ``Saver.save_sharded`` after step 5 into ``_ckpt/reshard`` in
+the checkout (each rank its shards, rank 0 once what the ranks share),
+and the ten losses beside it.  At fewer ranks (2): the same global batch
+of 32 sequences (16 per rank), ``reshard_restore(verify=False)`` of that
+checkpoint (the saved R = 4 flat shards put together, then cut for R =
+2), then steps 6-10.  Checks: the save's manifest (``update_space``,
+step 5, R = 4); the restored step; steps 6-10 against the 4-rank run's,
+step 6 within 1e-5 relative and the later steps 1e-3; finite losses; 12
+launches a step of each flash kernel; every rank ending with the same
+parameters.  Prints the save's and the restore's seconds, bytes and GB/s.
+The second launch removes the checkpoint.
 
 Rank 0 builds the kernels and prints; the run ends with a ``RESULT {...}``
 JSON line.  A failed check exits non-zero.
@@ -514,11 +533,108 @@ def train_stale(torch, ads, modules, world_size):
     return result
 
 
+RESHARD_FROM, RESHARD_SAVE_STEP = 4, 5
+RESHARD_DIR = os.path.join(smoke.CKPT_DIR, "reshard")
+
+
+def train_reshard(torch, ad, modules, world_size):
+    """The ``reshard`` mode: at RESHARD_FROM ranks train and save after
+    step RESHARD_SAVE_STEP; at fewer, reshard that checkpoint and hold the
+    later steps against the saving run's."""
+    import shutil
+
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.checkpoint import manifest
+    from autodist_tpu_torch.checkpoint.reshard import reshard_restore
+    from autodist_tpu_torch.checkpoint.saver import Saver
+    from autodist_tpu_torch.models.gpt import GPTConfig
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+
+    config = GPTConfig()
+    loss_fn, params, sparse = gpt_capture(config, smoke.SEQ, seed=0)
+    batch = smoke.gpt2_batch(config, smoke.BATCH * RESHARD_FROM)   # one global batch at any R
+    sess = ad.distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse,
+                         has_rng=True)
+    rank, group = ad.world.rank, sess.transformer.group
+    path = os.path.join(RESHARD_DIR, "ckpt")
+    tag = f"reshard R={world_size}"
+
+    def launches():
+        return {n: c for km in modules for n, c in km.LAUNCHES.items()}
+
+    for km in modules:
+        km.reset_launches()
+    if world_size == RESHARD_FROM:
+        if rank == 0:
+            shutil.rmtree(RESHARD_DIR, ignore_errors=True)
+            os.makedirs(RESHARD_DIR)
+        torch.distributed.barrier()
+        losses = []
+        for step in range(smoke.STEPS):
+            losses.append(sess.run(batch)["loss"].item())
+            if step + 1 == RESHARD_SAVE_STEP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                Saver(sess).save_sharded(path)
+                save_s = time.perf_counter() - t0
+        nbytes = smoke.dir_bytes(path)
+        m = manifest.load_manifest(path)
+        print(f"{tag} losses: " + ", ".join(f"{x:.6f}" for x in losses))
+        print(f"{tag}: save_sharded after step {RESHARD_SAVE_STEP}: {save_s:.3f} s, "
+              f"{nbytes / 1e9:.3f} GB, {nbytes / save_s / 1e9:.3f} GB/s over {world_size} "
+              f"ranks; manifest {m['layout']} step {m['step']} R={m['num_replicas']}")
+        smoke.check(m["layout"] == "update_space" and m["step"] == RESHARD_SAVE_STEP
+                    and m["num_replicas"] == world_size, f"{tag}: manifest {m}")
+        if rank == 0:
+            with open(os.path.join(RESHARD_DIR, "losses.json"), "w") as f:
+                json.dump(losses, f)
+        result = {"losses": losses, "save_s": save_s, "bytes": nbytes}
+        steps = smoke.STEPS
+    else:
+        with open(os.path.join(RESHARD_DIR, "losses.json")) as f:
+            saved = json.load(f)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reshard_restore(sess, path, verify=False)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        smoke.check(sess.step == RESHARD_SAVE_STEP, f"{tag}: restored at step {sess.step}")
+        losses = [sess.run(batch)["loss"].item() for _ in range(smoke.STEPS - RESHARD_SAVE_STEP)]
+        want = saved[RESHARD_SAVE_STEP:]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+        nbytes = smoke.dir_bytes(path)
+        print(f"{tag}: reshard_restore of the R={RESHARD_FROM} checkpoint: {restore_s:.3f} s, "
+              f"{nbytes / 1e9:.3f} GB, {nbytes / restore_s / 1e9:.3f} GB/s (every rank reads "
+              f"it all)")
+        print(f"{tag} steps {RESHARD_SAVE_STEP + 1}-{smoke.STEPS}: "
+              + ", ".join(f"{x:.6f}" for x in losses) + f"; the R={RESHARD_FROM} run's "
+              + ", ".join(f"{x:.6f}" for x in want) + f"; relative {rel[0]:.3e} at step "
+              f"{RESHARD_SAVE_STEP + 1}, largest after {max(rel[1:]):.3e}")
+        smoke.check(all(math.isfinite(x) for x in losses), f"{tag}: losses {losses}")
+        smoke.check(rel[0] <= smoke.PS_STEP1_TOL and max(rel[1:]) <= smoke.PS_LOSS_TOL,
+                    f"{tag}: losses {losses} against the R={RESHARD_FROM} run's {want}")
+        result = {"losses": losses, "want": want, "rel": rel, "restore_s": restore_s,
+                  "bytes": nbytes}
+        steps = smoke.STEPS - RESHARD_SAVE_STEP
+    got = launches()
+    want_launches = smoke.flash_launches(config, steps)
+    smoke.check(got == want_launches, f"{tag}: expected launches {want_launches}, got {got}")
+    full = sess.transformer.canonical_params(sess.state)
+    smoke.check(smoke.same_on_every_rank(torch, list(full.values()), group),
+                f"{tag}: the ranks hold different parameters")
+    print(f"{tag}: all {world_size} ranks hold the same parameters; launches {got}")
+    if world_size != RESHARD_FROM:
+        torch.distributed.barrier()
+        if rank == 0:
+            shutil.rmtree(RESHARD_DIR, ignore_errors=True)
+    return result
+
+
 def main(argv):
     import torch
 
     if len(argv) != 1 or argv[0] not in (*smoke.CODECS, "ring", "ps", "sharded", "sync",
-                                         "partitioned", "stale"):
+                                         "partitioned", "stale", "reshard"):
         print(__doc__ + f"\nCODEC is one of {list(smoke.CODECS)}", file=sys.stderr)
         return 2
     mode = argv[0]
@@ -556,6 +672,8 @@ def main(argv):
 
         runs = [(None, strategy.PS(staleness=STALE_S)),
                 (None, strategy.PS(sync=False, staleness=ASYNC_S))]
+    elif mode == "reshard":   # the default builder
+        runs = [(None, None)]
     else:
         runs = [(None, m["AllReduce"](compressor=mode))]
     ads = [m["AutoDist"](resource_spec=ResourceSpec(resource_info=dict(
@@ -594,6 +712,8 @@ def main(argv):
             result = compare_partitioned(torch, ads, modules, world_size)
         elif mode == "stale":
             result = train_stale(torch, ads, modules, world_size)
+        elif mode == "reshard":
+            result = train_reshard(torch, ads[0], modules, world_size)
         else:
             result = smoke.train_gpt2_codec(torch, ads[0], mode, modules)
     except smoke.SmokeFailure as e:

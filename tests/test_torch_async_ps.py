@@ -26,12 +26,15 @@ the JAX package.
 - The signatures: every parameter of the JAX ``AutoDist.distribute`` and
   of each public method of its ``DistributedSession`` is accepted by the
   port's, and an option of a later slice raises ``NotImplementedError``
-  naming its ROADMAP item.
+  naming its ROADMAP item; the checkpoint options (``fit``'s
+  ``checkpoint_path`` and ``preempt_checkpoint_dir``, ``run_steps``'s)
+  run.
 
 A fixture holds every test to leave no thread behind (the workers, the
 servers' threads); every wait has a deadline of at most 10 s.
 """
 import inspect
+import os
 import sys
 import threading
 import time
@@ -387,26 +390,32 @@ def test_signatures_accept_every_jax_parameter(method):
 
 
 LATER = {   # (method, keyword arguments) -> the ROADMAP Queue A item it raises with
-    ("run", "trace_dir"): 10, ("run_steps", "preempt_checkpoint_dir"): 7,
-    ("fit", "checkpoint_path"): 7, ("fit", "preempt_checkpoint_dir"): 7,
-    ("verify", None): 11,
+    ("run", "trace_dir"): 10, ("verify", None): 11,
 }
+# the Queue A item 7 options, which run since the checkpoints were ported
+CHECKPOINTED = (("run_steps", "preempt_checkpoint_dir"), ("fit", "checkpoint_path"),
+                ("fit", "preempt_checkpoint_dir"))
 
 
-def test_later_session_options_raise_naming_their_item():
+def test_later_session_options_raise_naming_their_item(tmp_path):
     sess = AutoDist(resource_spec=ResourceSpec(resource_info={"nodes": [
         {"address": "localhost", "cpus": [0], "chief": True}]}), device="cpu").distribute(
         _tloss, {"w": torch.ones(6)}, optim.sgd(0.1), donate=False)
     batch = np.ones((4, 6), np.float32)
     for (method, option), item in LATER.items():
         kwargs = {option: "dir"} if option else {}
-        args = ((lambda s: batch), 1) if method == "fit" else (
-            ([batch],) if method == "run_steps" else (batch,))
+        args = (batch,)
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             getattr(sess, method)(*args, **kwargs)
     assert sess.step == 0
-    assert sess.run_steps([batch], preempt_checkpoint_dir=None)["step"] == 1
-    assert sess.run(batch, trace_dir=None)["step"] == 2
+    for i, (method, option) in enumerate(CHECKPOINTED):
+        args = ((lambda s: batch), i + 1) if method == "fit" else ([batch],)
+        path = str(tmp_path / option)
+        assert getattr(sess, method)(*args, **{option: path})["step"] == i + 1
+        assert not sess.preempted
+    assert os.path.isdir(tmp_path / "checkpoint_path")   # fit saved at its end
+    assert sess.run_steps([batch], preempt_checkpoint_dir=None)["step"] == 4
+    assert sess.run(batch, trace_dir=None)["step"] == 5
     assert sess.memory_stats() == {"cpu": None} and sess.finalize_telemetry() is None
     for option, item in (("data_axes", 9), ("batch_spec", 9), ("param_specs", 9),
                          ("verify", 11)):

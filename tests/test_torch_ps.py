@@ -15,7 +15,7 @@
 - ``PS(sync=False)`` gives the async session and ``PS(staleness=2)`` the
   engine with DIVERGENT copies (their parity with JAX in
   ``tests/test_torch_async_ps.py`` and ``tests/test_torch_divergent.py``);
-  ``fit(checkpoint_path=...)`` raises (Queue A item 7); ``ps_axes`` naming no data axis
+  ``fit(checkpoint_path=...)`` saves a checkpoint; ``ps_axes`` naming no data axis
   raises at ``distribute`` (the subsets run in
   ``tests/test_torch_partitioned.py``).
 - In the 4-rank gloo world (``tests/torch_gloo_ranks.py``, started once
@@ -29,6 +29,7 @@
   ``check_replication``.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -208,14 +209,15 @@ def test_ps_axes_subset_raises_and_whole_axis_runs():
     assert sess.step == 1
 
 
-def test_session_loops_and_the_scalar_stay_replicated():
+def test_session_loops_and_the_scalar_stay_replicated(tmp_path):
     sess = _linear_session(PSLoadBalancing())
     batch = np.random.RandomState(0).randn(8, 6).astype(np.float32)
     assert sess.run_steps([batch] * 3)["step"] == 3
     assert sess.fit(lambda step: batch, steps=5)["step"] == 5 and sess.step == 5
     assert sess.fit(lambda step: batch, steps=5) is None and sess.step == 5
-    with pytest.raises(NotImplementedError, match="item 7"):
-        sess.fit(lambda step: batch, steps=6, checkpoint_path="ckpt")
+    ckpt = str(tmp_path / "ckpt")
+    assert sess.fit(lambda step: batch, steps=6, checkpoint_path=ckpt)["step"] == 6
+    assert os.path.isdir(ckpt) and sess.step == 6
     assert sess.check_replication() == []
     t = sess.transformer
     assert list(sess.state["shards"]) == ["w"]

@@ -85,6 +85,21 @@ the CPU), runs the cases below and writes ``DIR/rank<r>.pkl``:
   straggler), waits for all, and records the server's stats and
   ``params()``.
 
+- ``checkpoint`` (one dict): checkpoints under ``DIR/ckpt``.  The
+  canonical state (``canonical_params``, ``canonical_opt_state``) and the
+  manifest after 2 adam steps of ``PSLoadBalancing``,
+  ``PartitionedPS(max_shards=8)`` and ``PS(staleness=2)`` on
+  ``tests/test_checkpoint.py``'s linear model and on the one-block
+  GPT-tiny; that test's single-device save (PartitionedPS, 3 steps, with
+  the step after it), same-strategy resume (PS) and cross-strategy resume
+  (PartitionedPS -> AllReduce); a same-geometry update-space resume (each
+  rank's state before and after, and the next step); the update-space
+  saves that ``tests/test_manifest_reshard.py::test_reshard_matrix``
+  reshards (adam, sgd with momentum x replicated, sharded update x flat,
+  two-level on ``{replica_dcn: 2, replica_ici: 2}``), with their canonical
+  state, and its PS flat-shard case; and the grow direction, an R = 1
+  save by rank 0 resharded onto the 4 ranks.
+
 Every ``AutoDist`` case records its strategy id and final parameters, so
 the test can check that the ranks agree.  Rank 0 ends by importing every
 module of ``autodist_tpu_torch`` and records the modules its interpreter
@@ -177,6 +192,16 @@ STALE_BATCH = np.arange(16 * 8, dtype=np.float32).reshape(16, 8)
 STALE_AVERAGE, STALE_MID = 1, 3
 STALE_PERIOD_S, STALE_STEPS = 1, 3
 ASYNC_S, ASYNC_STEPS, ASYNC_DELAY, ASYNC_TIMEOUT = 1, 3, 0.02, 10.0
+# checkpoints: the canonical-state builders, their adam steps and rates;
+# tests/test_checkpoint.py's adam rate; the reshard matrix's axes
+CKPT_BUILDERS = {"PSLoadBalancing": ("PSLoadBalancing", {}),
+                 "PartitionedPS": ("PartitionedPS", {"max_shards": 8}),
+                 "PS_stale": ("PS", {"staleness": 2})}
+CKPT_STEPS, CKPT_GPT_LR, CKPT_LR = 2, 1e-3, 0.05
+RESHARD_OPTS = ("adam", "sgd")
+RESHARD_UPDATES = ("replicated", "sharded")
+RESHARD_HIERARCHIES = ("flat", "two_level")
+RESHARD_STEPS = 3
 
 
 def codec_inputs(r, n, seed):
@@ -270,6 +295,22 @@ def hier_grads():
           for n, s in HIER_SHAPES.items()}
     return g1, {n: (g * np.float32(1.7) - np.float32(0.3)).astype(np.float32)
                 for n, g in g1.items()}
+
+
+def reshard_inputs():
+    """``tests/test_manifest_reshard.py``'s batch and parameters."""
+    r = np.random.RandomState(0)
+    batch = {"x": r.randn(16, 12).astype(np.float32), "y": r.randn(16, 3).astype(np.float32)}
+    r = np.random.RandomState(7)
+    return batch, {"w": r.randn(12, 3).astype(np.float32), "b": np.zeros(3, np.float32)}
+
+
+def reshard_optimizer(name):
+    """The reshard matrix's optimizers: adam(0.05), sgd(0.1) with momentum
+    0.9 (the momentum gives it a slot to reshard)."""
+    from autodist_tpu_torch import optim
+
+    return optim.adam(0.05) if name == "adam" else optim.sgd(0.1, momentum=0.9)
 
 
 def sparse_inputs():
@@ -507,6 +548,7 @@ def main(workdir):
     results["hier"] = hier_cases(inputs, world, autodist)
     results["partitioned"] = partitioned_cases(inputs, autodist)
     results["stale"] = stale_cases(inputs, world, autodist)
+    results["checkpoint"] = checkpoint_cases(inputs, world, autodist, workdir)
     if rank == 0:
         results["imports"] = package_imports()
 
@@ -1162,6 +1204,165 @@ def stale_cases(inputs, world, autodist):
                       "params": {n: t.numpy() for n, t in sess.params().items()}}
     torch.distributed.barrier()   # every rank has pulled: the chief may stop serving
     sess.close()
+    return out
+
+
+def checkpoint_cases(inputs, world, autodist, workdir):
+    """Checkpoints, canonical and update-space, written under
+    ``workdir/ckpt`` (see the module's docstring)."""
+    import torch
+
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.checkpoint import manifest
+    from autodist_tpu_torch.checkpoint.reshard import reshard_restore
+    from autodist_tpu_torch.checkpoint.saver import Saver
+    from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
+    from autodist_tpu_torch.model_item import ModelItem
+    from autodist_tpu_torch.models.gpt import GPT_TINY
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+    from autodist_tpu_torch.parallel.mesh import ReplicaWorld
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.runner import DistributedSession
+    from autodist_tpu_torch.strategy import PS, AllReduce, PartitionedPS
+    from autodist_tpu_torch.strategy.base import StrategyCompiler
+
+    d = os.path.join(workdir, "ckpt")
+    out = {"dir": d}
+
+    def tensors(arrays):
+        return {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()}
+
+    def numpy(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.detach().cpu().numpy().copy()
+        if isinstance(tree, dict):
+            return {k: numpy(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(numpy(v) for v in tree)
+        return tree
+
+    def canonical(sess):
+        t = sess.transformer
+        return {"params": numpy(t.canonical_params(sess.state)),
+                "opt": numpy(t.canonical_opt_state(sess.state))}
+
+    def linear_loss(p, batch):
+        return torch.mean((batch @ p["w"] + p["b"]) ** 2)
+
+    def linear(builder, opt=None):
+        return autodist(builder).distribute(linear_loss, tensors(inputs["linear_params"]),
+                                            opt or optim.adam(CKPT_LR))
+
+    gpt_loss, _, gpt_sparse = gpt_capture(dataclasses.replace(GPT_TINY, num_layers=GPT_LAYERS),
+                                          GPT_SEQ, device="cpu")
+    for key, (name, kwargs) in CKPT_BUILDERS.items():
+        for model in ("linear", "gpt"):
+            if model == "linear":
+                sess, batch = linear(_builder(name, **kwargs)), inputs["linear_batch"]
+            else:
+                sess = autodist(_builder(name, **kwargs)).distribute(
+                    gpt_loss, tensors(inputs["gpt_params"]), optim.adam(CKPT_GPT_LR),
+                    sparse_vars=gpt_sparse, has_rng=True)
+                batch = inputs["gpt_batch"]
+            for _ in range(CKPT_STEPS):
+                sess.run(batch)
+            out["canonical", key, model] = dict(canonical(sess), manifest=manifest.build_manifest(
+                sess.transformer, step=sess.step, layout=manifest.LAYOUT_CANONICAL))
+
+    batch = inputs["linear_batch"]
+    sess = linear(PartitionedPS(max_shards=8))
+    for _ in range(3):
+        sess.run(batch)
+    out["single"] = {"path": Saver(sess).save(os.path.join(d, "single")),
+                     "params": numpy(sess.params())}
+    sess.run(batch)
+    out["single"]["next"] = numpy(sess.params())
+
+    sess = linear(PS())
+    for _ in range(2):
+        sess.run(batch)
+    path = Saver(sess).save(os.path.join(d, "resume"))
+    sess.run(batch)
+    sess2 = linear(PS())
+    Saver(sess2).restore(path)
+    restored_step = sess2.step
+    sess2.run(batch)
+    out["resume"] = {"want": numpy(sess.params()), "got": numpy(sess2.params()),
+                     "step": restored_step}
+
+    sess = linear(PartitionedPS(max_shards=8))
+    for _ in range(2):
+        sess.run(batch)
+    path = Saver(sess).save(os.path.join(d, "cross"))
+    sess2 = linear(AllReduce())
+    Saver(sess2).restore(path)
+    sess2.run(batch)
+    sess.run(batch)
+    out["cross"] = {"want": numpy(sess.params()), "got": numpy(sess2.params())}
+
+    def own(sess):
+        return numpy({"params": sess.state["params"], "shards": sess.state["shards"],
+                      "opt": sess.state["opt_state"].state_dict()["state"]})
+
+    sess = linear(AllReduce(sharded_update="sharded"))
+    for _ in range(3):
+        sess.run(batch)
+    path = Saver(sess).save_sharded(os.path.join(d, "same"))
+    saved = own(sess)
+    sess.run(batch)
+    sess2 = linear(AllReduce(sharded_update="sharded"))
+    Saver(sess2).restore(path)
+    out["same"] = {"saved": saved, "restored": own(sess2), "step": sess2.step,
+                   "path": path}
+    sess2.run(batch)
+    out["same"].update(want=numpy(sess.params()), got=numpy(sess2.params()))
+
+    rbatch, rparams = reshard_inputs()
+
+    def reshard_loss(p, b):
+        return torch.mean((b["x"] @ p["w"] + p["b"] - b["y"]) ** 2)
+
+    for opt in RESHARD_OPTS:
+        for update in RESHARD_UPDATES:
+            for hierarchy in RESHARD_HIERARCHIES:
+                two = hierarchy == "two_level"
+                sess = autodist(AllReduce(sharded_update=update,
+                                          hierarchy="two_level" if two else "auto"),
+                                dict(SPEC, mesh=HIER_MESH) if two else SPEC).distribute(
+                    reshard_loss, tensors(rparams), reshard_optimizer(opt))
+                for _ in range(RESHARD_STEPS):
+                    sess.run(rbatch)
+                path = Saver(sess).save_sharded(os.path.join(d, f"m_{opt}_{update}_{hierarchy}"))
+                out["matrix", opt, update, hierarchy] = dict(
+                    canonical(sess), path=path, hierarchy=sess.transformer.sync_hierarchy,
+                    manifest=manifest.load_manifest(path))
+
+    sess = autodist(PS()).distribute(reshard_loss, tensors(rparams), optim.adam(CKPT_LR))
+    for _ in range(2):
+        sess.run(rbatch)
+    out["ps_flat"] = {"path": Saver(sess).save_sharded(os.path.join(d, "ps_flat")),
+                      "params": numpy(sess.params())}
+
+    # the grow direction: rank 0 alone trains and saves at R = 1, the four
+    # ranks reshard it onto R = 4
+    grow = os.path.join(d, "grow")
+    if world.rank == 0:
+        spec1 = ResourceSpec(resource_info={"nodes": [{"address": "localhost", "cpus": [0],
+                                                        "chief": True}]})
+        item = ModelItem(reshard_loss, tensors(rparams), optim.adam(CKPT_LR))
+        builder = AllReduce(sharded_update="sharded")
+        strategy = StrategyCompiler(item, spec1).compile(builder.build(item, spec1))
+        one = DistributedSession(GraphTransformer(strategy, item, "cpu",
+                                                  ReplicaWorld(rank=0, size=1)))
+        for _ in range(2):
+            one.run(rbatch)
+        Saver(one).save_sharded(grow)
+        out["grow_saved"] = canonical(one)
+    torch.distributed.barrier()
+    sess = autodist(AllReduce(sharded_update="sharded")).distribute(
+        reshard_loss, tensors(rparams), optim.adam(CKPT_LR))
+    reshard_restore(sess, grow, verify=False)
+    out["grow"] = dict(canonical(sess), step=sess.step)
     return out
 
 
