@@ -53,10 +53,30 @@ whose chief serves the parameters over TCP and whose every process drives
 one worker.  The options only the synchronous engine implements
 (``batch_mask``, ``rng``, ``accum_steps`` other than 1,
 ``clip_global_norm``, ``sync_schedule``) raise ``NotImplementedError``
-there.  ``launch``, ``serve``, ``aot_compile`` and the options
-``data_axes``, ``batch_spec``, ``param_specs`` and ``verify`` are later
-slices of the port (ROADMAP, Queue A); they raise
-``NotImplementedError``.
+there.  ``serve``, ``aot_compile`` and the options ``data_axes``,
+``batch_spec``, ``param_specs`` and ``verify`` are later slices of the
+port (ROADMAP, Queue A); they raise ``NotImplementedError``.
+
+``launch`` is the multi-process entry without a launcher: the chief builds
+and serialises the strategy, starts one process for every other device of
+the spec (:class:`~autodist_tpu_torch.cluster.Cluster`: locally on its own
+node, through ``ssh`` on the others), each re-executing the user's script,
+and every process joins the process group and builds the same session;
+the workers load the strategy by id.  A spec of one device, or ranks a
+launcher such as ``torchrun`` started already, degrade to ``distribute``.
+On the async path no group is joined: the chief binds the parameter
+service first and hands its address and a fresh authkey to the workers
+through the launch's environment.
+
+``rebind(spec)`` swaps in the surviving topology of a membership change
+(``ResourceSpec.shrink``; the elastic trainer's): the next ``distribute``
+plans on it, in the survivors' subgroup of the launch's process group
+(``parallel/mesh.py``).  The launch's ranks map onto the spec's devices in
+:func:`~autodist_tpu_torch.cluster.rank_devices` order; a rank whose
+device the new spec lacks is not a member (``in_world`` is False) and must
+not call ``distribute``.  After a rebind the world's rank 0 builds the
+strategy, whatever its ``AUTODIST_WORKER``: a strategy id in a worker's
+environment belongs to the epoch it was launched in.
 """
 import functools
 from typing import Any, Callable, Optional, Sequence
@@ -118,6 +138,11 @@ class AutoDist:
         self._device = resolve_device(device)
         self._world = None
         self._mesh_worlds = {}
+        self._members = None        # global ranks of the world after a rebind
+        self._launch_names = None   # the launch's device name of each global rank
+        self._rebound = False
+        self._launching = None      # the Cluster of a launch() in progress
+        self._coordinator = None
         if strategy_builder is None:
             from autodist_tpu_torch.strategy import PSLoadBalancing
 
@@ -133,8 +158,41 @@ class AutoDist:
         """This process's :class:`ReplicaWorld`, joined at the first
         ``distribute``."""
         if self._world is None:
-            self._world = replica_world(self._device)
+            self._world = replica_world(self._device, self._members)
         return self._world
+
+    @property
+    def in_world(self):
+        """Whether this process is a member of the spec's world: False for
+        a rank whose device a rebind's spec dropped."""
+        import torch.distributed as dist
+
+        return (self._members is None or not dist.is_initialized()
+                or dist.get_rank() in self._members)
+
+    def rebind(self, resource_spec):
+        """Swap in the SURVIVING topology's spec (usually
+        ``old_spec.shrink(...)``) and drop the cached world and mesh
+        worlds, so the next :meth:`distribute` plans on what is alive, in
+        the survivors' subgroup.  Sessions built before keep their world;
+        the elastic trainer builds a new session and reshards its
+        checkpoint onto it."""
+        import torch.distributed as dist
+
+        from autodist_tpu_torch.cluster import rank_devices
+
+        if self._launch_names is None and dist.is_initialized():
+            names = [d.name_string() for _, d in rank_devices(self._resource_spec)]
+            if len(names) == dist.get_world_size():
+                self._launch_names = names
+        self._resource_spec = resource_spec
+        self._world = None
+        self._mesh_worlds = {}
+        self._rebound = True
+        if self._launch_names is not None:
+            alive = {n for n, _ in resource_spec.devices}
+            self._members = tuple(r for r, n in enumerate(self._launch_names) if n in alive)
+        return self
 
     def _mesh_world(self, mesh):
         """:attr:`world` placed on a compiled strategy's mesh, built once per
@@ -146,9 +204,15 @@ class AutoDist:
 
     @property
     def is_chief(self):
-        return const.IS_AUTODIST_CHIEF and self.world.rank == 0
+        return (const.IS_AUTODIST_CHIEF or self._rebound) and self.world.rank == 0
 
     def _build_or_load_strategy(self, model_item) -> Strategy:
+        if self._launching is not None:   # launch(): the workers load it by id
+            raw = self._chief_or_worker_strategy(model_item)
+            if not _strategy_requests_async(raw.proto):
+                self._coordinator.setup(raw, device=self._device)
+                self._world, self._mesh_worlds = None, {}   # the group just joined
+            return raw
         if self.world.rank == 0:
             strategy = self._chief_or_worker_strategy(model_item)
             text = schema.dumps(strategy.proto)
@@ -162,7 +226,7 @@ class AutoDist:
         return strategy
 
     def _chief_or_worker_strategy(self, model_item) -> Strategy:
-        if const.IS_AUTODIST_CHIEF:
+        if const.IS_AUTODIST_CHIEF or self._rebound:
             strategy = self._strategy_builder.build(model_item, self._resource_spec)
             strategy.serialize()
             logging.info("Chief built strategy %s", strategy.id)
@@ -246,7 +310,10 @@ class AutoDist:
             raise NotImplementedError(
                 f"async PS runtime (sync=False) does not support {unsupported}; use the "
                 f"synchronous engine or drop these options")
-        spec, world = self._resource_spec, self.world
+        spec = self._resource_spec
+        if self._launching is not None:
+            return self._launched_async_session(item, strategy, run_id)
+        world = self.world
         n_nodes = len(spec.node_addresses)
         if world.size > 1 or n_nodes > 1 or ENV.AUTODIST_NUM_PROCESSES.val > 1:
             # one worker a process; the chief serves the parameters
@@ -263,3 +330,47 @@ class AutoDist:
         else:
             devices = [torch_device(name) for name, _ in spec.gpu_devices] or [self._device]
         return AsyncPSEngineSession(strategy, item, devices=devices)
+
+    def _launched_async_session(self, item, strategy, run_id):
+        """``launch``'s async path: no process group; the chief binds the
+        service, then launches the workers with its bound address and a
+        fresh 256-bit authkey in their environment (never in its own)."""
+        import secrets
+
+        from autodist_tpu_torch.kernel.synchronization.async_service import (
+            AsyncPSClusterSession)
+
+        cl = self._launching
+        authkey = secrets.token_bytes(32) if cl.is_chief else None
+        sess = AsyncPSClusterSession(strategy, item, run_id=run_id,
+                                     num_workers=cl.num_processes, worker_id=cl.process_id,
+                                     chief_host=self._resource_spec.chief, authkey=authkey,
+                                     device=self._device)
+        if cl.is_chief:
+            cl.launch_workers(run_id, extra_env={"AUTODIST_ASYNC_PS_AUTHKEY": authkey.hex(),
+                                                 "AUTODIST_ASYNC_PS_ADDR": sess.address})
+        return sess
+
+    def launch(self, loss_fn, params, optimizer, *, coordinator_port=None, **kwargs):
+        """The multi-process entry without a launcher (see the module's
+        docstring): on the chief, build and serialise the strategy, launch
+        a process for every other device of the spec (re-executing this
+        script with the worker env contract) and join the process group;
+        on a worker, join the group and load the strategy by id.  Every
+        process returns the same session as :meth:`distribute` would;
+        ``kwargs`` are ``distribute``'s.  The strategy's serialisation
+        directory must be visible to the workers (a shared filesystem, as
+        the reference's strategy hand-off assumes).  One process degrades
+        to :meth:`distribute`."""
+        from autodist_tpu_torch.cluster import Coordinator
+
+        kw = {} if coordinator_port is None else {"coordinator_port": coordinator_port}
+        self._coordinator = Coordinator(self._resource_spec, **kw)
+        cl = self._coordinator.cluster
+        if cl.num_processes <= 1 or (const.IS_AUTODIST_CHIEF and launched_world_size() > 1):
+            return self.distribute(loss_fn, params, optimizer, **kwargs)
+        self._launching = cl
+        try:
+            return self.distribute(loss_fn, params, optimizer, **kwargs)
+        finally:
+            self._launching = None

@@ -206,7 +206,7 @@ class GPT(nn.Module):
         if pos0 + S > c.max_position:
             raise ValueError(f"positions {pos0}..{pos0 + S - 1} exceed max_position "
                              f"{c.max_position}")
-        x = F.embedding(tokens, self.wte) + self.wpe[pos0:pos0 + S][None]
+        x = take_rows(self.wte, tokens) + self.wpe[pos0:pos0 + S][None]
         x = _dropout(x.to(c.dtype), c.dropout_rate, generator)
         for i in range(c.num_layers):
             block = getattr(self, f"h_{i}")
@@ -221,6 +221,18 @@ class GPT(nn.Module):
         if return_hidden:
             return x
         return x @ self.wte.t().float()
+
+
+def take_rows(table, ids):
+    """``table``'s rows by ``ids``, as ``jnp.take`` reads them by default:
+    an id in ``[-len(table), 0)`` counts from the end, and an id outside
+    ``[-len(table), len(table))`` gives a NaN row ("fill"; the elastic
+    trainer's ``nan`` drill poisons token ids so)."""
+    n = table.shape[0]
+    ids = torch.where(ids < 0, ids + n, ids)
+    inside = (ids >= 0) & (ids < n)
+    rows = F.embedding(torch.where(inside, ids, 0), table)
+    return torch.where(inside[..., None], rows, float("nan"))
 
 
 def _call_block(block, params, x, generator):

@@ -29,6 +29,16 @@ order, to this rank's group and its place along the tuple, as JAX's
 collectives over that axis see it.  On ``{"replica": R_d, "seq": R_s}``
 the seq row (the R_s ranks of one d) also carries ring attention
 (:class:`SeqAxis`); the gradient sync stays on the whole world.
+
+After a membership change (the elastic trainer's), the world is the
+survivors' subgroup of the launch's default group, which stays as it is:
+``replica_world(device, members)`` builds it with ``dist.new_group(members,
+use_local_synchronization=True)``, so only the survivors take part, and
+numbers the ranks within it (its rank 0 is the lowest surviving global
+rank).  Everything that addresses a rank by number goes through the
+world's group: :func:`broadcast_text` sends from the group's first rank,
+and :func:`mesh_world` on such a world maps each row to global ranks and
+lets only the world's members create the rows' groups.
 """
 import dataclasses
 import math
@@ -53,11 +63,14 @@ class ReplicaWorld:
     ``size // seq.size`` rows, which slice dim 0 of the batch.  A world
     placed on a mesh knows its axes (``mesh_names``, ``mesh_sizes``) and
     the process group of each subset of them through this rank
-    (``groups``, keyed by the axes in mesh order)."""
+    (``groups``, keyed by the axes in mesh order).  ``ranks`` are the
+    members' global ranks in group order (empty for a world outside any
+    process group)."""
 
     rank: int
     size: int
     group: Optional[Any] = None
+    ranks: tuple = ()
     seq: Optional[SeqAxis] = None
     data_index: int = 0
     mesh_names: tuple = ()
@@ -149,11 +162,35 @@ def hierarchical_axes(resource_spec, n_devices):
     return {AXIS_REPLICA: n_devices}
 
 
+def _whole_default_group(world):
+    """Whether ``world`` is the launch's whole default process group."""
+    return (not dist.is_initialized()
+            or tuple(world.ranks) == tuple(range(dist.get_world_size())))
+
+
+# torch names a group created by its members alone after its ranks' hash, so
+# a second group of the same ranks in this process would clash with the first
+_SUBGROUPS = {}
+
+
+def subgroup(ranks):
+    """The process group of the global ``ranks``, created by its members
+    alone (``use_local_synchronization``), once per set of ranks in this
+    process."""
+    ranks = tuple(sorted(ranks))
+    if ranks not in _SUBGROUPS:
+        _SUBGROUPS[ranks] = dist.new_group(list(ranks), use_local_synchronization=True)
+    return _SUBGROUPS[ranks]
+
+
 def mesh_world(world, names, sizes):
-    """``world`` placed on the mesh ``names`` x ``sizes``.  Every rank must
-    call it, in the same order: it creates the process groups of every
-    proper subset of the axes (``dist.new_group`` for every set of ranks
-    that agree on the other axes, on every rank; none for a set of one).
+    """``world`` placed on the mesh ``names`` x ``sizes``.  Every rank of
+    the world must call it, in the same order: it creates the process
+    groups of every proper subset of the axes (for every set of ranks that
+    agree on the other axes; none for a set of one).  On the default group
+    every rank calls ``dist.new_group`` for every set; on a survivors'
+    world each member creates only the sets it belongs to, on their global
+    ranks (:func:`subgroup`).
     Sequence parallelism is on when the mesh has a seq axis beside another,
     even at ``seq: 1`` (``graph_transformer.py:78`` of the JAX package);
     then the result carries this rank's :class:`SeqAxis` and seq-row index.
@@ -162,6 +199,7 @@ def mesh_world(world, names, sizes):
     check_mesh_axes(names)
     check_replicas(math.prod(sizes), world)
     grid = np.arange(world.size).reshape(sizes)
+    whole = _whole_default_group(world)
     groups = {names: world.group}
     seq, data_index = None, 0
     for mask in range(1, (1 << len(names)) - 1):
@@ -170,7 +208,12 @@ def mesh_world(world, names, sizes):
         rows = rows.reshape(-1, math.prod(sizes[i] for i in axes)).tolist()
         key = tuple(names[i] for i in axes)
         for i, row in enumerate(rows):
-            group = dist.new_group(row) if len(row) > 1 else None
+            if len(row) == 1:
+                group = None
+            elif whole:
+                group = dist.new_group(row)
+            elif world.rank in row:
+                group = subgroup(world.ranks[r] for r in row)
             if world.rank in row:
                 groups[key] = group
                 if key == (AXIS_SEQUENCE,):
@@ -195,9 +238,11 @@ def _init_method():
     return "env://"
 
 
-def replica_world(device):
+def replica_world(device, members=None):
     """Join (or start) the process group of this launch; returns this
-    process's :class:`ReplicaWorld`."""
+    process's :class:`ReplicaWorld`: the whole group, or with ``members``
+    (global ranks, this process's among them) the members' subgroup,
+    ranked within it (see the module's docstring)."""
     device = torch.device(device)
     if not dist.is_initialized():
         size = ENV.WORLD_SIZE.val
@@ -209,8 +254,17 @@ def replica_world(device):
                                 init_method=_init_method(), rank=ENV.RANK.val,
                                 world_size=size)
     size = dist.get_world_size()
-    return ReplicaWorld(rank=dist.get_rank(), size=size,
-                        group=dist.group.WORLD if size > 1 else None)
+    everyone = tuple(range(size))
+    members = everyone if members is None else tuple(sorted(members))
+    me = dist.get_rank()
+    if me not in members:
+        raise ValueError(f"rank {me} is not among the world's members {list(members)}")
+    if members == everyone:
+        return ReplicaWorld(rank=me, size=size, group=dist.group.WORLD if size > 1 else None,
+                            ranks=everyone)
+    return ReplicaWorld(rank=members.index(me), size=len(members),
+                        group=subgroup(members) if len(members) > 1 else None,
+                        ranks=members)
 
 
 def check_replicas(num_replicas, world):
@@ -225,9 +279,11 @@ def check_replicas(num_replicas, world):
 
 
 def broadcast_text(text, world):
-    """Rank 0's string on every rank of ``world``."""
+    """The string of the world's rank 0 (its group's first rank, whatever
+    its global rank) on every rank of ``world``."""
     if world.group is None:
         return text
     box = [text]
-    dist.broadcast_object_list(box, src=0, group=world.group)
+    dist.broadcast_object_list(box, src=dist.get_global_rank(world.group, 0),
+                               group=world.group)
     return box[0]

@@ -4,17 +4,30 @@ Counterpart of ``autodist_tpu/resource_spec.py`` for GPU hosts.  A spec is a
 dict (or a YAML file of the same shape)::
 
     nodes:
-      - address: localhost
+      - address: 10.0.0.1
         gpus: [0, 1, 2, 3]      # "chips:" is an alias; "cpus:" lists CPUs
         chief: true
+        ssh_config: conf        # optional, for the Cluster's remote launch
+        network_bandwidth: 100  # Gbps (default 1, with a warning)
+      - address: 10.0.0.2
+        gpus: [0, 1, 2, 3]
+    ssh:
+      conf:
+        username: root
+        key_file: ~/.ssh/id_rsa
+        port: 22
+        python_venv: ''
+        shared_envs: {}
 
 Device strings read ``"<address>:GPU:<index>"``.  With no spec, the local
 GPUs are detected through ``torch.cuda.device_count()``; with none and no
 ``device="cpu"`` request that raises.  ``yaml`` is imported only to read a
-file.  Left for later (ROADMAP, Queue A item 7b): SSH configs and ``shrink``.
+file.  :meth:`ResourceSpec.shrink` gives the surviving topology of a
+membership change (the elastic trainer's).  Left for later (ROADMAP, Queue
+A item 10, with the cost model that reads it): the ``topology:`` string.
 """
 import os
-from collections import OrderedDict
+from collections import OrderedDict, namedtuple
 from enum import Enum
 
 from autodist_tpu_torch.utils import logging
@@ -59,6 +72,17 @@ class DeviceSpec:
         return f"DeviceSpec({self.name_string()})"
 
 
+SSHConfig = namedtuple(
+    "SSHConfig", ["username", "port", "python_venv", "key_file", "pythonpath", "env"])
+
+
+def _parse_ssh_group(conf):
+    return SSHConfig(username=conf.get("username", ""), port=int(conf.get("port", 22)),
+                     python_venv=conf.get("python_venv", ""),
+                     key_file=conf.get("key_file", ""), pythonpath=conf.get("pythonpath", ""),
+                     env=dict(conf.get("shared_envs", {}) or {}))
+
+
 def _read_yaml(path):
     try:
         import yaml
@@ -80,6 +104,9 @@ class ResourceSpec:
         self._devices = OrderedDict()
         self._chief_address = None
         self._mesh_request = None
+        self._ssh_configs = {}
+        self._bandwidths = {}
+        self._explicit_bandwidths = {}   # only the entries the spec gives
         if resource_file is not None:
             if not os.path.exists(resource_file):
                 raise ResourceSpecError(f"Resource spec {resource_file} does not exist")
@@ -88,6 +115,11 @@ class ResourceSpec:
             resource_info = self._local_resource_info(device)
         self._from_resource_info(resource_info)
         self._validate()
+
+    @classmethod
+    def from_num_chips(cls, n, address="localhost"):
+        return cls(resource_info={"nodes": [{"address": address, "gpus": list(range(n)),
+                                             "chief": True}]})
 
     @staticmethod
     def _local_resource_info(device):
@@ -105,19 +137,20 @@ class ResourceSpec:
 
     def _from_resource_info(self, info):
         info = dict(info or {})
-        later = [k for k in ("ssh", "topology") if info.get(k)]
-        if later or any(n.get("ssh_config") for n in info.get("nodes") or []):
+        if info.get("topology"):
             raise NotImplementedError(
-                f"resource spec keys {later or ['ssh_config']}: SSH launch is a "
-                f"later slice of the port (ROADMAP, Queue A item 7b)")
+                "resource spec key 'topology': the ICI topology string feeds the cost "
+                "model, a later slice of the port (ROADMAP, Queue A item 10)")
+        for group, conf in (info.get("ssh") or {}).items():
+            self._ssh_configs[group] = _parse_ssh_group(conf or {})
         self._mesh_request = info.get("mesh")
         nodes = info.get("nodes") or []
         if not nodes:
             raise ResourceSpecError("Resource spec has no nodes")
         for node in nodes:
-            self._parse_node(node)
+            self._parse_node(node, len(nodes))
 
-    def _parse_node(self, node):
+    def _parse_node(self, node, num_nodes):
         address = str(node["address"])
         if address in self._nodes:
             raise ResourceSpecError(f"Duplicate node address {address}")
@@ -135,8 +168,16 @@ class ResourceSpec:
             devices = [DeviceSpec(address, 0, DeviceType.CPU)]
         for d in devices:
             self._devices[d.name_string()] = d
+        if "network_bandwidth" in node:
+            self._bandwidths[address] = float(node["network_bandwidth"])
+            self._explicit_bandwidths[address] = float(node["network_bandwidth"])
+        else:
+            if num_nodes > 1:
+                logging.warning("Network bandwidth for node %s not specified; defaulting to "
+                                "1 Gbps", address)
+            self._bandwidths[address] = 1.0
         self._nodes[address] = {"address": address, "devices": devices,
-                                "chief": is_chief}
+                                "chief": is_chief, "ssh_config": node.get("ssh_config")}
 
     def _validate(self):
         if self._chief_address is None:
@@ -195,9 +236,104 @@ class ResourceSpec:
         return len(self.accelerator_devices)
 
     @property
+    def num_cpus(self):
+        return len(self.cpu_devices)
+
+    def node_devices(self, address):
+        return list(self._nodes[address]["devices"])
+
+    def network_bandwidth(self, address):
+        return self._bandwidths[address]
+
+    @property
+    def explicit_bandwidths(self):
+        """Only the bandwidths the spec gives (no 1 Gbps default)."""
+        return dict(self._explicit_bandwidths)
+
+    def ssh_config(self, address):
+        """The :class:`SSHConfig` of the node's ``ssh_config`` group, or
+        None for a node without one."""
+        group = self._nodes[address].get("ssh_config")
+        if group is None:
+            return None
+        if group not in self._ssh_configs:
+            raise ResourceSpecError(f"Unknown ssh group {group!r} for node {address}")
+        return self._ssh_configs[group]
+
+    @property
+    def ssh_config_map(self):
+        return dict(self._ssh_configs)
+
+    @property
     def mesh_request(self):
         """Optional explicit {axis_name: size} mesh request."""
         return dict(self._mesh_request) if self._mesh_request else None
+
+    @property
+    def is_single_node(self):
+        return len(self._nodes) == 1
+
+    def shrink(self, drop_addresses=(), keep_chips=None):
+        """A new spec of the SURVIVING topology after a membership change:
+        ``drop_addresses`` removes whole nodes (a lost worker),
+        ``keep_chips`` (``{address: [device, ...]}``) shrinks a node's
+        device set in place (a degraded host; on one node, the elastic
+        trainer's chaos kill).
+
+        Chief failover is deterministic: when the chief is dropped, the
+        first surviving node in spec order becomes chief (the successor
+        :meth:`Cluster.successor_chief` names), so every process derives
+        the same spec.  The ``mesh:`` request is not carried over (it was
+        sized for the old device count); the ssh groups and the explicit
+        bandwidths are.
+        """
+        drop = set(drop_addresses)
+        keep_chips = dict(keep_chips or {})
+        unknown = (drop | set(keep_chips)) - set(self._nodes)
+        if unknown:
+            raise ResourceSpecError(f"shrink: unknown node address(es) {sorted(unknown)}; "
+                                    f"spec has {list(self._nodes)}")
+        survivors = [a for a in self._nodes if a not in drop]
+        if not survivors:
+            raise ResourceSpecError("shrink would drop every node")
+        chief = self._chief_address if self._chief_address in survivors else survivors[0]
+        nodes = []
+        for addr in survivors:
+            node = self._nodes[addr]
+            accel = [d.device_index for d in node["devices"] if d.device_type != DeviceType.CPU]
+            cpus = [d.device_index for d in node["devices"] if d.device_type == DeviceType.CPU]
+            if addr in keep_chips:
+                kept = list(keep_chips[addr])
+                bad = set(kept) - set(accel or cpus)
+                if bad:
+                    raise ResourceSpecError(f"shrink: node {addr} has no chip(s) {sorted(bad)}")
+                if accel:
+                    accel = [i for i in accel if i in kept]
+                else:
+                    cpus = [i for i in cpus if i in kept]
+                if not accel and not cpus:
+                    continue   # the node shrank to nothing: drop it
+            entry = {"address": addr, "chief": addr == chief}
+            if accel:
+                entry["gpus"] = accel
+            if cpus and not accel:
+                entry["cpus"] = cpus
+            if node.get("ssh_config") is not None:
+                entry["ssh_config"] = node["ssh_config"]
+            if addr in self._explicit_bandwidths:
+                entry["network_bandwidth"] = self._explicit_bandwidths[addr]
+            nodes.append(entry)
+        if not nodes:
+            raise ResourceSpecError("shrink would drop every device")
+        if not any(n["chief"] for n in nodes):
+            nodes[0]["chief"] = True   # the chief's node lost all its devices
+        info = {"nodes": nodes}
+        if self._ssh_configs:
+            info["ssh"] = {g: {"username": c.username, "port": c.port,
+                               "python_venv": c.python_venv, "key_file": c.key_file,
+                               "pythonpath": c.pythonpath, "shared_envs": dict(c.env)}
+                           for g, c in self._ssh_configs.items()}
+        return ResourceSpec(resource_info=info)
 
     def __repr__(self):
         return (f"ResourceSpec(nodes={len(self._nodes)}, "

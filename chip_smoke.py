@@ -246,7 +246,26 @@ Phases (each failure exits non-zero before the last line):
    printed).  12 launches a step of each flash kernel in (a) and (b);
    prints each save's and restore's seconds, bytes and GB/s, the cost of
    the periodic saves a step, and the card's name and power limit;
-19. prints the ``{"kernels": [...]}`` line (nine kernels), then the
+19. elastic training, in a process of its own (``chip_smoke.py --elastic
+   PHASE5``), GPT-2 small as in phase 18 (B=8, adamw, phase 5's weights
+   and batch) under the default builder, the checkpoints in ``_ckpt/``
+   (removed at the end): (a) ``ElasticTrainer(..., verify_restore=False,
+   chaos="delay@2:0.2;kill_worker@3").fit(batch_fn, 10)``: on one GPU the
+   default kill keeps ``gpus[:max(1, 1 // 2)]``, so the membership change
+   (drain, ``save_sharded``, ``shrink``, epoch 1, ``rebind``,
+   ``distribute``, ``reshard_restore``) runs at R = 1 -> 1: ``replans ==
+   1``, ``epoch == 1``, the ten losses bitwise phase 5's; (b)
+   ``chaos="preempt@4"``: SIGTERM before step 5, ``preempted``, an
+   ``update_space`` manifest at step 4, and a fresh trainer's ``fit(...,
+   6)`` resumes from it, its steps 5-6 bitwise (a)'s; (c) ``chaos="nan@3"``
+   (the batch's token ids poisoned, read as NaN rows) with an
+   ``on_anomaly`` hook: the hook fires once, at step 3; (d) ``ad.launch``
+   on the one-GPU spec degrades to ``distribute``: its step-1 loss bitwise
+   phase 5's.  12 launches a step of each flash kernel in (a), (b) and
+   (d); prints the membership change's seconds (drain, save, shrink,
+   rebind and distribute, restore), each save's and restore's GB/s, the
+   peak memory, and the card's name and power limit;
+20. prints the ``{"kernels": [...]}`` line (nine kernels), then the
    ``{"ok": true, ...}`` line.
 
 Tolerances, kernel vs plain version on the same inputs.  Flash, bf16
@@ -269,7 +288,8 @@ relative <= 1e-5.  Bounded staleness against phase 5: the DIVERGENT run's
 step 1 relative <= 1e-5 and steps 2-10 <= 1e-3, the async worker's step 1
 relative <= 1e-5.  Checkpoints: the fit against phase 5 as the default
 builder's run; resumed and restored losses bitwise; the plain model's
-loss against the session's relative <= 1e-6.  Quantization kernels and the
+loss against the session's relative <= 1e-6.  Elastic: the R = 1 -> 1
+trainer's losses, the resumed ones and ``launch``'s step 1 bitwise.  Quantization kernels and the
 synced gradients of the int8 codecs: bitwise (both sides divide with IEEE
 division, round half to even and sum the peers in order without FMA).
 """
@@ -354,6 +374,10 @@ ASYNC_DELAYS = (0.0, 0.05)
 # the session's (relative), and the checkpoints' directory in the checkout
 CKPT_SAVE_EVERY, CKPT_PREEMPT_STEP, CKPT_RERUN_STEPS, CKPT_SINGLE_TOL = 5, 4, 6, 1e-6
 CKPT_DIR = os.path.join(REPO, "_ckpt")
+# phase 19: the chaos of each run, the resumed fit's end after the
+# preemption, and the poisoned step's run length
+ELASTIC_CHAOS = {"a": "delay@2:0.2;kill_worker@3", "b": "preempt@4", "c": "nan@3"}
+ELASTIC_PREEMPT_STEP, ELASTIC_RERUN_STEPS, ELASTIC_NAN_STEPS = 4, 6, 4
 
 
 class SmokeFailure(Exception):
@@ -2558,6 +2582,134 @@ def train_gpt2_ckpt(torch, m, kernel_modules, phase5):
     return out
 
 
+def train_gpt2_elastic(torch, m, kernel_modules, phase5):
+    """Phase 19: the elastic trainer on phase 5's GPT-2 small under the
+    default builder; see the module's docstring."""
+    import shutil
+
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.checkpoint import manifest
+    from autodist_tpu_torch.elastic import ElasticTrainer
+    from autodist_tpu_torch.models.gpt import GPTConfig
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+
+    config = GPTConfig()
+    loss_fn, params, sparse = gpt_capture(config, SEQ, seed=0)
+    batch = gpt2_batch(config, BATCH)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+
+    def trainer(run, chaos, **kw):   # the default builder, PSLoadBalancing
+        return ElasticTrainer(m["spec"], None, loss_fn, params, optim.adamw(3e-4),
+                              checkpoint_dir=os.path.join(CKPT_DIR, run),
+                              distribute_kwargs={"sparse_vars": sparse, "has_rng": True},
+                              verify_restore=False, chaos=chaos, **kw)
+
+    def launches():
+        return {n: c for km in kernel_modules for n, c in km.LAUNCHES.items()}
+
+    def reset():
+        for km in kernel_modules:
+            km.reset_launches()
+
+    def losses_of(t):
+        return [loss for _, _, loss in t.history]
+
+    clock = CheckpointClock(torch)
+    out = {"card": card_line()}
+    print(f"phase 19 on {out['card']}")
+    want5 = list(phase5["losses"])
+    total = dict(NO_LAUNCHES)
+    try:
+        # (a) a kill and a delay: the membership change at R = 1 -> 1
+        torch.cuda.reset_peak_memory_stats()
+        t = trainer("a", ELASTIC_CHAOS["a"])
+        reset()
+        t0 = time.perf_counter()
+        t.fit(lambda step: batch, STEPS)
+        fit_s = time.perf_counter() - t0
+        got = launches()
+        losses = losses_of(t)
+        (change,) = t.membership_changes
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print("elastic (a) losses: " + ", ".join(f"{x:.6f}" for x in losses)
+              + f"; bitwise phase 5's: {losses == want5}; epochs "
+              f"{[e for e, _, _ in t.history]}; replans {t.replans}")
+        print(f"elastic (a) membership change at step {change['step']} (R = "
+              f"{change['replicas_before']} -> {change['replicas_after']}): drain "
+              f"{change['drain_s']:.4f} s, save {change['save_s']:.3f} s, shrink "
+              f"{change['shrink_s']:.4f} s, rebind + distribute {change['replan_s']:.3f} s, "
+              f"restore {change['restore_s']:.3f} s; fit {fit_s:.2f} s; peak memory "
+              f"{peak:.2f} GB; launches {got}; {out['card']}")
+        check(t.replans == 1 and t.epoch == 1 and not t.left,
+              f"elastic (a): replans {t.replans}, epoch {t.epoch}, left {t.left}")
+        check(losses == want5, f"elastic (a): losses {losses} are not phase 5's {want5}")
+        check(got == flash_launches(config, STEPS),
+              f"elastic (a): expected launches {flash_launches(config, STEPS)}, got {got}")
+        total = {k: total[k] + v for k, v in got.items()}
+        out["a"] = {"losses": losses, "change": change, "fit_s": fit_s, "peak_gb": peak}
+        del t
+        torch.cuda.empty_cache()
+
+        # (b) SIGTERM before step ELASTIC_PREEMPT_STEP + 1, then a fresh trainer resumes
+        t = trainer("b", ELASTIC_CHAOS["b"])
+        reset()
+        sess = t.fit(lambda step: batch, STEPS)
+        m_b = manifest.load_manifest(os.path.join(CKPT_DIR, "b", "elastic_ckpt"))
+        check(sess.preempted and sess.step == ELASTIC_PREEMPT_STEP
+              and m_b["layout"] == "update_space" and m_b["step"] == ELASTIC_PREEMPT_STEP,
+              f"elastic (b): preempted {sess.preempted} at step {sess.step}, manifest {m_b}")
+        del sess, t
+        torch.cuda.empty_cache()
+        t = trainer("b", "")
+        t.fit(lambda step: batch, ELASTIC_RERUN_STEPS)
+        got = launches()
+        rerun = losses_of(t)
+        want = losses[ELASTIC_PREEMPT_STEP:ELASTIC_RERUN_STEPS]
+        print(f"elastic (b) preempt@{ELASTIC_PREEMPT_STEP}: preempted at step "
+              f"{ELASTIC_PREEMPT_STEP}, update-space manifest; the resumed steps "
+              f"{ELASTIC_PREEMPT_STEP + 1}-{ELASTIC_RERUN_STEPS}: "
+              + ", ".join(f"{x:.6f}" for x in rerun) + f", bitwise (a)'s: {rerun == want}; "
+              f"launches {got}; {out['card']}")
+        check(rerun == want, f"elastic (b): resumed losses {rerun} differ from (a)'s {want}")
+        check(got == flash_launches(config, ELASTIC_RERUN_STEPS),
+              f"elastic (b): launches {got}")
+        total = {k: total[k] + v for k, v in got.items()}
+        out["b"] = {"rerun": rerun}
+        del t
+        torch.cuda.empty_cache()
+
+        # (c) a poisoned batch fires the on_anomaly hook
+        fired = []
+        t = trainer("c", ELASTIC_CHAOS["c"], on_anomaly=fired.append)
+        t.fit(lambda step: batch, ELASTIC_NAN_STEPS)
+        print(f"elastic (c) nan@3: on_anomaly fired {[(f['check'], f['step']) for f in fired]}; "
+              f"losses " + ", ".join(f"{x:.6f}" for x in losses_of(t)))
+        check([(f["check"], f["step"]) for f in fired] == [("nonfinite", 3)],
+              f"elastic (c): on_anomaly fired {fired}")
+        del t
+        torch.cuda.empty_cache()
+
+        # (d) launch on the one-GPU spec is distribute
+        ad = m["AutoDist"](resource_spec=m["spec"])
+        sess = ad.launch(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse, has_rng=True)
+        reset()
+        loss1 = sess.run(batch)["loss"].item()
+        got = launches()
+        print(f"elastic (d) launch on one GPU: step 1 loss {loss1:.6f}, phase 5's "
+              f"{want5[0]:.6f}, bitwise equal: {loss1 == want5[0]}; launches {got}")
+        check(loss1 == want5[0], f"elastic (d): step 1 loss {loss1} != phase 5's {want5[0]}")
+        check(got == flash_launches(config, 1), f"elastic (d): launches {got}")
+        total = {k: total[k] + v for k, v in got.items()}
+        del sess, ad
+        torch.cuda.empty_cache()
+        out.update(records=clock.records, launches=total)
+    finally:
+        clock.undo()
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return out
+
+
 def run_child(args, marker):
     """``chip_smoke.py ARGS`` in a process of its own (``AutoDist`` is one
     instance per process); forwards its output and returns its ``MARKER``
@@ -2807,6 +2959,24 @@ def ckpt_main(phase5):
     return 0
 
 
+def elastic_main(phase5):
+    """``chip_smoke.py --elastic PHASE5``: elastic training (phase 19), one
+    ``AutoDist`` a trainer in this process."""
+    import torch
+
+    os.environ["AUTODIST_IS_TESTING"] = "1"   # several AutoDists in this process
+    m = setup(torch)
+    if m is None:
+        return 1
+    try:
+        result = train_gpt2_elastic(torch, m, (m["fa"], m["fn"], m["tq"]), json.loads(phase5))
+    except SmokeFailure as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    print("ELASTIC_RESULT " + json.dumps(result))
+    return 0
+
+
 def main():
     try:
         import torch
@@ -2861,6 +3031,9 @@ def main():
         ckpt = run_child(["--ckpt", json.dumps(phase5)], "CKPT_RESULT")
         for k, v in ckpt["launches"].items():
             launches[k] += v
+        elastic = run_child(["--elastic", json.dumps(phase5)], "ELASTIC_RESULT")
+        for k, v in elastic["launches"].items():
+            launches[k] += v
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2897,4 +3070,6 @@ if __name__ == "__main__":
         sys.exit(stale_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--ckpt":
         sys.exit(ckpt_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--elastic":
+        sys.exit(elastic_main(sys.argv[2]))
     sys.exit(main())

@@ -20,6 +20,10 @@ process per GPU (NCCL)::
         multi_gpu_check.py reshard && \\
     python3 -m torch.distributed.run --standalone --nproc-per-node 2 \\
         multi_gpu_check.py reshard
+    python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        multi_gpu_check.py elastic
+    python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        multi_gpu_check.py launch && python3 multi_gpu_check.py launch
 
 ``CODEC`` (one of ``chip_smoke.CODECS``): each rank runs
 ``chip_smoke.train_gpt2_codec`` on its own GPU: GPT-2 small at full width
@@ -135,6 +139,34 @@ step 6 within 1e-5 relative and the later steps 1e-3; finite losses; 12
 launches a step of each flash kernel; every rank ending with the same
 parameters.  Prints the save's and the restore's seconds, bytes and GB/s.
 The second launch removes the checkpoint.
+
+``elastic``: a membership change over NCCL.  GPT-2 small (adamw 3e-4, the
+default builder, one global batch of 8 sequences of 1024 tokens per rank
+at R = 4), first 10 uninterrupted steps at R = 4, then
+``ElasticTrainer(..., chaos="kill_worker@5", verify_restore=False)``: the
+default target on one node is the upper half of its GPUs, so after step 5
+every rank takes part in ``save_sharded`` into ``_ckpt/elastic``, ranks 2-3
+leave (they return and exit 0, calling no collective again) and ranks 0-1
+re-plan in their subgroup of the process group (``AutoDist.rebind``,
+``distribute``), reshard the R = 4 checkpoint onto R = 2 and train steps
+6-10 on the same global batch (16 sequences a rank).  No survivor calls a
+collective on the default group after the change.  Checks: the manifest
+(``update_space``, step 5, R = 4); step 6 within 1e-5 relative of the
+uninterrupted run's step 6 and steps 7-10 within 1e-3; finite losses; 12
+launches a step of each flash kernel; the survivors ending with the same
+parameters.  Prints the change's seconds (save, rebind and distribute,
+restore) and the save's and restore's GB/s.
+
+``launch``: ``AutoDist.launch`` without a launcher, in two runs.  Under
+torchrun, ``launch`` degrades to ``distribute`` (the ranks exist): GPT-2
+small's step-1 loss (default builder, 8 sequences a rank) goes to
+``_ckpt/launch.json``.  Then ``python3 multi_gpu_check.py launch`` alone:
+its ``Cluster`` starts one process for each other GPU of the host (the
+same script, ``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT`` and the ``AUTODIST_*`` contract), every process joins the
+NCCL group at the coordinator's port and loads the chief's strategy by id.
+Checks: every rank's step-1 loss equals the torchrun run's; the chief's
+workers exit 0.  The second run removes the file.
 
 Rank 0 builds the kernels and prints; the run ends with a ``RESULT {...}``
 JSON line.  A failed check exits non-zero.
@@ -630,20 +662,180 @@ def train_reshard(torch, ad, modules, world_size):
     return result
 
 
+ELASTIC_KILL_STEP = 5
+ELASTIC_DIR = os.path.join(smoke.CKPT_DIR, "elastic")
+LAUNCH_FILE = os.path.join(smoke.CKPT_DIR, "launch.json")
+
+
+def train_elastic(torch, ad, modules, world_size):
+    """The ``elastic`` mode: an uninterrupted R-rank run, then the elastic
+    trainer losing the upper half of the ranks after step
+    ELASTIC_KILL_STEP."""
+    import shutil
+
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.checkpoint import manifest
+    from autodist_tpu_torch.elastic import ElasticTrainer
+    from autodist_tpu_torch.models.gpt import GPTConfig
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+
+    config = GPTConfig()
+    loss_fn, params, sparse = gpt_capture(config, smoke.SEQ, seed=0)
+    batch = smoke.gpt2_batch(config, smoke.BATCH * world_size)   # one global batch at any R
+    rank = ad.world.rank
+    if rank == 0:
+        shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+        os.makedirs(ELASTIC_DIR)
+
+    def launches():
+        return {n: c for km in modules for n, c in km.LAUNCHES.items()}
+
+    for km in modules:
+        km.reset_launches()
+    sess = ad.distribute(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse, has_rng=True)
+    want = [sess.run(batch)["loss"].item() for _ in range(smoke.STEPS)]
+    smoke.check(launches() == smoke.flash_launches(config, smoke.STEPS),
+                f"elastic: the uninterrupted run's launches {launches()}")
+    del sess
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()   # the last collective on the default group but the save's
+
+    for km in modules:
+        km.reset_launches()
+    trainer = ElasticTrainer(ad.resource_spec, None, loss_fn, params, optim.adamw(3e-4),
+                             checkpoint_dir=ELASTIC_DIR,
+                             distribute_kwargs={"sparse_vars": sparse, "has_rng": True},
+                             verify_restore=False, chaos=f"kill_worker@{ELASTIC_KILL_STEP}")
+    sess = trainer.fit(lambda step: batch, smoke.STEPS)
+    losses = [loss for _, _, loss in trainer.history]
+    (change,) = trainer.membership_changes
+    if trainer.left:   # ranks 2-3: in the save, then gone; no collective again
+        smoke.check(sess.step == ELASTIC_KILL_STEP and len(losses) == ELASTIC_KILL_STEP,
+                    f"elastic: a leaving rank at step {sess.step}")
+        return {"left": True, "losses": losses}
+    tag = f"elastic R={world_size} -> {change['replicas_after']}"
+    group = sess.transformer.group
+    path = os.path.join(ELASTIC_DIR, "elastic_ckpt")
+    m = manifest.load_manifest(path)
+    nbytes = smoke.dir_bytes(path)
+    k = ELASTIC_KILL_STEP
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    print(f"{tag} losses: " + ", ".join(f"{x:.6f}" for x in losses) + "; uninterrupted: "
+          + ", ".join(f"{x:.6f}" for x in want) + f"; relative at step {k + 1} "
+          f"{rel[k]:.3e}, largest after {max(rel[k + 1:]):.3e}; epochs "
+          f"{[e for e, _, _ in trainer.history]}")
+    print(f"{tag}: membership change after step {k}: drain {change['drain_s']:.4f} s, save "
+          f"{change['save_s']:.3f} s ({nbytes / 1e9:.3f} GB, {nbytes / change['save_s'] / 1e9:.3f}"
+          f" GB/s over {world_size} ranks), shrink {change['shrink_s']:.4f} s, rebind + "
+          f"distribute {change['replan_s']:.3f} s, restore {change['restore_s']:.3f} s "
+          f"({nbytes / change['restore_s'] / 1e9:.3f} GB/s, every survivor reads it all)")
+    smoke.check(m["layout"] == "update_space" and m["step"] == k
+                and m["num_replicas"] == world_size, f"{tag}: manifest {m}")
+    smoke.check(trainer.replans == 1 and trainer.epoch == 1 and sess.step == smoke.STEPS
+                and change["replicas_after"] == world_size // 2,
+                f"{tag}: replans {trainer.replans}, epoch {trainer.epoch}, step {sess.step}")
+    smoke.check(all(math.isfinite(x) for x in losses), f"{tag}: losses {losses}")
+    smoke.check(max(rel[:k]) <= smoke.PS_STEP1_TOL, f"{tag}: steps 1-{k} {losses[:k]} vs {want}")
+    smoke.check(rel[k] <= smoke.PS_STEP1_TOL and max(rel[k + 1:]) <= smoke.PS_LOSS_TOL,
+                f"{tag}: steps {k + 1}-{smoke.STEPS} {losses[k:]} against {want[k:]}")
+    got = launches()
+    smoke.check(got == smoke.flash_launches(config, smoke.STEPS),
+                f"{tag}: expected launches {smoke.flash_launches(config, smoke.STEPS)}, "
+                f"got {got}")
+    full = sess.transformer.canonical_params(sess.state)
+    smoke.check(smoke.same_on_every_rank(torch, list(full.values()), group),
+                f"{tag}: the survivors hold different parameters")
+    torch.distributed.barrier(group=group)
+    if sess.transformer.world.rank == 0:
+        shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    print(f"{tag}: the survivors hold the same parameters; launches {got}")
+    return {"losses": losses, "want": want, "rel": rel, "change": change, "bytes": nbytes}
+
+
+def launch_main(torch, m):
+    """The ``launch`` mode (see the module's docstring); returns the exit
+    code."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.const import ENV
+    from autodist_tpu_torch.models.gpt import GPTConfig
+    from autodist_tpu_torch.models.train_lib import gpt_capture
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+
+    torchrun = ENV.WORLD_SIZE.val > 1 and not ENV.AUTODIST_WORKER.val
+    worker = bool(ENV.AUTODIST_WORKER.val)
+    n = ENV.WORLD_SIZE.val if (torchrun or worker) else torch.cuda.device_count()
+    rank = ENV.RANK.val
+    torch.cuda.set_device(ENV.LOCAL_RANK.val)
+    spec = ResourceSpec(resource_info={"nodes": [{"address": "localhost",
+                                                  "gpus": list(range(n)), "chief": True}]})
+    ad = m["AutoDist"](resource_spec=spec)
+    if rank == 0:
+        m["build"].build(list(smoke.SOURCES))   # before any worker starts
+        print(f"launch ({'torchrun' if torchrun else 'Cluster'}): {n} ranks, torch "
+              f"{torch.__version__}, {torch.cuda.get_device_name()}; {smoke.card_line()}")
+    else:
+        sys.stdout = open(os.devnull, "w")
+    if torchrun:
+        ad.world   # joins the group: the others wait for rank 0's build
+        torch.distributed.barrier()
+    config = GPTConfig()
+    loss_fn, params, sparse = gpt_capture(config, smoke.SEQ, seed=0)
+    batch = smoke.gpt2_batch(config, smoke.BATCH * n)
+    t0 = time.perf_counter()
+    sess = ad.launch(loss_fn, params, optim.adamw(3e-4), sparse_vars=sparse, has_rng=True)
+    launch_s = time.perf_counter() - t0
+    loss = sess.run(batch)["loss"].item()
+    world = sess.transformer.world
+    print(f"launch: rank {world.rank}/{world.size} step 1 loss {loss:.6f}; launch + "
+          f"distribute {launch_s:.2f} s")
+    if torchrun:
+        if rank == 0:
+            os.makedirs(smoke.CKPT_DIR, exist_ok=True)
+            with open(LAUNCH_FILE, "w") as f:
+                json.dump({"loss": loss, "ranks": n}, f)
+        return 0
+    with open(LAUNCH_FILE) as f:
+        want = json.load(f)
+    ok = loss == want["loss"] and world.size == want["ranks"]
+    print(f"launch: rank {world.rank}'s step 1 loss {loss:.6f} against the torchrun run's "
+          f"{want['loss']:.6f}: equal {loss == want['loss']}")
+    if not ok:
+        print(f"FAIL (rank {world.rank}): launch step 1 loss {loss} != {want['loss']}",
+              file=sys.stderr, flush=True)
+        return 1
+    if rank == 0:   # wait for the workers: each exits 0 after the same check
+        codes = [p.wait(timeout=600) for _, p in ad._coordinator.cluster._procs]
+        os.remove(LAUNCH_FILE)
+        print(f"launch: the {len(codes)} launched workers exited {codes}")
+        if any(codes):
+            return 1
+        print("RESULT " + json.dumps({"launch": {"loss": loss, "ranks": n,
+                                                 "launch_s": launch_s}}), flush=True)
+    return 0
+
+
 def main(argv):
     import torch
 
     if len(argv) != 1 or argv[0] not in (*smoke.CODECS, "ring", "ps", "sharded", "sync",
-                                         "partitioned", "stale", "reshard"):
+                                         "partitioned", "stale", "reshard", "elastic",
+                                         "launch"):
         print(__doc__ + f"\nCODEC is one of {list(smoke.CODECS)}", file=sys.stderr)
         return 2
     mode = argv[0]
+    if mode == "launch":   # with or without torchrun
+        m = smoke.setup(torch)
+        code = 1 if m is None else launch_main(torch, m)
+        sys.stdout.flush()
+        os._exit(code)   # no teardown of the NCCL communicators
+
     world_size = int(os.environ.get("WORLD_SIZE", "1"))
     if world_size < 2 or (mode in ("ring", "sync") and world_size % 2):
         print("FAIL: run under torchrun with --nproc-per-node >= 2 (even for ring and sync)",
               file=sys.stderr)
         return 1
-    if mode in ("ring", "ps", "sharded", "sync", "partitioned", "stale"):   # several AutoDists
+    if mode in ("ring", "ps", "sharded", "sync", "partitioned", "stale",
+                "elastic"):   # several AutoDists
         os.environ["AUTODIST_IS_TESTING"] = "1"
     m = smoke.setup(torch)
     if m is None:
@@ -672,7 +864,7 @@ def main(argv):
 
         runs = [(None, strategy.PS(staleness=STALE_S)),
                 (None, strategy.PS(sync=False, staleness=ASYNC_S))]
-    elif mode == "reshard":   # the default builder
+    elif mode in ("reshard", "elastic"):   # the default builder
         runs = [(None, None)]
     else:
         runs = [(None, m["AllReduce"](compressor=mode))]
@@ -714,12 +906,16 @@ def main(argv):
             result = train_stale(torch, ads, modules, world_size)
         elif mode == "reshard":
             result = train_reshard(torch, ads[0], modules, world_size)
+        elif mode == "elastic":
+            result = train_elastic(torch, ads[0], modules, world_size)
         else:
             result = smoke.train_gpt2_codec(torch, ads[0], mode, modules)
     except smoke.SmokeFailure as e:
         print(f"FAIL (rank {rank}): {e}", file=sys.stderr, flush=True)
         return 1
     print("RESULT " + json.dumps(result), flush=True)
+    if mode == "elastic":   # ranks left the world: no teardown of the default group
+        os._exit(0)
     torch.distributed.destroy_process_group()
     return 0
 

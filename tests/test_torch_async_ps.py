@@ -23,10 +23,13 @@ the JAX package.
   ephemeral port handed over through the world: ``version == 4 x
   steps``, the lead within the bound, and every rank's ``params()`` equal
   to the chief's after ``wait_all``.
-- The signatures: every parameter of the JAX ``AutoDist.distribute`` and
-  of each public method of its ``DistributedSession`` is accepted by the
-  port's, and an option of a later slice raises ``NotImplementedError``
-  naming its ROADMAP item; the checkpoint options (``fit``'s
+- The signatures: every parameter of the JAX ``AutoDist.distribute``,
+  ``rebind`` and ``launch``, of each public method of its
+  ``DistributedSession`` and ``Cluster``, of ``ElasticTrainer.__init__``
+  and of ``ResourceSpec.shrink`` is accepted by the port's, and an option
+  of a later slice raises ``NotImplementedError`` naming its ROADMAP item
+  (``ElasticTrainer(verify_restore=True)`` and ``reaction_report`` item
+  11); the checkpoint options (``fit``'s
   ``checkpoint_path`` and ``preempt_checkpoint_dir``, ``run_steps``'s)
   run.
 
@@ -378,13 +381,37 @@ def _accepts(port_fn, name):
     return name in params or any(p.kind == p.VAR_KEYWORD for p in params.values())
 
 
-@pytest.mark.parametrize("method", ["distribute"] + _public_methods(JDistributedSession))
+def _signature_cases():
+    """Test id -> (JAX class, port class, method): ``distribute``, every
+    public method of the session, and the elastic slice's entry points."""
+    from autodist_tpu import cluster as jcluster
+    from autodist_tpu import elastic as jelastic
+    from autodist_tpu_torch import cluster as tcluster
+    from autodist_tpu_torch import elastic as telastic
+    from autodist_tpu_torch.resource_spec import ResourceSpec as TResourceSpec
+
+    cases = {"distribute": (JAutoDist, AutoDist, "distribute")}
+    cases.update({m: (JDistributedSession, DistributedSession, m)
+                  for m in _public_methods(JDistributedSession)})
+    cases.update({"ElasticTrainer.__init__": (jelastic.ElasticTrainer, telastic.ElasticTrainer,
+                                              "__init__"),
+                  "ResourceSpec.shrink": (JResourceSpec, TResourceSpec, "shrink"),
+                  "AutoDist.rebind": (JAutoDist, AutoDist, "rebind"),
+                  "AutoDist.launch": (JAutoDist, AutoDist, "launch")})
+    cases.update({f"Cluster.{m}": (jcluster.Cluster, tcluster.Cluster, m)
+                  for m in ["__init__"] + _public_methods(jcluster.Cluster)})
+    return cases
+
+
+SIGNATURE_CASES = _signature_cases()
+
+
+@pytest.mark.parametrize("method", list(SIGNATURE_CASES))
 def test_signatures_accept_every_jax_parameter(method):
-    jcls, tcls = ((JAutoDist, AutoDist) if method == "distribute"
-                  else (JDistributedSession, DistributedSession))
-    assert hasattr(tcls, method), method
-    jparams = inspect.signature(getattr(jcls, method)).parameters
-    port = getattr(tcls, method)
+    jcls, tcls, name = SIGNATURE_CASES[method]
+    assert hasattr(tcls, name), method
+    jparams = inspect.signature(getattr(jcls, name)).parameters
+    port = getattr(tcls, name)
     missing = [n for n in jparams if not _accepts(port, n)]
     assert not missing, f"{method}: the port takes no {missing}"
 
@@ -417,6 +444,16 @@ def test_later_session_options_raise_naming_their_item(tmp_path):
     assert sess.run_steps([batch], preempt_checkpoint_dir=None)["step"] == 4
     assert sess.run(batch, trace_dir=None)["step"] == 5
     assert sess.memory_stats() == {"cpu": None} and sess.finalize_telemetry() is None
+    from autodist_tpu_torch.elastic import ElasticTrainer
+
+    with pytest.raises(NotImplementedError, match="item 11"):   # JAX's default
+        ElasticTrainer(ResourceSpec(resource_info=CPU2), None, _tloss, {"w": torch.ones(6)},
+                       optim.sgd(0.1), checkpoint_dir=str(tmp_path), device="cpu")
+    trainer = ElasticTrainer(ResourceSpec(resource_info=CPU2), None, _tloss,
+                             {"w": torch.ones(6)}, optim.sgd(0.1), checkpoint_dir=str(tmp_path),
+                             verify_restore=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        trainer.reaction_report()
     for option, item in (("data_axes", 9), ("batch_spec", 9), ("param_specs", 9),
                          ("verify", 11)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):

@@ -329,8 +329,8 @@ def test_resource_spec_yaml_matches_dict(tmp_path):
     assert [n for n, _ in a.devices] == [n for n, _ in b.devices] == [
         "10.0.0.1:GPU:0", "10.0.0.1:GPU:1", "10.0.0.2:GPU:0", "10.0.0.2:GPU:1"]
     assert a.chief == "10.0.0.1"
-    with pytest.raises(NotImplementedError, match="SSH"):
-        ResourceSpec(resource_info={"nodes": info["nodes"], "ssh": {"g": {}}})
+    ssh = ResourceSpec(resource_info={"nodes": info["nodes"], "ssh": {"g": {}}})
+    assert ssh.ssh_config_map["g"].port == 22 and ssh.ssh_config("10.0.0.1") is None
 
 
 def test_dropout_streams_follow_seed_and_step():

@@ -85,6 +85,18 @@ the CPU), runs the cases below and writes ``DIR/rank<r>.pkl``:
   straggler), waits for all, and records the server's stats and
   ``params()``.
 
+- ``elastic`` (one dict): ``ElasticTrainer`` at R = 4 -> 2 on
+  ``tests/test_elastic.py``'s linear model (``AllReduce(sharded_update=
+  "sharded")``, adam, 5 steps on one batch, ``verify_restore=False``),
+  checkpoints under ``DIR/elastic``: one node of 4 CPUs losing its upper
+  half at step 2 (``kill_worker@2``), and two nodes of 2 CPUs losing the
+  chief's (``kill_worker@2:10.0.0.1``), whose survivors hold global ranks
+  2-3.  Each rank records its history, whether it left, its epoch and
+  replans and the saved manifest; a survivor its world's place and
+  members, the final parameters, and its world placed on ``{replica: 1,
+  seq: 2}`` (``mesh_world`` on a subgroup: the seq row's index and size,
+  and a ``psum`` of the global ranks over it).  The leaving ranks go on to the next
+  entry on the default group while the survivors finish.
 - ``checkpoint`` (one dict): checkpoints under ``DIR/ckpt``.  The
   canonical state (``canonical_params``, ``canonical_opt_state``) and the
   manifest after 2 adam steps of ``PSLoadBalancing``,
@@ -202,6 +214,28 @@ RESHARD_OPTS = ("adam", "sgd")
 RESHARD_UPDATES = ("replicated", "sharded")
 RESHARD_HIERARCHIES = ("flat", "two_level")
 RESHARD_STEPS = 3
+# elastic training: tests/test_elastic.py's linear model and adam rate, the
+# steps, and the two cases' specs and chaos (the chief's node killed in the
+# second, so its survivors hold global ranks 2-3)
+ELASTIC_STEPS, ELASTIC_LR = 5, 0.05
+ELASTIC_CASES = {
+    "single_node": ({"nodes": [{"address": "localhost", "cpus": list(range(WORLD)),
+                                "chief": True}]}, "kill_worker@2"),
+    "chief_failover": ({"nodes": [{"address": "10.0.0.1", "cpus": [0, 1], "chief": True},
+                                  {"address": "10.0.0.2", "cpus": [0, 1]}]},
+                       "kill_worker@2:10.0.0.1"),
+}
+
+
+def elastic_params():
+    """``tests/test_elastic.py::_params``."""
+    return {"w": np.random.RandomState(7).randn(12, 3).astype(np.float32)}
+
+
+def elastic_batch():
+    """``tests/test_elastic.py::_batch_fn(0)``, the fixed batch of its loop."""
+    r = np.random.RandomState(0)
+    return {"x": r.randn(16, 12).astype(np.float32), "y": r.randn(16, 3).astype(np.float32)}
 
 
 def codec_inputs(r, n, seed):
@@ -548,6 +582,7 @@ def main(workdir):
     results["hier"] = hier_cases(inputs, world, autodist)
     results["partitioned"] = partitioned_cases(inputs, autodist)
     results["stale"] = stale_cases(inputs, world, autodist)
+    results["elastic"] = elastic_cases(workdir)
     results["checkpoint"] = checkpoint_cases(inputs, world, autodist, workdir)
     if rank == 0:
         results["imports"] = package_imports()
@@ -1204,6 +1239,51 @@ def stale_cases(inputs, world, autodist):
                       "params": {n: t.numpy() for n, t in sess.params().items()}}
     torch.distributed.barrier()   # every rank has pulled: the chief may stop serving
     sess.close()
+    return out
+
+
+def elastic_cases(workdir):
+    """ElasticTrainer at R = 4 -> 2 under ``AllReduce(sharded_update=
+    "sharded")`` (see ``ELASTIC_CASES``): each rank's history, whether it
+    left, its epoch and replans, and for a survivor its new world's place
+    and the final parameters; the checkpoint's manifest as saved."""
+    import torch
+
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.checkpoint import manifest
+    from autodist_tpu_torch.elastic import ElasticTrainer
+    from autodist_tpu_torch.parallel.collectives import psum
+    from autodist_tpu_torch.parallel.mesh import mesh_world
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.strategy import AllReduce
+
+    def loss(p, b):
+        return torch.mean((b["x"] @ p["w"] - b["y"]) ** 2)
+
+    batch = elastic_batch()
+    out = {}
+    for key, (spec, chaos) in ELASTIC_CASES.items():
+        d = os.path.join(workdir, "elastic", key)
+        trainer = ElasticTrainer(
+            ResourceSpec(resource_info=spec), AllReduce(sharded_update="sharded"), loss,
+            {k: torch.from_numpy(v) for k, v in elastic_params().items()},
+            optim.adam(ELASTIC_LR), checkpoint_dir=d, chaos=chaos, verify_restore=False,
+            device="cpu")
+        sess = trainer.fit(lambda step: batch, ELASTIC_STEPS)
+        res = {"history": list(trainer.history), "left": trainer.left,
+               "epoch": trainer.epoch, "replans": trainer.replans, "step": sess.step,
+               "manifest": manifest.load_manifest(os.path.join(d, "elastic_ckpt"))}
+        if not trainer.left:
+            w = sess.transformer.world
+            # the survivors' world on a two-axis mesh: its seq row is a
+            # group of global ranks that may exclude rank 0
+            seq = mesh_world(w, ("replica", "seq"), (1, w.size)).seq
+            total = psum(torch.tensor([float(torch.distributed.get_rank())]), seq.group)
+            res.update(num_replicas=sess.transformer.num_replicas, world=(w.rank, w.size),
+                       members=tuple(w.ranks), chief=trainer._ad.resource_spec.chief,
+                       seq=(seq.index, seq.size, float(total)),
+                       params={n: t.numpy() for n, t in sess.params().items()})
+        out[key] = res
     return out
 
 
