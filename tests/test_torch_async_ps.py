@@ -49,6 +49,7 @@ import pytest
 import torch
 
 import torch_gloo_ranks as ranks
+import torch_jax_worker as worker
 import torch_jax_oracle as oracle
 from autodist_tpu import strategy as jstrategy
 from autodist_tpu.autodist import AutoDist as JAutoDist
@@ -125,18 +126,28 @@ def test_token_barrier_unit(impl):
     assert passed.is_set() and b.steps == [2, 1, 1] and b.max_lead_seen == 1
 
 
-def test_one_worker_matches_jax_async_session():
-    """One worker pulls, steps and pushes in turn: async SGD is plain SGD."""
-    streams = _streams(1)
+def _jax_one_worker():
+    """JAX's async session with one worker, 4 steps: (w, version, stale
+    pushes, losses)."""
     jsess = jasync.AsyncPSSession(lambda p, b: jnp.mean((b @ p["w"]) ** 2),
                                   {k: jnp.asarray(v) for k, v in _p0().items()},
                                   optax.sgd(0.02), staleness=0, num_workers=1)
-    want = jsess.run(streams, 4, timeout=RUN_TIMEOUT_S)
+    want = jsess.run(_streams(1), 4, timeout=RUN_TIMEOUT_S)
+    return (np.asarray(want["w"]), jsess.version, jsess.stale_pushes,
+            [float(loss) for _, _, loss in jsess.history])
+
+
+worker.submit((_jax_one_worker,))
+
+
+def test_one_worker_matches_jax_async_session():
+    """One worker pulls, steps and pushes in turn: async SGD is plain SGD."""
+    streams = _streams(1)
+    want_w, version, stale_pushes, jl = worker.result(_jax_one_worker)
     sess = _session(0, workers=1)
     got = sess.run([[torch.from_numpy(b) for b in streams[0]]], 4, timeout=RUN_TIMEOUT_S)
-    np.testing.assert_allclose(got["w"].numpy(), np.asarray(want["w"]), atol=1e-6, rtol=0)
-    assert (sess.version, sess.stale_pushes) == (jsess.version, jsess.stale_pushes) == (4, 0)
-    jl = [loss for _, _, loss in jsess.history]
+    np.testing.assert_allclose(got["w"].numpy(), want_w, atol=1e-6, rtol=0)
+    assert (sess.version, sess.stale_pushes) == (version, stale_pushes) == (4, 0)
     np.testing.assert_allclose([loss for _, _, loss in sess.history], jl, rtol=1e-6)
     assert [t["worker"] for t in sess.timings] == [0] * 4
 

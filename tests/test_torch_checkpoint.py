@@ -44,7 +44,6 @@ session's ``fit`` resume and preemption, against the JAX package.
 - ``reshard_restore(verify=True)`` raises naming Queue A item 11 before
   the state is touched, the serving export naming item 10.
 """
-import concurrent.futures
 import os
 import shutil
 import signal
@@ -59,6 +58,7 @@ import torch
 
 import torch_gloo_ranks as ranks
 import torch_jax_oracle as oracle
+import torch_jax_worker as worker
 from autodist_tpu import strategy as jstrategy
 from autodist_tpu.autodist import AutoDist as JAutoDist
 from autodist_tpu.checkpoint import manifest as jmanifest
@@ -164,27 +164,10 @@ def _jspec(r, mesh=None):
 
 JAX_CASES = [(key, 1, "linear") for key in ranks.CKPT_BUILDERS] + [
     (key, ranks.WORLD, model) for key in ranks.CKPT_BUILDERS for model in ("linear", "gpt")]
-_JAX = {}
-
-
-def _start_jax_runs():
-    """Start every JAX case of this file on a thread pool, once: the
-    engine's compiles run side by side (XLA compiles outside the
-    interpreter's lock) and beside the tests before this file's."""
-    if not _JAX:
-        pool = concurrent.futures.ThreadPoolExecutor(len(JAX_CASES) + 1)
-        _JAX.update({case: pool.submit(_jax_run, *case) for case in JAX_CASES})
-        _JAX["two_level"] = pool.submit(_jax_two_level_manifest)
-        pool.shutdown(wait=False)   # its threads end with their cases
-
-
-def _jax_runs():
-    _start_jax_runs()
-    return {case: f.result() for case, f in _JAX.items()}
 
 
 def _jax_canonical(key, r, model):
-    return _jax_runs()[key, r, model]
+    return worker.result(_jax_run, key, r, model)
 
 
 def _jax_run(key, r, model):
@@ -276,13 +259,13 @@ def _jax_two_level_manifest():
     return jmanifest.build_manifest(sess._t, step=ranks.RESHARD_STEPS, layout="update_space")
 
 
-_start_jax_runs()   # while pytest collects and runs the files before this one
+worker.submit(*((_jax_run, *case) for case in JAX_CASES), (_jax_two_level_manifest,))
 
 
 def test_two_level_manifest_matches_jax(gloo):
     got = gloo[1][0]["matrix", "adam", "sharded", "two_level"]["manifest"]
     assert got["layout"] == "update_space" and got["hierarchy"] == "two_level"
-    assert _without(got) == _without(_jax_runs()["two_level"])
+    assert _without(got) == _without(worker.result(_jax_two_level_manifest))
 
 
 def test_geometry_matches_itself_and_not_across_r(gloo):

@@ -38,6 +38,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 import torch_gloo_ranks as ranks
 import torch_jax_oracle as oracle
+import torch_jax_worker as worker
 from autodist_tpu.autodist import AutoDist as JAutoDist
 from autodist_tpu.kernel.synchronization.compressor import get_compressor as jget
 from autodist_tpu.kernel.synchronization.compressor import wire_byte_factor as jwire
@@ -79,6 +80,18 @@ def _jax_all_reduce(name, bufs, states):
     return np.asarray(out), np.asarray(new)
 
 
+def _jax_codec_one(name):
+    """The JAX codec at R = 1 on ``codec_inputs(1, 1000, seed=5)``."""
+    return _jax_all_reduce(name, *ranks.codec_inputs(1, 1000, seed=5))
+
+
+def _jax_codec_world(name):
+    """size -> the JAX codec over 4 devices on the world's buffers."""
+    inputs = oracle.world_inputs()
+    return {n: _jax_all_reduce(name, inputs["codec_bufs"][n], inputs["codec_states"][n])
+            for n in ranks.CODEC_SIZES}
+
+
 def _block_steps(x):
     """Each element's quantization step: its 256-block's absmax / 127."""
     n = x.shape[-1]
@@ -107,7 +120,7 @@ def _assert_codec_close(name, got, want, got_state, want_state, corrected):
 @pytest.mark.parametrize("name", ranks.CODECS)
 def test_codec_matches_jax_at_one_replica(name):
     bufs, states = ranks.codec_inputs(1, 1000, seed=5)
-    want, want_state = _jax_all_reduce(name, bufs, states)
+    want, want_state = worker.result(_jax_codec_one, name)
     comp = get_compressor(getattr(schema.AllReduceSynchronizer, name))
     state = torch.from_numpy(states[0]) if comp.stateful else ()
     got, got_state = comp.all_reduce(torch.from_numpy(bufs[0]), state, None)
@@ -152,9 +165,10 @@ def gloo():
 @pytest.mark.parametrize("name", ranks.CODECS)
 def test_codec_matches_jax_over_four_ranks(gloo, name):
     inputs, _, results = gloo
+    jax_runs = worker.result(_jax_codec_world, name)
     for n in ranks.CODEC_SIZES:
         bufs, states = inputs["codec_bufs"][n], inputs["codec_states"][n]
-        want, want_state = _jax_all_reduce(name, bufs, states)
+        want, want_state = jax_runs[n]
         got = np.stack([res["codec", name, n][0] for res in results])
         stateful = results[0]["codec", name, n][1] is not None
         got_state = np.stack([res["codec", name, n][1] for res in results]) \
@@ -178,11 +192,18 @@ def _linear_oracle(opt, batch, params, steps=3):
     return p
 
 
+def _jax_linear(opt):
+    """The optax oracle's parameters after 3 steps on the world's linear case."""
+    inputs = oracle.world_inputs()
+    jopt = optax.sgd(0.1) if opt == "sgd" else optax.adam(0.05)
+    p = _linear_oracle(jopt, inputs["linear_batch"], inputs["linear_params"])
+    return {k: np.asarray(v) for k, v in p.items()}
+
+
 @pytest.mark.parametrize("chunk,opt", ranks.LINEAR_CASES)
 def test_value_exact_sync_over_four_ranks(gloo, chunk, opt):
-    inputs, _, results = gloo
-    jopt = optax.sgd(0.1) if opt == "sgd" else optax.adam(0.05)
-    exp = _linear_oracle(jopt, inputs["linear_batch"], inputs["linear_params"])
+    _, _, results = gloo
+    exp = worker.result(_jax_linear, opt)
     for res in results:
         got = res["linear", chunk, opt]
         assert got["step"] == 3 and np.isfinite(got["loss"])
@@ -216,15 +237,27 @@ def test_compressors_over_four_ranks(gloo, comp):
         assert np.abs(got - exp).max() < ranks.COMPRESSOR_CASES[comp]
 
 
-@pytest.mark.parametrize("comp", ranks.GPT_CODECS)
-def test_gpt_tiny_matches_jax_autodist_over_four_ranks(gloo, comp):
-    inputs, j_params, results = gloo
+def _jax_gpt_losses(comp):
+    """The JAX engine's losses of the world GPT under ``AllReduce(compressor=
+    comp)`` over 4 devices."""
     j_loss_fn, _ = oracle.gpt_capture(oracle.world_gpt(), ranks.GPT_SEQ)
     j_sess = JAutoDist(resource_spec=JResourceSpec.from_num_chips(ranks.WORLD),
                        strategy_builder=JAllReduce(compressor=comp)).distribute(
-        j_loss_fn, j_params, optax.adamw(1e-3), has_rng=True)
-    j_losses = [float(j_sess.run(inputs["gpt_batch"])["loss"])
-                for _ in range(ranks.GPT_STEPS)]
+        j_loss_fn, _jax_gpt_params(), optax.adamw(1e-3), has_rng=True)
+    return [float(j_sess.run(oracle.world_inputs()["gpt_batch"])["loss"])
+            for _ in range(ranks.GPT_STEPS)]
+
+
+worker.submit(*((_jax_codec_one, name) for name in ranks.CODECS),
+              *((_jax_codec_world, name) for name in ranks.CODECS),
+              *((_jax_linear, opt) for opt in sorted({opt for _, opt in ranks.LINEAR_CASES})),
+              *((_jax_gpt_losses, comp) for comp in ranks.GPT_CODECS))
+
+
+@pytest.mark.parametrize("comp", ranks.GPT_CODECS)
+def test_gpt_tiny_matches_jax_autodist_over_four_ranks(gloo, comp):
+    _, _, results = gloo
+    j_losses = worker.result(_jax_gpt_losses, comp)
     for res in results:
         losses = res["gpt", comp]["losses"]
         np.testing.assert_allclose(losses, j_losses, rtol=1e-3)

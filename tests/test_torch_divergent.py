@@ -25,6 +25,7 @@ staleness) against the JAX package.
 import threading
 import time
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -33,6 +34,7 @@ import torch
 
 import torch_gloo_ranks as ranks
 import torch_jax_oracle as oracle
+import torch_jax_worker as worker
 from autodist_tpu import strategy as jstrategy
 from autodist_tpu.autodist import AutoDist as JAutoDist
 from autodist_tpu.kernel import partitioner as jpart
@@ -157,16 +159,28 @@ def gloo():
 
 
 def _jax_run(builder, loss, params, opt, batches, **kw):
-    """The JAX engine's run on 4 virtual CPU devices: (session, metrics of
-    each step)."""
+    """The JAX engine's run on 4 virtual CPU devices, in numpy: its stored
+    ``(R, *shape)`` copies (``own``), ``params()``, the metrics of each step
+    and, for adam, the stacked and the canonical moments."""
     sess = JAutoDist(resource_spec=JSPEC4, strategy_builder=builder).distribute(
         loss, {k: jnp.asarray(v) for k, v in params.items()}, opt, **kw)
-    return sess, [sess.run(b) for b in batches]
+    metrics = [sess.run(b) for b in batches]
+    out = {"own": {n: np.asarray(v) for n, v in sess.state["params"].items()},
+           "params": {k: np.asarray(v) for k, v in sess.params().items()},
+           "metrics": [jax.tree.map(np.asarray, m) for m in metrics]}
+    if hasattr(sess.state["opt_state"][0], "mu"):   # adam
+        adam = sess.state["opt_state"][0]
+        canon = sess._t.canonicalize_opt_state(sess.state["opt_state"])[0]
+        out["moments"] = {k: {n: np.asarray(v) for n, v in getattr(adam, k).items()}
+                          for k in ("mu", "nu")}
+        out["canonical_moments"] = {k: {n: np.asarray(v) for n, v in getattr(canon, k).items()}
+                                    for k in ("mu", "nu")}
+    return out
 
 
-@pytest.fixture(scope="module")
-def jax_stale(gloo):
-    inputs, _ = gloo
+def _jax_stale():
+    """The JAX engine's runs of the world's stale cases."""
+    inputs = oracle.world_inputs()
     b = ranks.STALE_BATCH
     out = {}
     for key, s, steps in (("average", ranks.STALE_AVERAGE, 2), ("mid", ranks.STALE_MID, 1)):
@@ -188,22 +202,30 @@ def jax_stale(gloo):
     return out
 
 
+worker.submit((_jax_stale,))
+
+
+@pytest.fixture(scope="module")
+def jax_stale():
+    return worker.result(_jax_stale)
+
+
 def _cases(results, key):
     return [res[key] for res in results]
 
 
-def _own_copies_match_jax(results, jsess, atol):
+def _own_copies_match_jax(results, jrun, atol):
     """Each rank's stored copy against its row of JAX's (R, *shape) storage
     (a replicated variable against the whole)."""
     for rank, res in enumerate(results):
         for n, own in res["own"].items():
-            j = np.asarray(jsess.state["params"][n])
+            j = jrun["own"][n]
             want = j[rank] if res["plans"][n] == "divergent" else j
             np.testing.assert_allclose(own, want, atol=atol, rtol=0, err_msg=f"{rank} {n}")
 
 
-def _params_match(results, jsess, atol):
-    want = {k: np.asarray(v) for k, v in jsess.params().items()}
+def _params_match(results, jrun, atol):
+    want = jrun["params"]
     for res in results:
         for n, v in want.items():
             np.testing.assert_allclose(res["params"][n], v, atol=atol, rtol=0, err_msg=n)
@@ -214,7 +236,7 @@ def test_staleness_local_updates_then_average_over_four_ranks(gloo, jax_stale):
     """Two local steps, then the average: for the linear loss that is two
     steps with the global mean gradient, on every rank's copy."""
     results = _cases(gloo[1], "average")
-    jsess, _ = jax_stale["average"]
+    jsess = jax_stale["average"]
     _own_copies_match_jax(results, jsess, 1e-4)
     _params_match(results, jsess, 1e-4)
     for res in results:
@@ -228,7 +250,7 @@ def test_divergent_params_mid_window_over_four_ranks(gloo, jax_stale):
     ``params()`` returns the mean, and ``check_replication`` passes over
     the copies that differ by design."""
     results = _cases(gloo[1], "mid")
-    jsess, _ = jax_stale["mid"]
+    jsess = jax_stale["mid"]
     _own_copies_match_jax(results, jsess, 1e-4)
     _params_match(results, jsess, 1e-4)
     rows = np.split(ranks.STALE_BATCH, ranks.WORLD)
@@ -245,14 +267,14 @@ def test_divergent_adam_moments_stay_per_rank(gloo, jax_stale):
     moments equal JAX's row of its stacked state, their canonical form the
     mean over the ranks (JAX ``canonicalize_opt_state``)."""
     results = _cases(gloo[1], "adam")
-    jsess, _ = jax_stale["adam"]
+    jsess = jax_stale["adam"]
     _own_copies_match_jax(results, jsess, 2e-5)
     _params_match(results, jsess, 2e-5)
-    adam = jsess.state["opt_state"][0]
-    canon = jsess._t.canonicalize_opt_state(jsess.state["opt_state"])[0]
+    adam, canon = jsess["moments"], jsess["canonical_moments"]
     for rank, res in enumerate(results):
         for (n, k), v in res["moments"].items():
-            j, jc = ((adam.mu, canon.mu) if k == "exp_avg" else (adam.nu, canon.nu))
+            key = "mu" if k == "exp_avg" else "nu"
+            j, jc = adam[key], canon[key]
             np.testing.assert_allclose(v, np.asarray(j[n])[rank], atol=2e-5, rtol=1e-5,
                                        err_msg=f"{rank} {n} {k}")
             np.testing.assert_allclose(res["canonical_moments"][n, k], np.asarray(jc[n]),
@@ -267,8 +289,8 @@ def test_divergent_clip_norm_over_four_ranks(gloo, jax_stale):
     (JAX ``graph_transformer.py:1422-1426``): the same norm on every rank,
     JAX's, and the clipped update."""
     results = _cases(gloo[1], "clip")
-    jsess, metrics = jax_stale["clip"]
-    want = [float(m["grad_norm"]) for m in metrics]
+    jsess = jax_stale["clip"]
+    want = [float(m["grad_norm"]) for m in jsess["metrics"]]
     for res in results:
         np.testing.assert_allclose(res["norms"], want, rtol=1e-5)
         assert max(res["norms"]) > ranks.CLIP_NORM   # the clip acted
@@ -281,7 +303,7 @@ def test_parallax_stale_sparse_table_over_four_ranks(gloo, jax_stale):
     rows arrive summed by the synced lookup, so the copies stay equal; the
     dense variable stays AllReduce."""
     results = _cases(gloo[1], "parallax")
-    jsess, _ = jax_stale["parallax"]
+    jsess = jax_stale["parallax"]
     _own_copies_match_jax(results, jsess, 1e-6)
     _params_match(results, jsess, 1e-6)
     for res in results:

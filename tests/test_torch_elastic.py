@@ -53,6 +53,7 @@ import torch
 
 import torch_gloo_ranks as ranks
 import torch_jax_oracle as oracle
+import torch_jax_worker as worker
 from autodist_tpu import cluster as jcluster
 from autodist_tpu import elastic as jelastic
 from autodist_tpu import strategy as jstrategy
@@ -579,6 +580,9 @@ def _jax_elastic(key):
     return _JAX[key]
 
 
+worker.submit(*((_jax_elastic, key) for key in sorted(ranks.ELASTIC_CASES)))
+
+
 @pytest.fixture(scope="module")
 def gloo():
     inputs, results = ranks.world(oracle.world_gpt_params)
@@ -587,7 +591,7 @@ def gloo():
 
 @pytest.mark.parametrize("key", sorted(ranks.ELASTIC_CASES))
 def test_world_membership_change_matches_jax(gloo, key):
-    want = _jax_elastic(key)
+    want = worker.result(_jax_elastic, key)
     cases = [res[key] for res in gloo]
     survivors = (0, 1) if key == "single_node" else (2, 3)
     for r, c in enumerate(cases):

@@ -38,6 +38,7 @@ import torch
 
 import torch_gloo_ranks as ranks
 import torch_jax_oracle as oracle
+import torch_jax_worker as worker
 from autodist_tpu.autodist import AutoDist as JAutoDist
 from autodist_tpu.kernel import partitioner as jpart
 from autodist_tpu.kernel.synchronization import all_reduce as jar
@@ -111,17 +112,25 @@ _OPTS = {"adamw": (lambda: optax.adamw(1e-3), lambda: optim.adamw(1e-3), STEPS *
          "sgd": (lambda: optax.sgd(0.1), lambda: optim.sgd(0.1), 1e-5)}
 
 
-@pytest.mark.parametrize("opt", sorted(_OPTS))
-def test_three_steps_match_jax_autodist(opt):
-    make_j, make_t, params_atol = _OPTS[opt]
-    batch = _batch()
+def _jax_three_steps(opt):
+    """The JAX engine's losses and final parameter tree (numpy) after STEPS
+    steps of one GPT-tiny block under ``AllReduce()``."""
     # one GPT-tiny block: every op of the model, half the JAX compile
     j_loss_fn, j_params = oracle.gpt_capture(
         dataclasses.replace(jgpt.GPT_TINY, num_layers=1), SEQ)
     j_sess = JAutoDist(resource_spec=JResourceSpec.from_num_chips(1),
                        strategy_builder=JAllReduce()).distribute(
-        j_loss_fn, j_params, make_j(), has_rng=True)
-    j_losses = [float(j_sess.run(batch)["loss"]) for _ in range(STEPS)]
+        j_loss_fn, j_params, _OPTS[opt][0](), has_rng=True)
+    j_losses = [float(j_sess.run(_batch())["loss"]) for _ in range(STEPS)]
+    return j_losses, jax.tree.map(np.asarray, j_sess.params())
+
+
+@pytest.mark.parametrize("opt", sorted(_OPTS))
+def test_three_steps_match_jax_autodist(opt):
+    _, make_t, params_atol = _OPTS[opt]
+    batch = _batch()
+    j_params = oracle.gpt_capture(dataclasses.replace(jgpt.GPT_TINY, num_layers=1), SEQ)[1]
+    j_losses, j_final_tree = worker.result(_jax_three_steps, opt)
 
     t_loss_fn, _, t_sparse = gpt_capture(dataclasses.replace(tgpt.GPT_TINY, num_layers=1),
                                          SEQ, device="cpu")
@@ -136,7 +145,7 @@ def test_three_steps_match_jax_autodist(opt):
     assert t_losses[-1] < t_losses[0] and t_sess.step == STEPS
     final, _ = convert.params_to_jax(
         {convert.jax_to_torch_name(n): t for n, t in t_sess.params().items()})
-    j_final = dict(jax.tree_util.tree_leaves_with_path(j_sess.params()))
+    j_final = dict(jax.tree_util.tree_leaves_with_path(j_final_tree))
     for path, leaf in jax.tree_util.tree_leaves_with_path(final):
         np.testing.assert_allclose(leaf, np.asarray(j_final[path]), atol=params_atol,
                                    rtol=0, err_msg=jax.tree_util.keystr(path))
@@ -170,20 +179,27 @@ def _linear_session(read):
         _linear_loss(read, torch.mean), params, optim.sgd(0.1))
 
 
-@pytest.mark.parametrize("structure", sorted(_NESTED))
-def test_shard_batch_takes_nested_batches(structure):
+def _jax_nested(structure):
+    """The JAX engine's parameters after STEPS sgd steps on the nested batch."""
     make, read = _NESTED[structure]
-    batch = make(_LINEAR_X, _LINEAR_Y)
     j_sess = JAutoDist(resource_spec=JResourceSpec.from_num_chips(1),
                        strategy_builder=JAllReduce()).distribute(
         _linear_loss(read, jnp.mean), {"w": jnp.asarray(_LINEAR_W), "b": jnp.zeros(3)},
         optax.sgd(0.1))
+    for _ in range(STEPS):
+        j_sess.run(make(_LINEAR_X, _LINEAR_Y))
+    return {k: np.asarray(v) for k, v in j_sess.params().items()}
+
+
+@pytest.mark.parametrize("structure", sorted(_NESTED))
+def test_shard_batch_takes_nested_batches(structure):
+    make, read = _NESTED[structure]
+    batch = make(_LINEAR_X, _LINEAR_Y)
     t_sess = _linear_session(read)
     for _ in range(STEPS):
-        j_sess.run(batch)
         t_sess.run(batch)
     assert t_sess.step == STEPS
-    want, got = j_sess.params(), t_sess.params()
+    want, got = worker.result(_jax_nested, structure), t_sess.params()
     for name in ("w", "b"):
         np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]), atol=2e-5,
                                    rtol=0, err_msg=name)
@@ -204,27 +220,42 @@ def test_shard_batch_names_a_leaf_that_is_no_array():
         sess.shard_batch((_LINEAR_X, "labels"))
 
 
-@pytest.mark.parametrize("opt", ["adamw", "sgd_momentum"])
-def test_optimizers_match_optax(opt):
+def _optimizer_case():
     rng = np.random.default_rng(2)
     leaves = [rng.standard_normal(s).astype(np.float32) for s in ((5, 3), (7,))]
     grads = [[rng.standard_normal(x.shape).astype(np.float32) for x in leaves]
              for _ in range(3)]
-    if opt == "adamw":
-        jopt, topt = optax.adamw(0.01), optim.adamw(0.01)
-    else:
-        jopt, topt = optax.sgd(0.05, momentum=0.9), optim.sgd(0.05, momentum=0.9)
+    return leaves, grads
+
+
+def _jax_optimizer(opt):
+    """optax's parameters after the case's three updates."""
+    leaves, grads = _optimizer_case()
+    jopt = optax.adamw(0.01) if opt == "adamw" else optax.sgd(0.05, momentum=0.9)
     jp = [jnp.asarray(x) for x in leaves]
     state = jopt.init(jp)
-    tp = [torch.tensor(x, requires_grad=True) for x in leaves]
-    torch_opt = topt.create(tp)
     for g in grads:
         updates, state = jopt.update([jnp.asarray(x) for x in g], state, jp)
         jp = optax.apply_updates(jp, updates)
+    return [np.asarray(x) for x in jp]
+
+
+worker.submit(*((_jax_three_steps, opt) for opt in sorted(_OPTS)),
+              *((_jax_nested, structure) for structure in sorted(_NESTED)),
+              (_jax_optimizer, "adamw"), (_jax_optimizer, "sgd_momentum"))
+
+
+@pytest.mark.parametrize("opt", ["adamw", "sgd_momentum"])
+def test_optimizers_match_optax(opt):
+    leaves, grads = _optimizer_case()
+    topt = optim.adamw(0.01) if opt == "adamw" else optim.sgd(0.05, momentum=0.9)
+    tp = [torch.tensor(x, requires_grad=True) for x in leaves]
+    torch_opt = topt.create(tp)
+    for g in grads:
         for p, x in zip(tp, g):
             p.grad = torch.from_numpy(x)
         torch_opt.step()
-    for a, b in zip(tp, jp):
+    for a, b in zip(tp, worker.result(_jax_optimizer, opt)):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), atol=1e-6, rtol=0)
 
 

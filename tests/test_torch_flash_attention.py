@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_worker as worker
 from autodist_tpu.ops.pallas import flash_attention as jfa
 from autodist_tpu_torch.ops import flash_attention as tfa
 
@@ -54,7 +55,11 @@ def _inputs(b, sq, sk, h, hkv, d, masked, seed=0):
     return q, k, v, do, mask
 
 
-def _jax_out_and_grads(q, k, v, do, mask, causal):
+def _jax_out_and_grads(case):
+    """The Pallas kernel's output and gradients (interpret mode) on the
+    case's inputs."""
+    b, sq, sk, h, hkv, d, causal, masked = CASES[case]
+    q, k, v, do, mask = _inputs(b, sq, sk, h, hkv, d, masked)
     kv_mask = None if mask is None else jnp.asarray(mask)
 
     def f(q_, k_, v_):
@@ -65,6 +70,9 @@ def _jax_out_and_grads(q, k, v, do, mask, causal):
     (_, out), grads = jax.jit(jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True))(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+worker.submit(*((_jax_out_and_grads, case) for case in sorted(CASES)))
 
 
 def _torch_out_and_grads(q, k, v, do, mask, causal):
@@ -81,7 +89,7 @@ def test_forward_and_grads_match_pallas(case):
     q, k, v, do, mask = _inputs(b, sq, sk, h, hkv, d, masked)
     if not masked:   # no key mask, no bias row
         assert tfa._prepare(*(torch.from_numpy(x) for x in (q, k, v)), None, None)[0] is None
-    j_out, j_grads = _jax_out_and_grads(q, k, v, do, mask, causal)
+    j_out, j_grads = worker.result(_jax_out_and_grads, case)
     t_out, t_grads = _torch_out_and_grads(q, k, v, do, mask, causal)
     np.testing.assert_allclose(t_out, j_out, atol=OUT_ATOL, rtol=0)
     for name, tg, jg in zip("qkv", t_grads, j_grads):

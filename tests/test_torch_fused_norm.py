@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_worker as worker
 from autodist_tpu.models.norm import FusedBatchNorm as JFusedBatchNorm
 from autodist_tpu.models.norm import FusedGroupNorm as JFusedGroupNorm
 from autodist_tpu.ops.pallas import fused_norm as jfn
@@ -55,7 +56,12 @@ def _inputs(shape, seed=0):
     }
 
 
-def _jax_run(inp, groups, act, has_res):
+def _jax_run(case):
+    """The Pallas fused norm (interpret mode): outputs and the gradients of
+    the case's weighted sum."""
+    shape, groups, act, has_res = CASES[case]
+    inp = _inputs(shape)
+
     def loss(x, scale, bias, residual):
         r = residual if has_res else None
         if groups is None:
@@ -93,7 +99,7 @@ def _torch_run(inp, groups, act, has_res):
 def test_forward_and_gradients_match_jax(case):
     shape, groups, act, has_res = CASES[case]
     inp = _inputs(shape)
-    j_outs, j_grads = _jax_run(inp, groups, act, has_res)
+    j_outs, j_grads = worker.result(_jax_run, case)
     t_outs, t_grads = _torch_run(inp, groups, act, has_res)
     for name, a, b in zip(("y", "mean", "var"), t_outs, j_outs):
         np.testing.assert_allclose(a, b, atol=F32_ATOL, rtol=0, err_msg=name)
@@ -103,20 +109,33 @@ def test_forward_and_gradients_match_jax(case):
         assert not j_grads[3].any()
 
 
+def _jax_bf16(groups):
+    """The Pallas fused norm's bf16 forward: (dtype name, output in f32)."""
+    inp = _inputs((2, 9, 7, 40), seed=1)
+    x = jnp.asarray(inp["x"], jnp.bfloat16)
+    scale, bias = jnp.asarray(inp["scale"]), jnp.asarray(inp["bias"])
+    if groups is None:
+        jy = jfn.fused_batch_norm(x, scale, bias)[0]
+    else:
+        jy = jfn.fused_group_norm(x, scale, bias, groups)
+    return str(jy.dtype), np.asarray(jy.astype(jnp.float32))
+
+
+worker.submit(*((_jax_run, case) for case in sorted(CASES)), (_jax_bf16, None), (_jax_bf16, 4))
+
+
 @pytest.mark.parametrize("groups", [None, 4])
 def test_bf16_forward_matches_jax(groups):
     inp = _inputs((2, 9, 7, 40), seed=1)
-    x = jnp.asarray(inp["x"], jnp.bfloat16)
     tx = torch.from_numpy(inp["x"]).bfloat16()
     scale, bias = inp["scale"], inp["bias"]
     if groups is None:
-        jy = jfn.fused_batch_norm(x, jnp.asarray(scale), jnp.asarray(bias))[0]
         ty = tfn.fused_batch_norm(tx, torch.from_numpy(scale), torch.from_numpy(bias))[0]
     else:
-        jy = jfn.fused_group_norm(x, jnp.asarray(scale), jnp.asarray(bias), groups)
         ty = tfn.fused_group_norm(tx, torch.from_numpy(scale), torch.from_numpy(bias), groups)
-    assert ty.dtype == torch.bfloat16 and jy.dtype == jnp.bfloat16
-    jy, ty = np.asarray(jy.astype(jnp.float32)), ty.float().numpy()
+    j_dtype, jy = worker.result(_jax_bf16, groups)
+    assert ty.dtype == torch.bfloat16 and j_dtype == "bfloat16"
+    ty = ty.float().numpy()
     step = BF16_STEP * np.maximum(np.abs(jy), np.abs(ty))
     assert np.all(np.abs(ty - jy) <= step), np.abs(ty - jy).max()
     assert np.mean(ty == jy) > 0.99

@@ -40,6 +40,7 @@ import pytest
 import torch
 
 import torch_jax_oracle as oracle
+import torch_jax_worker as worker
 from autodist_tpu.models import gpt as jgpt
 from autodist_tpu_torch.models import convert
 from autodist_tpu_torch.models import gpt as tgpt
@@ -80,9 +81,9 @@ def _torch_model(ct, jparams):
     return model
 
 
-def test_f32_logits_loss_and_every_gradient_match_flax():
-    cj, ct = _configs(jnp.float32, torch.float32)
-    jparams = _flax_params(1)
+def _jax_f32():
+    """flax's f32 loss, logits and gradient tree on ``_tokens()``."""
+    cj, _ = _configs(jnp.float32, torch.float32)
     tokens, targets = _tokens()
 
     def jloss(p):
@@ -90,7 +91,60 @@ def test_f32_logits_loss_and_every_gradient_match_flax():
         return jgpt.gpt_loss(logits, jnp.asarray(targets)), logits
 
     (j_loss, j_logits), j_grads = jax.jit(
-        jax.value_and_grad(jloss, has_aux=True))(jparams)
+        jax.value_and_grad(jloss, has_aux=True))(_flax_params(1))
+    return float(j_loss), np.asarray(j_logits), jax.tree.map(np.asarray, j_grads)
+
+
+def _jax_bf16_logits():
+    """flax's bf16 logits on ``_tokens(1)``."""
+    cj, _ = _configs(jnp.bfloat16, torch.bfloat16)
+    return np.asarray(jax.jit(jgpt.GPT(cj).apply)(
+        {"params": _flax_params(1)}, jnp.asarray(_tokens(1)[0])))
+
+
+def _jax_hidden():
+    """flax's final hidden states (``return_hidden``) on ``_tokens(2)``."""
+    cj, _ = _configs(jnp.float32, torch.float32)
+    return np.asarray(jax.jit(lambda p, t: jgpt.GPT(cj).apply(
+        {"params": p}, t, return_hidden=True))(_flax_params(1), jnp.asarray(_tokens(2)[0])))
+
+
+def _bf16_params_case(compute, streaming):
+    """(JAX config, port config, capture keywords, batch) of the bf16
+    parameters case."""
+    # one block: every op of the model runs, at half the JAX compile
+    cj = dataclasses.replace(jgpt.GPT_TINY, attention_impl="flash", dtype=getattr(jnp, compute),
+                             num_layers=1)
+    ct = dataclasses.replace(tgpt.GPT_TINY, attention_impl="flash",
+                             dtype=getattr(torch, compute), num_layers=1)
+    kw = dict(streaming_loss=streaming, loss_chunk=128)
+    tokens, targets = _tokens(6)
+    targets[:, -1] = -100
+    return cj, ct, kw, {"tokens": tokens, "targets": targets}
+
+
+def _jax_bf16_params(compute, streaming):
+    """JAX's capture loss and gradient tree with the parameters in bf16."""
+    cj, _, kw, batch = _bf16_params_case(compute, streaming)
+    j_loss_fn, jparams = oracle.gpt_capture(cj, SEQ, **kw)
+    # compiled with each op rounding as it does eagerly: XLA's excess
+    # precision (bf16 intermediates kept in f32) off
+    jl, jg = oracle.value_and_grad(
+        j_loss_fn, jax.tree.map(lambda x: jnp.asarray(x, jnp.bfloat16), jparams),
+        {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0))
+    return float(jl), jax.tree.map(np.asarray, jg)
+
+
+worker.submit((_jax_f32,), (_jax_bf16_logits,), (_jax_hidden,),
+              *((_jax_bf16_params, compute, streaming) for compute in ("float32", "bfloat16")
+                for streaming in (False, True)))
+
+
+def test_f32_logits_loss_and_every_gradient_match_flax():
+    _, ct = _configs(jnp.float32, torch.float32)
+    jparams = _flax_params(1)
+    tokens, targets = _tokens()
+    j_loss, j_logits, j_grads = worker.result(_jax_f32)
 
     model = _torch_model(ct, jparams)
     logits = model(torch.from_numpy(tokens))
@@ -110,11 +164,10 @@ def test_f32_logits_loss_and_every_gradient_match_flax():
 
 
 def test_bf16_forward_matches_flax():
-    cj, ct = _configs(jnp.bfloat16, torch.bfloat16)
+    _, ct = _configs(jnp.bfloat16, torch.bfloat16)
     jparams = _flax_params(1)
     tokens, _ = _tokens(1)
-    j_logits = np.asarray(jax.jit(jgpt.GPT(cj).apply)(
-        {"params": jparams}, jnp.asarray(tokens)))
+    j_logits = worker.result(_jax_bf16_logits)
     with torch.no_grad():
         t_logits = _torch_model(ct, jparams)(torch.from_numpy(tokens)).numpy()
     assert t_logits.dtype == np.float32 and np.isfinite(t_logits).all()
@@ -147,11 +200,10 @@ def test_seeded_init_follows_flax_initialisers():
 
 
 def test_return_hidden_matches_flax():
-    cj, ct = _configs(jnp.float32, torch.float32)
+    _, ct = _configs(jnp.float32, torch.float32)
     jparams = _flax_params(1)
     tokens, _ = _tokens(2)
-    j_hidden = np.asarray(jax.jit(lambda p, t: jgpt.GPT(cj).apply(
-        {"params": p}, t, return_hidden=True))(jparams, jnp.asarray(tokens)))
+    j_hidden = worker.result(_jax_hidden)
     with torch.no_grad():
         t_hidden = _torch_model(ct, jparams)(torch.from_numpy(tokens), return_hidden=True)
     assert t_hidden.dtype == torch.float32 and t_hidden.shape == (B, SEQ, ct.hidden_size)
@@ -161,22 +213,10 @@ def test_return_hidden_matches_flax():
 @pytest.mark.parametrize("streaming", [False, True], ids=["dense", "streaming"])
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
 def test_bf16_params_loss_and_gradients_match_jax(compute, streaming):
-    # one block: every op of the model runs, at half the JAX compile
-    cj = dataclasses.replace(jgpt.GPT_TINY, attention_impl="flash", dtype=getattr(jnp, compute),
-                             num_layers=1)
-    ct = dataclasses.replace(tgpt.GPT_TINY, attention_impl="flash",
-                             dtype=getattr(torch, compute), num_layers=1)
-    kw = dict(streaming_loss=streaming, loss_chunk=128)
-    j_loss_fn, jparams = oracle.gpt_capture(cj, SEQ, **kw)
+    cj, ct, kw, batch = _bf16_params_case(compute, streaming)
+    jparams = oracle.gpt_capture(cj, SEQ, **kw)[1]
     t_loss_fn, _, _ = gpt_capture(ct, SEQ, device="cpu", **kw)
-    tokens, targets = _tokens(6)
-    targets[:, -1] = -100
-    batch = {"tokens": tokens, "targets": targets}
-    # compiled with each op rounding as it does eagerly: XLA's excess
-    # precision (bf16 intermediates kept in f32) off
-    jl, jg = oracle.value_and_grad(
-        j_loss_fn, jax.tree.map(lambda x: jnp.asarray(x, jnp.bfloat16), jparams),
-        {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0))
+    jl, jg = worker.result(_jax_bf16_params, compute, streaming)
     # the same round-to-nearest-even cast of the same f32 weights
     loaded = {convert.torch_to_jax_name(n): t.to(torch.bfloat16).requires_grad_(True)
               for n, t in convert.params_from_jax(jparams).items()}

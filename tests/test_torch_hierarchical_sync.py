@@ -57,6 +57,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 import torch_gloo_ranks as ranks
 import torch_jax_oracle as oracle
+import torch_jax_worker as worker
 from autodist_tpu.autodist import AutoDist as JAutoDist
 from autodist_tpu.kernel import partitioner as jpart
 from autodist_tpu.kernel.synchronization import all_reduce as jar
@@ -118,12 +119,11 @@ def _jbuckets(comp, hierarchy, dcn=0, schedule_ir=""):
                             dict.fromkeys(ranks.HIER_SHAPES, np.dtype(np.float32)))
 
 
-@pytest.fixture(scope="module")
-def jax_sync(gloo):
+def _jax_sync():
     """JAX's two-level syncs of the codec cases and its syncs of the IR
     programs on the same two steps of gradients, in one shard_map, with
     every device's ``axis_index`` of each axis tuple."""
-    inputs, _ = gloo
+    inputs = oracle.world_inputs()
     g1, g2 = inputs["hier_grads"]
     hier = jar.HierAxes(ici=ICI, dcn=(DCN,))
     runs = [(_jbuckets(getattr(_J, c), _J.TWO_LEVEL, d), jar.sync_hierarchical, {"hier": hier})
@@ -159,11 +159,10 @@ def _mlp_loss(p, b):
     return jnp.mean((h @ p["w2"] - b["y"]) ** 2)
 
 
-@pytest.fixture(scope="module")
-def jax_engine(gloo):
+def _jax_engine():
     """The JAX engine's flat runs on 4 devices (2 sgd steps) that the port's
     two-level, overlap and IR runs are held against."""
-    inputs, _ = gloo
+    inputs = oracle.world_inputs()
     out = {}
     for name, kw in (("NoneCompressor", {}), ("BF16Compressor", {}), ("BF16CompressorEF", {}),
                      ("accum", {"accum": 2}),
@@ -178,6 +177,19 @@ def jax_engine(gloo):
             m = sess.run(inputs["mlp_batch"])
         out[name] = ({k: np.asarray(v) for k, v in sess.params().items()}, float(m["loss"]))
     return out
+
+
+worker.submit((_jax_sync,), (_jax_engine,))
+
+
+@pytest.fixture(scope="module")
+def jax_sync():
+    return worker.result(_jax_sync)
+
+
+@pytest.fixture(scope="module")
+def jax_engine():
+    return worker.result(_jax_engine)
 
 
 def _close(got, want, atol, what):

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import torch_jax_oracle as oracle
+import torch_jax_worker as worker
 from autodist_tpu.const import BATCH_MASK_KEY as J_MASK_KEY
 from autodist_tpu.models import gpt as jgpt
 from autodist_tpu.ops.losses import streaming_softmax_xent as jxent
@@ -45,8 +46,7 @@ CAPTURE_LOSS_RTOL, CAPTURE_GRAD_RTOL, CAPTURE_GRAD_ATOL = 1e-5, 5e-4, 2e-5
 SEQ = 16
 
 
-@pytest.fixture(scope="module")
-def data():
+def _data():
     r = np.random.RandomState(0)
     h = r.randn(N, D).astype(np.float32)
     table = (r.randn(V, D) * 0.3).astype(np.float32)
@@ -55,18 +55,51 @@ def data():
     return h, table, t.astype(np.int32)
 
 
-def _both(h, table, t, **kw):
+@pytest.fixture(scope="module")
+def data():
+    return _data()
+
+
+def _case(name, layout="vd"):
+    """(hidden, table, targets, keyword arguments) of a named case on
+    ``_data()``: the table transposed for ``layout="dv"``, the keyword
+    arrays drawn from their seeds."""
+    h, table, t = _data()
+    if layout == "dv":
+        table = np.ascontiguousarray(table.T)
+    kw = {}
+    if name == "bias":
+        kw["bias"] = np.random.RandomState(1).randn(V).astype(np.float32)
+    elif name in ("binary", "fractional"):
+        r = np.random.RandomState(2 if name == "binary" else 3)
+        kw["valid"] = (r.randint(0, 2, N) if name == "binary" else r.rand(N)).astype(np.float32)
+    elif name == "all_ignored":
+        t = np.full((N,), -100, np.int32)
+    return h, table, t, kw
+
+
+def _jax_xent(name, chunk, layout="vd", hidden="float32", table_dtype="float32"):
+    """JAX's loss and (dh, dW) on the named case, the hidden states and the
+    table cast to the dtypes given."""
+    h, table, t, kw = _case(name, layout)
+    jkw = {k: jnp.asarray(v) for k, v in kw.items()}
+    jl, jg = oracle.value_and_grad(
+        lambda a, w: jxent(a, w, jnp.asarray(t), chunk=chunk, layout=layout, **jkw),
+        jnp.asarray(h, getattr(jnp, hidden)), jnp.asarray(table, getattr(jnp, table_dtype)),
+        argnums=(0, 1))
+    return float(jl), [np.asarray(g) for g in jg]
+
+
+def _both(name, chunk, layout="vd"):
     """(JAX loss, port loss, JAX (dh, dW), port (dh, dW)) on the same inputs."""
-    jkw = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
-    tkw = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
-    jh = jnp.asarray(h)
-    jl, jg = oracle.value_and_grad(lambda a, w: jxent(a, w, jnp.asarray(t), **jkw),
-                                   jh, jnp.asarray(table), argnums=(0, 1))
+    h, table, t, kw = _case(name, layout)
+    tkw = {k: torch.from_numpy(v) for k, v in kw.items()}
+    jl, jg = worker.result(_jax_xent, name, chunk, layout)
     th = torch.from_numpy(h).requires_grad_(True)
     tw = torch.from_numpy(table).requires_grad_(True)
-    tl = txent(th, tw, torch.from_numpy(t), **tkw)
+    tl = txent(th, tw, torch.from_numpy(t), chunk=chunk, layout=layout, **tkw)
     tg = torch.autograd.grad(tl, (th, tw))
-    return float(jl), tl.item(), jg, tg
+    return jl, tl.item(), jg, tg
 
 
 def _check_grads(jg, tg):
@@ -78,37 +111,28 @@ def _check_grads(jg, tg):
 @pytest.mark.parametrize("layout", ["vd", "dv"])
 @pytest.mark.parametrize("chunk", [V, 32, 7, 50])
 def test_loss_and_grads_match_jax(data, chunk, layout):
-    h, table, t = data
-    if layout == "dv":
-        table = np.ascontiguousarray(table.T)
-    jl, tl, jg, tg = _both(h, table, t, chunk=chunk, layout=layout)
+    table = data[1]
+    jl, tl, jg, tg = _both("plain", chunk, layout)
     np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
-    assert tg[1].shape == table.shape
+    assert tg[1].shape == (table.shape if layout == "vd" else table.T.shape)
     _check_grads(jg, tg)
 
 
 def test_bias_matches_jax(data):
-    h, table, t = data
-    bias = np.random.RandomState(1).randn(V).astype(np.float32)
-    jl, tl, jg, tg = _both(h, table, t, chunk=32, bias=bias)
+    jl, tl, jg, tg = _both("bias", 32)
     np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
     _check_grads(jg, tg)
 
 
 @pytest.mark.parametrize("kind", ["binary", "fractional"])
 def test_valid_weights_match_jax(data, kind):
-    h, table, t = data
-    r = np.random.RandomState(2 if kind == "binary" else 3)
-    valid = (r.randint(0, 2, N) if kind == "binary" else r.rand(N)).astype(np.float32)
-    jl, tl, jg, tg = _both(h, table, t, chunk=32, valid=valid)
+    jl, tl, jg, tg = _both(kind, 32)
     np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
     _check_grads(jg, tg)
 
 
 def test_all_ignored_is_finite_zero(data):
-    h, table, _ = data
-    t = np.full((N,), -100, np.int32)
-    jl, tl, _, tg = _both(h, table, t, chunk=32)
+    jl, tl, _, tg = _both("all_ignored", 32)
     assert tl == jl == 0.0
     assert all(bool(torch.isfinite(g).all()) and not g.any() for g in tg)
 
@@ -117,10 +141,9 @@ def test_bf16_hidden_matches_jax(data):
     """bf16 activations, the models' dtype: the port promotes to f32 as
     JAX's dot_general does; dh comes back in bf16."""
     h, table, t = data
-    jh = jnp.asarray(h, jnp.bfloat16)
-    jl, jg = oracle.value_and_grad(lambda a, w: jxent(a, w, jnp.asarray(t), chunk=32),
-                                   jh, jnp.asarray(table), argnums=(0, 1))
-    th = torch.from_numpy(np.array(jh.astype(jnp.float32))).to(torch.bfloat16)
+    jl, jg = worker.result(_jax_xent, "plain", 32, "vd", "bfloat16")
+    th = torch.from_numpy(np.array(jnp.asarray(h, jnp.bfloat16).astype(jnp.float32)))
+    th = th.to(torch.bfloat16)
     th.requires_grad_(True)
     tw = torch.from_numpy(table).requires_grad_(True)
     tl = txent(th, tw, torch.from_numpy(t), chunk=32)
@@ -139,9 +162,7 @@ def test_bf16_table_matches_jax(data, hidden, layout):
     h, table, t = data
     if layout == "dv":
         table = np.ascontiguousarray(table.T)
-    jh, jw = jnp.asarray(h, getattr(jnp, hidden)), jnp.asarray(table, jnp.bfloat16)
-    jl, jg = oracle.value_and_grad(lambda a, w: jxent(a, w, jnp.asarray(t), chunk=32,
-                                                      layout=layout), jh, jw, argnums=(0, 1))
+    jl, jg = worker.result(_jax_xent, "plain", 32, layout, hidden, "bfloat16")
     th = torch.from_numpy(h).to(getattr(torch, hidden)).requires_grad_(True)
     tw = torch.from_numpy(table).to(torch.bfloat16).requires_grad_(True)
     tl = txent(th, tw, torch.from_numpy(t), chunk=32, layout=layout)
@@ -153,6 +174,26 @@ def test_bf16_table_matches_jax(data, hidden, layout):
                                    rtol=2 ** -8, atol=GRAD_ATOL)
 
 
+def _gpt_case(mask):
+    """(batch, per-example weights or None) of the capture case."""
+    r = np.random.RandomState(2 if mask else 0)
+    batch = _gpt_batch(r, 4 if mask else 2)
+    weights = np.asarray([1.0, 0.5, 0.25, 0.0], np.float32) if mask else None
+    return batch, weights
+
+
+def _jax_gpt_capture(mask):
+    """JAX's streaming-loss capture: the loss and gradient tree."""
+    batch, weights = _gpt_case(mask)
+    j_loss_fn, j_params = oracle.gpt_capture(jgpt.GPT_TINY, SEQ, streaming_loss=True,
+                                             loss_chunk=128)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    if mask:   # the session's per-example weights, non-binary
+        jb[J_MASK_KEY] = jnp.asarray(weights)
+    jl, jg = oracle.value_and_grad(j_loss_fn, j_params, jb, jax.random.PRNGKey(0))
+    return float(jl), jax.tree.map(np.asarray, jg)
+
+
 def _gpt_batch(r, B):
     toks = r.randint(0, jgpt.GPT_TINY.vocab_size, (B, SEQ))
     tgt = np.roll(toks, -1, axis=1)
@@ -162,18 +203,14 @@ def _gpt_batch(r, B):
 
 @pytest.mark.parametrize("mask", [False, True])
 def test_gpt_capture_streaming_matches_jax(mask):
-    r = np.random.RandomState(2 if mask else 0)
-    batch = _gpt_batch(r, 4 if mask else 2)
-    j_loss_fn, j_params = oracle.gpt_capture(jgpt.GPT_TINY, SEQ, streaming_loss=True,
-                                             loss_chunk=128)
+    batch, weights = _gpt_case(mask)
+    j_params = oracle.gpt_capture(jgpt.GPT_TINY, SEQ, streaming_loss=True, loss_chunk=128)[1]
     t_loss_fn, t_params, _ = gpt_capture(tgpt.GPT_TINY, SEQ, device="cpu",
                                          streaming_loss=True, loss_chunk=128)
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     if mask:   # the session's per-example weights, non-binary
-        weights = np.asarray([1.0, 0.5, 0.25, 0.0], np.float32)
-        jb[J_MASK_KEY], tb[BATCH_MASK_KEY] = jnp.asarray(weights), torch.from_numpy(weights)
-    jl, jg = oracle.value_and_grad(j_loss_fn, j_params, jb, jax.random.PRNGKey(0))
+        tb[BATCH_MASK_KEY] = torch.from_numpy(weights)
+    jl, jg = worker.result(_jax_gpt_capture, mask)
     loaded = {convert.torch_to_jax_name(n): t.requires_grad_(True)
               for n, t in convert.params_from_jax(j_params).items()}
     assert sorted(loaded) == sorted(t_params)
@@ -188,3 +225,13 @@ def test_gpt_capture_streaming_matches_jax(mask):
     for path, g in t_flat:
         np.testing.assert_allclose(g, np.asarray(j_flat[path]), rtol=CAPTURE_GRAD_RTOL,
                                    atol=CAPTURE_GRAD_ATOL, err_msg=jax.tree_util.keystr(path))
+
+
+worker.submit(*((_jax_xent, "plain", chunk, layout) for chunk in (V, 32, 7, 50)
+                for layout in ("vd", "dv")),
+              *((_jax_xent, name, 32, "vd") for name in ("bias", "binary", "fractional",
+                                                          "all_ignored")),
+              (_jax_xent, "plain", 32, "vd", "bfloat16"),
+              *((_jax_xent, "plain", 32, layout, hidden, "bfloat16")
+                for hidden in ("float32", "bfloat16") for layout in ("vd", "dv")),
+              (_jax_gpt_capture, False), (_jax_gpt_capture, True))

@@ -40,6 +40,7 @@ import torch
 
 import torch_gloo_ranks as ranks
 import torch_jax_oracle as oracle
+import torch_jax_worker as worker
 from autodist_tpu.autodist import AutoDist as JAutoDist
 from autodist_tpu.kernel import partitioner as jpart
 from autodist_tpu.model_item import ModelItem as JModelItem
@@ -138,18 +139,30 @@ _OPTS = {"adamw": (lambda: optax.adamw(1e-3), lambda: optim.adamw(1e-3), STEPS *
          "sgd": (lambda: optax.sgd(0.1), lambda: optim.sgd(0.1), 1e-5)}
 
 
-@pytest.mark.parametrize("opt", sorted(_OPTS))
-def test_default_builder_three_steps_match_jax_autodist(opt):
-    make_j, make_t, params_atol = _OPTS[opt]
+def _gpt_batch():
     toks = np.random.default_rng(0).integers(0, jgpt.GPT_TINY.vocab_size,
                                              (B, SEQ + 1)).astype(np.int32)
-    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def _jax_default_three_steps(opt):
+    """The JAX engine's default builder: losses and the final parameter
+    tree (numpy) after STEPS steps of one GPT-tiny block."""
     # one GPT-tiny block: every op of the model, half the JAX compile
     j_loss_fn, j_params = oracle.gpt_capture(
         dataclasses.replace(jgpt.GPT_TINY, num_layers=1), SEQ)
     j_sess = JAutoDist(resource_spec=JResourceSpec.from_num_chips(1)).distribute(
-        j_loss_fn, j_params, make_j(), has_rng=True)
-    j_losses = [float(j_sess.run(batch)["loss"]) for _ in range(STEPS)]
+        j_loss_fn, j_params, _OPTS[opt][0](), has_rng=True)
+    j_losses = [float(j_sess.run(_gpt_batch())["loss"]) for _ in range(STEPS)]
+    return j_losses, jax.tree.map(np.asarray, j_sess.params())
+
+
+@pytest.mark.parametrize("opt", sorted(_OPTS))
+def test_default_builder_three_steps_match_jax_autodist(opt):
+    _, make_t, params_atol = _OPTS[opt]
+    batch = _gpt_batch()
+    j_params = oracle.gpt_capture(dataclasses.replace(jgpt.GPT_TINY, num_layers=1), SEQ)[1]
+    j_losses, j_final_tree = worker.result(_jax_default_three_steps, opt)
 
     t_loss_fn, _, t_sparse = gpt_capture(dataclasses.replace(tgpt.GPT_TINY, num_layers=1),
                                          SEQ, device="cpu")
@@ -168,7 +181,7 @@ def test_default_builder_three_steps_match_jax_autodist(opt):
     assert t_losses[-1] < t_losses[0] and t_sess.step == STEPS
     final, _ = convert.params_to_jax(
         {convert.jax_to_torch_name(n): t for n, t in t_sess.params().items()})
-    j_final = dict(jax.tree_util.tree_leaves_with_path(j_sess.params()))
+    j_final = dict(jax.tree_util.tree_leaves_with_path(j_final_tree))
     for path, leaf in jax.tree_util.tree_leaves_with_path(final):
         np.testing.assert_allclose(leaf, np.asarray(j_final[path]), atol=params_atol,
                                    rtol=0, err_msg=jax.tree_util.keystr(path))
@@ -292,6 +305,47 @@ def _masked_mse(p, batch):
     return jnp.mean(per_ex)
 
 
+def _jax_oracle(case, arg=None):
+    """The single-device optax oracle of a world case on the world's inputs
+    (numpy parameters; the uneven case also the loss after one step, the
+    clip case the unclipped gradient's global norm)."""
+    inputs = oracle.world_inputs()
+
+    def numpy(p):
+        return {k: np.asarray(v) for k, v in p.items()}
+
+    if case == "linear":
+        jopt = optax.sgd(0.1) if arg == "sgd" else optax.adam(0.05)
+        return numpy(_oracle(_linear, jopt, inputs["linear_params"],
+                             jnp.asarray(inputs["linear_batch"]), 3))
+    if case == "accum":
+        return numpy(_oracle(lambda p, b: jnp.mean((b @ p["w"]) ** 2), optax.sgd(0.05),
+                             {"w": np.ones(6, np.float32)}, jnp.asarray(inputs["accum_batch"]),
+                             3))
+    if case == "clip":
+        opt = optax.chain(optax.clip_by_global_norm(ranks.CLIP_NORM), optax.sgd(0.1))
+        exp = _oracle(_linear, opt, inputs["clip_params"], jnp.asarray(inputs["clip_batch"]),
+                      3)
+        g = jax.grad(_linear)({k: jnp.asarray(v) for k, v in inputs["clip_params"].items()},
+                              jnp.asarray(inputs["clip_batch"]))
+        return numpy(exp), float(optax.global_norm(g))
+    if case == "uneven":
+        batch = {"x": jnp.asarray(inputs["uneven_batches"][arg])}
+        exp = _oracle(_masked_mse, optax.sgd(0.1), inputs["uneven_params"], batch, 2)
+        p1 = _oracle(_masked_mse, optax.sgd(0.1), inputs["uneven_params"], batch, 1)
+        return numpy(exp), float(_masked_mse(p1, batch))
+    assert case == "uneven_accum"
+    return numpy(_oracle(_masked_mse, optax.sgd(0.1), inputs["uneven_params"],
+                         {"x": jnp.asarray(inputs["uneven_accum_batch"])}, 1))
+
+
+worker.submit(*((_jax_default_three_steps, opt) for opt in sorted(_OPTS)),
+              (_jax_oracle, "linear", "sgd"), (_jax_oracle, "linear", "adam"),
+              (_jax_oracle, "accum"), (_jax_oracle, "clip"),
+              *((_jax_oracle, "uneven", n) for n in ranks.UNEVEN_SIZES),
+              (_jax_oracle, "uneven_accum"))
+
+
 def _close(got, want, atol):
     for k in want:
         np.testing.assert_allclose(got[k], np.asarray(want[k]), atol=atol, err_msg=k)
@@ -300,10 +354,8 @@ def _close(got, want, atol):
 @pytest.mark.parametrize("opt", ["sgd", "adam"])
 @pytest.mark.parametrize("builder", ranks.PS_BUILDERS)
 def test_value_exact_sync_ps_over_four_ranks(gloo, builder, opt):
-    inputs, results = gloo
-    jopt = optax.sgd(0.1) if opt == "sgd" else optax.adam(0.05)
-    exp = _oracle(_linear, jopt, inputs["linear_params"],
-                  jnp.asarray(inputs["linear_batch"]), 3)
+    _, results = gloo
+    exp = worker.result(_jax_oracle, "linear", opt)
     for res in results:
         got = res["linear", builder, opt]
         assert got["step"] == 3 and np.isfinite(got["loss"])
@@ -316,9 +368,8 @@ def test_value_exact_sync_ps_over_four_ranks(gloo, builder, opt):
 
 @pytest.mark.parametrize("builder", ["AllReduce", "PS"])
 def test_accumulation_matches_single_shot_over_four_ranks(gloo, builder):
-    inputs, results = gloo
-    exp = _oracle(lambda p, b: jnp.mean((b @ p["w"]) ** 2), optax.sgd(0.05),
-                  {"w": np.ones(6, np.float32)}, jnp.asarray(inputs["accum_batch"]), 3)
+    _, results = gloo
+    exp = worker.result(_jax_oracle, "accum")
     for res in results:
         one = res["accum", builder, 1]
         np.testing.assert_allclose(one["params"]["w"], exp["w"], atol=1e-6)
@@ -340,12 +391,9 @@ def test_accumulation_errors_threads_state_and_takes_rng_aux(gloo):
 
 @pytest.mark.parametrize("builder", ["AllReduce", "PS"])
 def test_clip_matches_single_device_over_four_ranks(gloo, builder):
-    inputs, results = gloo
-    opt = optax.chain(optax.clip_by_global_norm(ranks.CLIP_NORM), optax.sgd(0.1))
-    exp = _oracle(_linear, opt, inputs["clip_params"], jnp.asarray(inputs["clip_batch"]), 3)
-    g = jax.grad(_linear)({k: jnp.asarray(v) for k, v in inputs["clip_params"].items()},
-                          jnp.asarray(inputs["clip_batch"]))
-    assert float(optax.global_norm(g)) > 10 * ranks.CLIP_NORM   # clipping engages
+    _, results = gloo
+    exp, grad_norm = worker.result(_jax_oracle, "clip")
+    assert grad_norm > 10 * ranks.CLIP_NORM   # clipping engages
     for res in results:
         got = res["clip", builder]
         _close(got["params"], exp, 1e-5)
@@ -355,11 +403,8 @@ def test_clip_matches_single_device_over_four_ranks(gloo, builder):
 @pytest.mark.parametrize("n", ranks.UNEVEN_SIZES)
 @pytest.mark.parametrize("builder", ["AllReduce", "PS"])
 def test_uneven_batch_value_exact_over_four_ranks(gloo, builder, n):
-    inputs, results = gloo
-    batch = {"x": jnp.asarray(inputs["uneven_batches"][n])}
-    exp = _oracle(_masked_mse, optax.sgd(0.1), inputs["uneven_params"], batch, 2)
-    p1 = _oracle(_masked_mse, optax.sgd(0.1), inputs["uneven_params"], batch, 1)
-    exp_loss = float(_masked_mse(p1, batch))
+    _, results = gloo
+    exp, exp_loss = worker.result(_jax_oracle, "uneven", n)
     for res in results:
         got = res["uneven", builder, n]
         _close(got["params"], exp, 2e-5)
@@ -367,9 +412,8 @@ def test_uneven_batch_value_exact_over_four_ranks(gloo, builder, n):
 
 
 def test_uneven_accumulation_predict_even_batch_and_optin_over_four_ranks(gloo):
-    inputs, results = gloo
-    exp = _oracle(_masked_mse, optax.sgd(0.1), inputs["uneven_params"],
-                  {"x": jnp.asarray(inputs["uneven_accum_batch"])}, 1)
+    _, results = gloo
+    exp = worker.result(_jax_oracle, "uneven_accum")
     for res in results:
         _close(res["uneven_accum"]["params"], exp, 2e-5)
         assert res["predict_shape"] == (10, 3)

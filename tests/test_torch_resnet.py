@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_jax_worker as worker
 from autodist_tpu.autodist import AutoDist as JAutoDist
 from autodist_tpu.model_item import ModelItem as JModelItem
 from autodist_tpu.models import resnet as jresnet
@@ -92,8 +93,7 @@ def _draw(tree, rng):
     return out
 
 
-@pytest.fixture(scope="module")
-def variables():
+def _variables():
     """(norm, stem) -> (params, batch_stats) numpy trees on flax's shapes."""
     out = {}
     for norm, stem in CASES:
@@ -102,6 +102,11 @@ def variables():
         rng = np.random.default_rng(1)
         out[norm, stem] = (_draw(shapes["params"], rng), _draw(shapes.get("batch_stats", {}), rng))
     return out
+
+
+@pytest.fixture(scope="module")
+def variables():
+    return _variables()
 
 
 def _flat(tree):
@@ -122,12 +127,12 @@ def _jax_loss(norm, stem, stats, batch, train):
     return loss
 
 
-@pytest.fixture(scope="module")
-def jax_runs(variables):
+def _jax_runs():
     """(norm, stem, train) -> the JAX package's (loss, logits, new batch
     statistics, gradients) of each parity case: every case lowered, then
     all compiled at once on a thread pool (XLA compiles outside the
     interpreter lock), once for the module."""
+    variables = _variables()
     batch = _batch()
     lowered = {(norm, stem, train): jax.jit(jax.value_and_grad(
         _jax_loss(norm, stem, variables[norm, stem][1], batch, train), has_aux=True)).lower(
@@ -140,6 +145,11 @@ def jax_runs(variables):
         out[norm, stem, train] = (float(value), np.asarray(logits),
                                   _flat(new.get("batch_stats", {})), _flat(grads))
     return out
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    return worker.result(_jax_runs)
 
 
 def _torch_run(norm, stem, params, stats, batch, train):
@@ -225,8 +235,10 @@ def test_allreduce_build_matches_jax(variables):
             == [(n.var_name, n.AllReduceSynchronizer.group) for n in js.node_config])
 
 
-def test_three_steps_with_batch_stats_match_jax_autodist(variables):
-    params, stats = variables["bn_fused", "conv"]
+def _jax_three_steps():
+    """The JAX engine's losses, final parameters and batch statistics after
+    STEPS ``AllReduce`` steps of the fused-norm ResNet on ``_batch(2)``."""
+    params, stats = _variables()["bn_fused", "conv"]
     batch = _batch(2)
     model = _jax_model("bn_fused")
 
@@ -239,7 +251,13 @@ def test_three_steps_with_batch_stats_match_jax_autodist(variables):
                        strategy_builder=JAllReduce()).distribute(
         j_loss_fn, params, jtrain.sgd_momentum(0.01), mutable_state={"batch_stats": stats})
     j_losses = [float(j_sess.run(batch)["loss"]) for _ in range(STEPS)]
+    return j_losses, _flat(j_sess.params()), _flat(j_sess.mutable_state())
 
+
+def test_three_steps_with_batch_stats_match_jax_autodist(variables):
+    params, stats = variables["bn_fused", "conv"]
+    batch = _batch(2)
+    j_losses, j_final, j_mut = worker.result(_jax_three_steps)
     t_loss_fn, t_params, t_state = train_lib.classifier_capture(
         _torch_model("bn_fused"), (HW, HW, 3), device="cpu")
     state = convert.params_from_jax(params, stats)
@@ -252,13 +270,11 @@ def test_three_steps_with_batch_stats_match_jax_autodist(variables):
 
     np.testing.assert_allclose(t_losses, j_losses, rtol=1e-4)
     assert t_losses[-1] < t_losses[0] and t_sess.step == STEPS
-    j_final = _flat(j_sess.params())
     t_final = _flat(convert.params_to_jax(
         {convert.jax_to_torch_name(n): t for n, t in t_sess.params().items()})[0])
     assert list(t_final) == list(j_final)
     for name, t in t_final.items():
         np.testing.assert_allclose(t, j_final[name], atol=STEP_ATOL, rtol=0, err_msg=name)
-    j_mut = _flat(j_sess.mutable_state())
     t_mut = t_sess.mutable_state()
     assert list(t_mut) == list(j_mut) and len(t_mut) == 18
     for name, t in t_mut.items():
@@ -312,6 +328,26 @@ def _resnet18(bn_f32_stats, dtype=torch.bfloat16, seed=0):
                             generator=host_generator(seed))
 
 
+def _resnet18_input():
+    return np.random.RandomState(1).randn(8, 32, 32, 3).astype(np.float32)
+
+
+def _jax_resnet18_logits(f32):
+    """flax's ResNet-18 logits in training mode on the port's seeded
+    weights (``_resnet18(f32)``) and ``_resnet18_input()``."""
+    params, stats = convert.params_to_jax(_resnet18(f32))
+    j_model = jresnet.ResNet18(num_classes=CLASSES, num_filters=8, dtype=jnp.bfloat16,
+                               bn_f32_stats=f32)
+    j_y, _ = jax.jit(lambda p, s, v: j_model.apply(
+        {"params": p, "batch_stats": s}, v, train=True, mutable=["batch_stats"]))(
+        params, stats, _resnet18_input())
+    return np.asarray(j_y, np.float32)
+
+
+worker.submit((_jax_runs,), (_jax_three_steps,), (_jax_resnet18_logits, True),
+              (_jax_resnet18_logits, False))
+
+
 def test_resnet18_bf16_batch_stats_match_jax():
     """ResNet-18 (8 filters, bf16) in training mode on the same weights (the
     port's seeded init, carried to flax) and images, with f32 and with bf16
@@ -322,20 +358,15 @@ def test_resnet18_bf16_batch_stats_match_jax():
     0.1 leaves the bf16 statistics one such gap more.  And, as
     ``tests/test_models.py::test_bf16_bn_stats_close_to_f32``, the port's
     bf16-statistics logits within 0.15 of its f32-statistics ones."""
-    x = np.random.RandomState(1).randn(8, 32, 32, 3).astype(np.float32)
+    x = _resnet18_input()
     logits = {}
     for f32 in (True, False):
         model = _resnet18(f32)
-        params, stats = convert.params_to_jax(model)
-        j_model = jresnet.ResNet18(num_classes=CLASSES, num_filters=8, dtype=jnp.bfloat16,
-                                   bn_f32_stats=f32)
-        j_y, _ = jax.jit(lambda p, s, v: j_model.apply(
-            {"params": p, "batch_stats": s}, v, train=True, mutable=["batch_stats"]))(
-            params, stats, x)
+        j_y = worker.result(_jax_resnet18_logits, f32)
         with torch.no_grad():
             t_y = model(torch.from_numpy(x), train=True, new_state={}).float().numpy()
         assert np.isfinite(t_y).all()
-        np.testing.assert_allclose(t_y, np.asarray(j_y, np.float32), atol=0.1, rtol=0)
+        np.testing.assert_allclose(t_y, j_y, atol=0.1, rtol=0)
         logits[f32] = t_y
     np.testing.assert_allclose(logits[False], logits[True], atol=0.15, rtol=0)
 

@@ -50,6 +50,7 @@ from jax.sharding import Mesh
 
 import torch_gloo_ranks as ranks
 import torch_jax_oracle as oracle
+import torch_jax_worker as worker
 from autodist_tpu.autodist import AutoDist as JAutoDist
 from autodist_tpu.model_item import ModelItem as JModelItem
 from autodist_tpu.models import gpt as jgpt
@@ -118,9 +119,19 @@ def _online_block(q, k, v, m, l, o, q_off, k_off):
             np.asarray(o2).transpose(0, 2, 1, 3).reshape(BH, S, D))
 
 
-@pytest.mark.parametrize("where,m_neg_inf", [("diagonal", False), ("past", False),
-                                             ("future", False), ("diagonal", True),
-                                             ("future", True)])
+BLOCK_CASES = [("diagonal", False), ("past", False), ("future", False), ("diagonal", True),
+               ("future", True)]
+
+
+def _jax_block(where, m_neg_inf):
+    """``flash_block_update`` (interpret mode) and ``_online_block`` on the
+    case's carry, as numpy."""
+    q_off, k_off = OFFSETS[where]
+    args = (*_carry(3, m_neg_inf), q_off, k_off)
+    return ([np.asarray(t) for t in _jax_block_update()(*args)], _online_block(*args))
+
+
+@pytest.mark.parametrize("where,m_neg_inf", BLOCK_CASES)
 def test_block_update_plain_matches_pallas(where, m_neg_inf):
     case = where + (" m=-inf" if m_neg_inf else "")
     q_off, k_off = OFFSETS[where]
@@ -128,7 +139,7 @@ def test_block_update_plain_matches_pallas(where, m_neg_inf):
     got = [t.numpy() for t in tfa.flash_block_update_plain(
         *(torch.from_numpy(a) for a in (q, k, v, m, l, o)), q_off, k_off, causal=True,
         sm_scale=1.0 / np.sqrt(D))]
-    want = _jax_block_update()(q, k, v, m, l, o, q_off, k_off)
+    want, online = worker.result(_jax_block, where, m_neg_inf)
     for name, a, b in zip("mlo", got, want):
         _close(a, b, f"{case} {name} vs flash_block_update")
     if where == "future":   # the carry passes through, m clamped at the floor
@@ -137,9 +148,9 @@ def test_block_update_plain_matches_pallas(where, m_neg_inf):
         np.testing.assert_array_equal(got[2], o)
     if where == "future" and m_neg_inf:   # no key seen yet: m = -1e20, l = 0
         assert (got[0] == np.float32(-1e20)).all() and (got[1] == 0).all()
-        assert np.isnan(_online_block(q, k, v, m, l, o, q_off, k_off)[2]).all()
+        assert np.isnan(online[2]).all()
         return
-    for name, a, b in zip("mlo", got, _online_block(q, k, v, m, l, o, q_off, k_off)):
+    for name, a, b in zip("mlo", got, online):
         _close(a, b, f"{case} {name} vs _online_block")
 
 
@@ -152,16 +163,28 @@ def _jax_dq_dkdv():
     return jax.jit(both)
 
 
-@pytest.mark.parametrize("where", sorted(OFFSETS))
-def test_dq_dkdv_plain_with_offsets_match_pallas(where):
-    q_off, k_off = OFFSETS[where]
+def _dq_inputs():
     rng = np.random.default_rng(7)
     q, k, v, do = (rng.standard_normal((BH, S, D)).astype(np.float32) for _ in range(4))
     s = np.einsum("bqd,bkd->bqk", q, k) / np.sqrt(D)
     lse = (np.log(np.exp(s).sum(-1)) + 0.5).astype(np.float32)   # as if another block too
     delta = rng.standard_normal((BH, S)).astype(np.float32)
     bias = np.zeros((BH // H, S), np.float32)
-    want = _jax_dq_dkdv()(q, k, v, bias, do, lse, delta, q_off, k_off)
+    return q, k, v, do, lse, delta, bias
+
+
+def _jax_dq_dkdv_case(where):
+    """The Pallas dq and dkdv calls (interpret mode) at the case's offsets."""
+    q, k, v, do, lse, delta, bias = _dq_inputs()
+    return [np.asarray(t) for t in _jax_dq_dkdv()(q, k, v, bias, do, lse, delta,
+                                                   *OFFSETS[where])]
+
+
+@pytest.mark.parametrize("where", sorted(OFFSETS))
+def test_dq_dkdv_plain_with_offsets_match_pallas(where):
+    q_off, k_off = OFFSETS[where]
+    q, k, v, do, lse, delta, bias = _dq_inputs()
+    want = worker.result(_jax_dq_dkdv_case, where)
     args = [torch.from_numpy(a) for a in (q, k, v, bias, do, lse, delta)]
     cfg = (H, 1.0 / np.sqrt(D), True, 1, q_off, k_off)
     got = (tfa.flash_dq_plain(*args, *cfg), *tfa.flash_dkdv_plain(*args, *cfg))
@@ -227,7 +250,7 @@ def test_ring_attention_matches_jax_over_gloo(gloo, layout, impl):
     _, results = gloo
     key = ("ring", layout, impl)
     assert sorted(res[key]["size"] for res in results) == [layout[1]] * ranks.WORLD
-    want_out, want_grads = _jax_ring(layout[1])
+    want_out, want_grads = worker.result(_jax_ring, layout[1])
     rows = _stitch(results, key, lambda r: r["out"])
     assert len(rows) == layout[0]
     for got in rows:
@@ -238,18 +261,24 @@ def test_ring_attention_matches_jax_over_gloo(gloo, layout, impl):
                                        err_msg=name)
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_ulysses_matches_jax_over_gloo(gloo, causal):
-    _, results = gloo
+def _jax_ulysses(causal):
+    """JAX's all-to-all attention over the first layout's seq devices."""
     r = ranks.RING_LAYOUTS[0][1]
     q, k, v = (jnp.asarray(a) for a in ranks.qkv(
         (ranks.RING_SHAPE[0], ranks.RING_SHAPE[1], ranks.ULYSSES_HEADS, ranks.RING_SHAPE[3]),
         seed=12))
     mesh = Mesh(np.array(jax.devices()[:r]), ("seq",))
-    want = jax.jit(jax.shard_map(
+    return np.asarray(jax.jit(jax.shard_map(
         lambda a, b, c: jra.all_to_all_attention(a, b, c, "seq", causal=causal),
         mesh=mesh, in_specs=(jax.P(None, "seq"),) * 3, out_specs=jax.P(None, "seq"),
-        check_vma=False))(q, k, v)
+        check_vma=False))(q, k, v))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ulysses_matches_jax_over_gloo(gloo, causal):
+    _, results = gloo
+    r = ranks.RING_LAYOUTS[0][1]
+    want = worker.result(_jax_ulysses, causal)
     blocks = {}
     for res in results:
         blocks.setdefault(res["ulysses", causal]["index"], []).append(
@@ -257,7 +286,7 @@ def test_ulysses_matches_jax_over_gloo(gloo, causal):
     assert sorted(blocks) == list(range(r))
     for i, got in blocks.items():
         for block in got:   # both seq rows hold the same inputs
-            np.testing.assert_allclose(block, np.split(np.asarray(want), r, axis=1)[i],
+            np.testing.assert_allclose(block, np.split(want, r, axis=1)[i],
                                        atol=OUT_ATOL, rtol=0)
 
 
@@ -267,10 +296,11 @@ def test_ulysses_rejects_indivisible_heads(gloo):
         assert "must divide by axis size 2" in res["ulysses_indivisible"]
 
 
-def _jax_gpt_run(inputs, mesh, attention_impl):
-    """The JAX ``AutoDist`` on ``mesh`` over 4 CPU devices: the world GPT's sgd
-    steps on the ranks' weights and batch; (losses, parameters, the JAX
-    transformer's seq axis)."""
+def _jax_gpt_run(mesh_name, attention_impl):
+    """The JAX ``AutoDist`` on ``ranks.<mesh_name>`` over 4 CPU devices: the
+    world GPT's sgd steps on the ranks' weights and batch; (losses,
+    parameters, the JAX transformer's seq axis)."""
+    inputs, mesh = oracle.world_inputs(), getattr(ranks, mesh_name)
     model = jgpt.GPT(dataclasses.replace(oracle.world_gpt(), attention_impl=attention_impl))
 
     def loss_fn(p, batch, step_rng):
@@ -290,8 +320,8 @@ def _jax_gpt_run(inputs, mesh, attention_impl):
 
 
 def test_gpt_tiny_seq_parallel_matches_jax_autodist(gloo):
-    inputs, results = gloo
-    j_losses, j_params, _ = _jax_gpt_run(inputs, ranks.SP_MESH, "flash")
+    _, results = gloo
+    j_losses, j_params, _ = worker.result(_jax_gpt_run, "SP_MESH", "flash")
     for res in results:
         got = res["gpt", "seq"]
         assert got["seq"][1] == ranks.SP_MESH["seq"]
@@ -302,8 +332,8 @@ def test_gpt_tiny_seq_parallel_matches_jax_autodist(gloo):
 
 
 def test_one_axis_seq_mesh_shards_dim_0_like_jax(gloo):
-    inputs, results = gloo
-    j_losses, j_params, j_seq = _jax_gpt_run(inputs, ranks.SEQ_ONLY_MESH, "xla")
+    _, results = gloo
+    j_losses, j_params, j_seq = worker.result(_jax_gpt_run, "SEQ_ONLY_MESH", "xla")
     assert j_seq is None
     assert sorted(res["gpt", "seq_only"]["data_slice"] for res in results) == [
         (r, ranks.WORLD) for r in range(ranks.WORLD)]
@@ -313,6 +343,13 @@ def test_one_axis_seq_mesh_shards_dim_0_like_jax(gloo):
         np.testing.assert_allclose(got["losses"], j_losses, rtol=1e-4)
         for n, a in j_params.items():
             np.testing.assert_allclose(got["params"][n], a, atol=1e-4, rtol=0, err_msg=n)
+
+
+worker.submit(*((_jax_block, where, m_neg_inf) for where, m_neg_inf in BLOCK_CASES),
+              *((_jax_dq_dkdv_case, where) for where in sorted(OFFSETS)),
+              *((_jax_ring, r) for r in sorted({layout[1] for layout in ranks.RING_LAYOUTS})),
+              (_jax_ulysses, False), (_jax_ulysses, True), (_jax_gpt_run, "SP_MESH", "flash"),
+              (_jax_gpt_run, "SEQ_ONLY_MESH", "xla"))
 
 
 def test_seq_parallel_ranks_hold_the_same_parameters(gloo):

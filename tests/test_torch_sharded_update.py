@@ -36,6 +36,7 @@ import torch
 
 import torch_gloo_ranks as ranks
 import torch_jax_oracle as oracle
+import torch_jax_worker as worker
 from autodist_tpu.autodist import AutoDist as JAutoDist
 from autodist_tpu.kernel import partitioner as jpart
 from autodist_tpu.kernel.synchronization import all_reduce as jar
@@ -212,9 +213,9 @@ def _jax_train(inputs, opt="sgd", compressor="NoneCompressor", sharded="replicat
     return {k: np.asarray(v) for k, v in sess.params().items()}, float(m["loss"])
 
 
-@pytest.fixture(scope="module")
-def jax_runs(gloo):
-    inputs, _ = gloo
+def _jax_runs():
+    """The JAX engine's runs of the world's sharded-update cases."""
+    inputs = oracle.world_inputs()
     out = {}
     for opt in ranks.SHARDED_OPTS:
         out["opt", opt] = _jax_train(inputs, opt, sharded="sharded")
@@ -223,6 +224,14 @@ def jax_runs(gloo):
         out["codec", comp] = _jax_train(inputs, compressor=comp, sharded="sharded")
     out["accum"] = _jax_train(inputs, "adam", sharded="sharded", accum=2)
     return out
+
+
+worker.submit((_jax_runs,))
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    return worker.result(_jax_runs)
 
 
 def _close(got, want, atol, what):

@@ -31,6 +31,7 @@ import torch
 
 import torch_gloo_ranks as ranks
 import torch_jax_oracle as oracle
+import torch_jax_worker as worker
 from autodist_tpu.const import BATCH_MASK_KEY as J_MASK_KEY
 from autodist_tpu.models import ncf as jncf
 from autodist_tpu.models import train_lib as jtrain
@@ -85,23 +86,35 @@ def _ncf_batch(seed, n=12):
             "label": (r.rand(n) < 0.5).astype(np.float32)}
 
 
-@pytest.mark.parametrize("mask", [False, True])
-def test_neumf_forward_loss_and_gradients_match_flax(mask):
-    jc, tc = _ncf_configs()
-    jparams = _flax_ncf_params()
-    batch = _ncf_batch(1)
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+def _mask_weights():
+    return (np.arange(12) % 3 != 0).astype(np.float32)
+
+
+def _jax_neumf(mask):
+    """flax's NeuMF loss, logits and gradient tree (numpy) on ``_ncf_batch(1)``."""
+    jc, _ = _ncf_configs()
+    jb = {k: jnp.asarray(v) for k, v in _ncf_batch(1).items()}
     if mask:   # the session's per-example weights
-        w = (np.arange(12) % 3 != 0).astype(np.float32)
-        jb[J_MASK_KEY], tb[BATCH_MASK_KEY] = jnp.asarray(w), torch.from_numpy(w)
+        jb[J_MASK_KEY] = jnp.asarray(_mask_weights())
     model = jncf.NeuMF(jc)
 
     def jloss(p):
         logits = model.apply({"params": p}, jb["user"], jb["item"])
         return jncf.ncf_loss(logits, jb["label"], jb.get(J_MASK_KEY)), logits
 
-    (jl, jlogits), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jparams)
+    (jl, jlogits), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(_flax_ncf_params())
+    return float(jl), np.asarray(jlogits), jax.tree.map(np.asarray, jg)
+
+
+@pytest.mark.parametrize("mask", [False, True])
+def test_neumf_forward_loss_and_gradients_match_flax(mask):
+    _, tc = _ncf_configs()
+    jparams = _flax_ncf_params()
+    batch = _ncf_batch(1)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if mask:   # the session's per-example weights
+        tb[BATCH_MASK_KEY] = torch.from_numpy(_mask_weights())
+    jl, jlogits, jg = worker.result(_jax_neumf, mask)
     tmodel = tncf.NeuMF(tc, device="cpu")
     tmodel.load_state_dict(convert.params_from_jax(jparams))
     logits = tmodel(tb["user"], tb["item"])
@@ -165,6 +178,47 @@ def _sparse_loss(p, batch):
     return jnp.mean((jlookup(p["emb"], batch["ids"]) @ p["proj"]) ** 2)
 
 
+def _jax_sparse(case):
+    """numpy parameters of the sgd oracle on the world's sparse case
+    (``"sparse"``: SPARSE_STEPS on the small table; ``"table"``: 2 on the
+    row-split one)."""
+    inputs = oracle.world_inputs()
+    if case == "sparse":
+        p = _sgd_oracle(_sparse_loss, {"emb": inputs["sparse_table"],
+                                       "proj": inputs["sparse_proj"]},
+                        {"ids": inputs["sparse_ids"]}, ranks.SPARSE_STEPS)
+    else:
+        p = _sgd_oracle(_sparse_loss, inputs["table_params"], {"ids": inputs["table_ids"]}, 2)
+    return {k: np.asarray(v) for k, v in p.items()}
+
+
+def _jax_ncf_world():
+    """flax and optax on one device: the NCF parameter tree (numpy) after
+    NCF_STEPS adam steps on the world's NCF batch and weights."""
+    inputs = oracle.world_inputs()
+    jc, _ = _ncf_configs()
+    jparams, _ = convert.params_to_jax({convert.jax_to_torch_name(n): torch.from_numpy(a.copy())
+                                        for n, a in inputs["ncf_params"].items()})
+    model = jncf.NeuMF(jc)
+    batch = {k: jnp.asarray(v) for k, v in inputs["ncf_batch"].items()}
+
+    def jloss(p):
+        return jncf.ncf_loss(model.apply({"params": p}, batch["user"], batch["item"]),
+                             batch["label"])
+
+    opt = optax.adam(ranks.NCF_LR)
+    p = jax.tree.map(jnp.asarray, jparams)
+    st, grad = opt.init(p), jax.jit(jax.grad(jloss))
+    for _ in range(ranks.NCF_STEPS):
+        u, st = opt.update(grad(p), st, p)
+        p = optax.apply_updates(p, u)
+    return jax.tree.map(np.asarray, p)
+
+
+worker.submit((_jax_neumf, False), (_jax_neumf, True), (_jax_sparse, "sparse"),
+              (_jax_sparse, "table"), (_jax_ncf_world,))
+
+
 def _same_on_every_rank(results, key):
     first = results[0][key]
     for res in results[1:]:
@@ -177,10 +231,8 @@ def _same_on_every_rank(results, key):
 
 @pytest.mark.parametrize("builder", ranks.SPARSE_BUILDERS)
 def test_sparse_embedding_all_strategies_over_four_ranks(gloo, builder):
-    inputs, results = gloo
-    want = _sgd_oracle(_sparse_loss, {"emb": inputs["sparse_table"],
-                                      "proj": inputs["sparse_proj"]},
-                       {"ids": inputs["sparse_ids"]}, ranks.SPARSE_STEPS)
+    _, results = gloo
+    want = worker.result(_jax_sparse, "sparse")
     _same_on_every_rank(results, ("sparse", builder))
     got = results[0]["sparse", builder]
     for k in want:
@@ -191,8 +243,8 @@ def test_sparse_embedding_all_strategies_over_four_ranks(gloo, builder):
 
 
 def test_sharded_lookup_value_exact_large_over_four_ranks(gloo):
-    inputs, results = gloo
-    want = _sgd_oracle(_sparse_loss, inputs["table_params"], {"ids": inputs["table_ids"]}, 2)
+    _, results = gloo
+    want = worker.result(_jax_sparse, "table")
     for res in results:
         got = res["table"]
         assert got["step"] == 2
@@ -230,26 +282,11 @@ def test_ncf_over_four_ranks_matches_one_device(gloo):
     0): equal losses, step 1 against one process's dense loss, and two
     adam steps against flax and optax on one device."""
     inputs, results = gloo
-    jc, tc = _ncf_configs()
+    _, tc = _ncf_configs()
     loss_fn, _, sparse = ncf_capture(tc, device="cpu")
     tparams = {n: torch.from_numpy(a.copy()) for n, a in inputs["ncf_params"].items()}
     dense = loss_fn(tparams, {k: torch.from_numpy(v) for k, v in inputs["ncf_batch"].items()})
-    jparams, _ = convert.params_to_jax({convert.jax_to_torch_name(n): t
-                                        for n, t in tparams.items()})
-    model = jncf.NeuMF(jc)
-    batch = {k: jnp.asarray(v) for k, v in inputs["ncf_batch"].items()}
-
-    def jloss(p):
-        return jncf.ncf_loss(model.apply({"params": p}, batch["user"], batch["item"]),
-                             batch["label"])
-
-    opt = optax.adam(ranks.NCF_LR)
-    p = jax.tree.map(jnp.asarray, jparams)
-    st, grad = opt.init(p), jax.jit(jax.grad(jloss))
-    for _ in range(ranks.NCF_STEPS):
-        u, st = opt.update(grad(p), st, p)
-        p = optax.apply_updates(p, u)
-    want = dict(jax.tree_util.tree_leaves_with_path(p))
+    want = dict(jax.tree_util.tree_leaves_with_path(worker.result(_jax_ncf_world)))
     losses = {}
     for name in ranks.NCF_BUILDERS:
         _same_on_every_rank(results, ("ncf", name))

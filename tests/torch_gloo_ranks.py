@@ -491,8 +491,11 @@ def prestart(jax_gpt_params):
     test module that uses the world calls this when it is imported, so
     the ranks run while pytest collects and runs the tests before it (the
     collection imports JAX, flax and torch on one core); :func:`world`
-    then waits for what is left of their run."""
-    if not _WORLD:
+    then waits for what is left of their run.  The JAX worker process
+    (``torch_jax_worker``), which imports the test modules, starts none."""
+    import torch_jax_worker
+
+    if not _WORLD and not torch_jax_worker.in_worker():
         try:
             _WORLD["launched"] = _launch(jax_gpt_params)
         except Exception as e:

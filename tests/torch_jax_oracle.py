@@ -72,6 +72,14 @@ def world_gpt_params():
     return gpt_capture(world_gpt(), ranks.GPT_SEQ)[1]
 
 
+@functools.lru_cache(maxsize=None)
+def world_inputs():
+    """The gloo world's inputs (``torch_gloo_ranks.make_inputs`` on
+    :func:`world_gpt_params`), made from the same seeds, for JAX results
+    computed apart from the world."""
+    return ranks.make_inputs(world_gpt_params())
+
+
 def value_and_grad(fn, *args, **kw):
     """``jax.value_and_grad(fn, **kw)(*args)``, compiled once for these
     arguments with every bf16 operation rounding as it does eagerly."""
